@@ -6,20 +6,34 @@ Run from the root of a checkout.  Phases, each printing one line (or a
 few) to stdout:
 
   1. environment: torch/CUDA versions, the card's name and power limit,
-     nvcc, the native host libraries and the kernel build time;
+     nvcc, and the kernels and native host libraries, all built at once
+     (one compiler process each), with their build times;
   2. kernel K1 (kmer_tpu_torch/csrc/fused_extract.cu) against its plain
      torch version on the card, bit-exact lane for lane, at the main
      path's shape (B=8192, L=160, k=21, canonical, seg=2, packed rows)
      and at edge cases; both timed on the device with CUDA events (the
      median of 20 samples of 10 back-to-back calls, after warm-up), and
      as a caller sees one synchronised call;
-  3. end to end through kmer_tpu_torch.count_fasta(..., device="cuda"),
-     k=21, canonical, the default KmerConfig, on a seeded E. coli-sized
-     corpus (1M reads of 150 bases from a 4.6 Mbase genome, 0.2% base
-     errors, ~32x coverage): the table total, the kernel's launch count
+  3. kernel K3 (kmer_tpu_torch/csrc/fused_gapped.cu) the same way, at the
+     parity path's shape (B=256, L=416, l=r=27, c in [80, 140], packed
+     rows) and at edge cases (asymmetric windows, u8 rows with ambiguous
+     codes, short lengths and limits, c_max > L, L < c_min, seg 2-16);
+  4. the k=21 path end to end through kmer_tpu_torch.count_fasta(...,
+     device="cuda"), canonical, the default KmerConfig, on a seeded E.
+     coli-sized corpus (1M reads of 150 bases from a 4.6 Mbase genome,
+     0.2% base errors, ~32x coverage): the table total, K1's launch count
      against the batch count, and an independent numpy oracle on the
      first 50,000 reads;
-  4. one JSON line with every kernel of the path, then the result line
+  5. the reference's parity dump of tests/data/sample.fasta on the card:
+     its md5 by count + expand, by the per-batch multiset sort and
+     bounded-memory with 7 spill partitions, each timed;
+  6. the gapped path end to end: count_fasta(..., KmerConfig(gapped=True,
+     batch_reads=256, max_read_len=512), device="cuda") on
+     reference_style_fasta(n_records=4000) (400-base records, ~71.0 M
+     chunks): the table total, K3's launch count against the batch
+     count, sorted unique keys, and the card's table against the CPU's
+     on the first 300 records;
+  7. one JSON line with every kernel of the paths, then the result line
      {"ok": true, "device": {...}} last.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -29,7 +43,9 @@ result line.  Without a CUDA device it fails at once.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures as cf
 import functools
+import hashlib
 import json
 import os
 import subprocess
@@ -44,6 +60,12 @@ K = 21
 MAIN_B, MAIN_L, SEG = 8192, 160, 2
 N_READS, READ_LEN, GENOME_LEN, ERROR_RATE = 1_000_000, 150, 4_600_000, 0.002
 ORACLE_READS = 50_000
+# the gapped path: the reference's windows, parity batches, 400-base
+# records in tight 416-base rows
+GAP = dict(l_len=27, r_len=27, c_min=80, c_max=140)
+GAP_B, GAP_L, GAP_LEN = 256, 416, 400
+GAP_RECORDS, GAP_ORACLE_RECORDS = 4000, 300
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def _say(*parts) -> None:
@@ -259,6 +281,191 @@ def phase_end_to_end(dev, seed: int, tmp: str, n_reads: int = N_READS,
     return launches
 
 
+def gapped_batch(rng, B, L, *, packed, amb, short, full_len=GAP_LEN):
+    """kernel_batch for K3: 1% ambiguous codes (a 54-base window must
+    stay clean often enough to count), full rows of full_len bases."""
+    from kmer_tpu_torch.io.fasta import pack_batch_codes
+    codes = rng.integers(0, 4, (B, L), dtype=np.uint8)
+    if amb:
+        codes[rng.random((B, L)) < 0.01] = 4
+    if short:
+        lengths = rng.integers(0, L + 1, B).astype(np.int32)
+        limits = rng.integers(1, L + 1, B).astype(np.int32)
+    else:
+        lengths = np.full(B, min(full_len, L), np.int32)
+        limits = np.full(B, L, np.int32)
+    c = pack_batch_codes(codes).view(np.int32) if packed else codes
+    return [torch.from_numpy(np.ascontiguousarray(c)),
+            torch.from_numpy(lengths), torch.from_numpy(limits)]
+
+
+def phase_gapped_kernel(dev, seed: int) -> dict:
+    """K3 == plain version, lane for lane, on `dev`; returns K3's JSON
+    record (without the main-path launch count)."""
+    from kmer_tpu_torch.ops.kernels import fused_gapped as fg
+    rng = np.random.default_rng(seed + 1)
+    asym = dict(l_len=13, r_len=9, c_min=30, c_max=40)
+    cases = [  # (B, L, windows, packed, ambiguous, short, seg)
+        (GAP_B, GAP_L, GAP, True, False, False, 2),
+        (1024, 160, asym, True, False, True, 4),
+        (512, GAP_L, GAP, False, True, True, 2),
+        (512, GAP_L, GAP, True, False, True, 8),
+        (512, 120, GAP, False, True, True, 16),      # c_max > L
+        (300, 64, asym, False, True, True, 16),
+        (64, 70, GAP, True, False, False, 2),        # L < c_min: no lanes
+    ]
+    max_err = 0
+    for B, L, win, packed, amb, short, seg in cases:
+        host = gapped_batch(rng, B, L, packed=packed, amb=amb, short=short)
+        kw = dict(win, mask_ambiguous=amb, seg=seg,
+                  packed_width=L if packed else 0)
+        on_dev = [t.to(dev) for t in host]
+        before = fg.launches
+        got = fg.fused_gapped_count(*on_dev, **kw)
+        want = fg.fused_gapped_count_ref(*on_dev, **kw)
+        torch.cuda.synchronize()
+        launched = fg.launches - before
+        err = max((int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                   if g.numel() else 0) for g, w in zip(got, want))
+        shapes_ok = all(g.shape == w.shape for g, w in zip(got, want))
+        live = int((got[2] > 0).sum())
+        no_lanes = L < win["c_min"]
+        _say(f"gapped_kernel_check B={B} L={L} l={win['l_len']} "
+             f"r={win['r_len']} c=[{win['c_min']},{win['c_max']}] "
+             f"packed={packed} ambiguous={amb} short={short} seg={seg} "
+             f"T_pad={got[0].shape[1]} live_lanes={live} launches="
+             f"{launched} max_abs_err={err}")
+        if (err != 0 or not shapes_ok
+                or launched != (0 if no_lanes else 1)
+                or (live == 0) != no_lanes):
+            raise AssertionError(f"K3 != plain version (B={B}, L={L}, "
+                                 f"max_abs_err={err}, live={live})")
+        max_err = max(max_err, err)
+    main = [t.to(dev) for t in gapped_batch(rng, GAP_B, GAP_L, packed=True,
+                                            amb=False, short=False)]
+    kw = dict(GAP, seg=SEG, packed_width=GAP_L)
+    kernel = functools.partial(fg.fused_gapped_count, *main, **kw)
+    plain = functools.partial(fg.fused_gapped_count_ref, *main, **kw)
+    ms, plain_ms = time_ms(kernel), time_ms(plain)
+    host_ms, plain_host_ms = time_host_ms(kernel), time_host_ms(plain)
+    T_pad = kernel()[0].shape[1]
+    lanes = T_pad * GAP_B
+    _say(f"gapped_kernel_time B={GAP_B} L={GAP_L} T_pad={T_pad} "
+         f"kernel_ms={ms} plain_ms={plain_ms} speedup={plain_ms / ms} "
+         f"lanes_per_s={lanes / (ms * 1e-3)} "
+         f"out_GB_per_s={lanes * 17 / (ms * 1e-3) / 1e9} "
+         f"kernel_call_ms={host_ms} plain_call_ms={plain_host_ms} "
+         f"(tolerance: exact, max_abs_err must be 0)")
+    return {"name": "fused_gapped_count", "route": "cuda",
+            "source": fg.SOURCE, "replaces": fg.REPLACES,
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_parity(dev) -> None:
+    """The sample.fasta md5 on `dev` by every parity mode."""
+    import io
+    from kmer_tpu_torch.pipeline.parity import (SAMPLE_FASTA_MD5,
+                                                parity_dump,
+                                                parity_dump_stream)
+    path = os.path.join(REPO, "tests", "data", "sample.fasta")
+    dumps = {}
+    for mode in ("count_expand", "multiset", "bounded"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "bounded":
+            buf = io.BytesIO()
+            parity_dump_stream(path, buf, partitions=7, device=dev)
+            dumps[mode] = buf.getvalue()
+        else:
+            os.environ["KMER_TPU_PARITY"] = mode
+            try:
+                dumps[mode] = parity_dump(path, device=dev)
+            finally:
+                del os.environ["KMER_TPU_PARITY"]
+        wall = time.perf_counter() - t0
+        md5 = hashlib.md5(dumps[mode]).hexdigest()
+        _say(f"parity mode={mode} lines={dumps[mode].count(10)} md5={md5} "
+             f"wall_s={wall}")
+        if md5 != SAMPLE_FASTA_MD5 or dumps[mode] != dumps["count_expand"]:
+            raise AssertionError(f"parity {mode}: md5 {md5} != "
+                                 f"{SAMPLE_FASTA_MD5}")
+
+
+def phase_gapped_end_to_end(dev, seed: int, tmp: str) -> int:
+    """count_fasta(gapped) on `dev`; returns K3's launches in the timed
+    run."""
+    from kmer_tpu_torch import KmerConfig, count_fasta
+    from kmer_tpu_torch.io.fasta import parse_seqs
+    from kmer_tpu_torch.io.generator import reference_style_fasta
+    from kmer_tpu_torch.ops.kernels import fused_gapped as fg
+    from kmer_tpu_torch.pipeline.table import fuse_words
+    from kmer_tpu_torch.utils import stagetime
+    t0 = time.perf_counter()
+    text = reference_style_fasta(n_records=GAP_RECORDS, seed=seed)
+    path = os.path.join(tmp, "gapped.fasta")
+    with open(path, "w") as f:
+        f.write(text)
+    small = os.path.join(tmp, "gapped_small.fasta")
+    with open(small, "w") as f:
+        f.write(reference_style_fasta(n_records=GAP_ORACLE_RECORDS,
+                                      seed=seed))
+    lens = np.diff(parse_seqs(path)[1])
+    c = np.arange(GAP["c_min"], GAP["c_max"] + 1)
+    want_total = int(np.maximum(lens[:, None] - c[None, :] + 1, 0).sum())
+    _say(f"gapped_corpus records={len(lens)} bases={int(lens.sum())} "
+         f"chunks={want_total} bytes={os.path.getsize(path)} seed={seed} "
+         f"make_s={time.perf_counter() - t0}")
+
+    cfg = KmerConfig(gapped=True, batch_reads=GAP_B, max_read_len=512)
+    # the card's table against the plain version's on the CPU (also warms
+    # the pinned-memory pool)
+    got = count_fasta(small, cfg, device=dev)
+    if not (got == count_fasta(small, cfg, device="cpu") and got.total):
+        raise AssertionError("gapped count_fasta on the card != on the CPU "
+                             f"({GAP_ORACLE_RECORDS} records)")
+    _say(f"gapped_cpu_check records={GAP_ORACLE_RECORDS} "
+         f"distinct={got.num_distinct} total={got.total} equal=True")
+
+    want_batches = -(-len(lens) // cfg.batch_reads)
+    times: dict[str, float] = {}
+    torch.cuda.synchronize()
+    fg.launches = 0
+    with stagetime.collect(times):
+        table = count_fasta(path, cfg, device=dev)
+    launches = fg.launches
+    if table.total != want_total:
+        raise AssertionError(f"gapped table total {table.total} != "
+                             f"sum max(len - c + 1, 0) = {want_total}")
+    if launches != want_batches:
+        raise AssertionError(f"K3 launches {launches} != batches "
+                             f"{want_batches}")
+    f = fuse_words(table.keys, table.k)                # (M, 2) [hi, lo]
+    ascending = (f[1:, 0] > f[:-1, 0]) | ((f[1:, 0] == f[:-1, 0])
+                                          & (f[1:, 1] > f[:-1, 1]))
+    if not (ascending.all() and table.counts.min() > 0):
+        raise AssertionError("gapped keys not sorted-unique / counts <= 0")
+    wall = times["total"]
+    _say(f"gapped_end_to_end records={len(lens)} chunks={want_total} "
+         f"distinct={table.num_distinct} batches={want_batches} "
+         f"k3_launches={launches} wall_s={wall} "
+         f"chunks_per_s={want_total / wall}")
+    _say("gapped_stages_s " + json.dumps(times, sort_keys=True))
+    return launches
+
+
+def build_all() -> None:
+    """Build every kernel and native library at once, one compiler
+    process each."""
+    from kmer_tpu_torch.io import fasta
+    from kmer_tpu_torch.ops.kernels import fused_extract as fe
+    from kmer_tpu_torch.ops.kernels import fused_gapped as fg
+    from kmer_tpu_torch.pipeline import nativeagg
+    loaders = (fe.load, fg.load, fasta.load_native, nativeagg.load)
+    with cf.ThreadPoolExecutor(len(loaders)) as ex:
+        for fut in [ex.submit(fn) for fn in loaders]:
+            fut.result()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -272,7 +479,6 @@ def main(argv=None) -> int:
 
     # phase 1: environment and builds
     from kmer_tpu_torch.io import fasta
-    from kmer_tpu_torch.ops.kernels import fused_extract as fe
     from kmer_tpu_torch.pipeline import nativeagg
     from kmer_tpu_torch.utils import build
     _say(f"python={sys.version.split()[0]} torch={torch.__version__} "
@@ -280,21 +486,23 @@ def main(argv=None) -> int:
     _say(_tool(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"]).splitlines()[0])
     _say("nvcc: " + _tool([build.nvcc(), "--version"]).splitlines()[-1])
-    fe.load()
-    fasta.load_native()
-    nativeagg.load()
+    build_all()
     _say(f"native_parser_loaded={fasta.native_loaded()} "
          f"native_aggregator_loaded={nativeagg.native_loaded()} "
          f"build_s={json.dumps(build.build_seconds, sort_keys=True)}")
 
-    # phase 2: kernel against its plain version
-    record = phase_kernel(dev, args.seed)
+    # phases 2-3: each kernel against its plain version
+    k1 = phase_kernel(dev, args.seed)
+    k3 = phase_gapped_kernel(dev, args.seed)
 
-    # phase 3: the main path end to end
+    # phases 4-6: the paths end to end, each kernel's count set to 0
+    # just before its path and read just after
     with tempfile.TemporaryDirectory() as tmp:
-        record["launches"] = phase_end_to_end(dev, args.seed, tmp)
+        k1["launches"] = phase_end_to_end(dev, args.seed, tmp)
+        phase_parity(dev)
+        k3["launches"] = phase_gapped_end_to_end(dev, args.seed, tmp)
 
-    _say(json.dumps({"kernels": [record]}))
+    _say(json.dumps({"kernels": [k1, k3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,21 +1,26 @@
 """kmer_tpu_torch: the k-mer counting engine on PyTorch and CUDA.
 
 A port of kmer_tpu to an NVIDIA H100, one slice at a time; kmer_tpu stays
-beside it as the reference.  This slice is sort-mode counting of
-contiguous k-mers, k <= 31, canonical or not: native ingest to 2-bit
-codes, one hand-written Hopper kernel per batch
-(ops/kernels/fused_extract), and host aggregation into a KmerTable whose
-keys, TSV and .npz match kmer_tpu's bit for bit.
+beside it as the reference.  Ported so far: sort-mode counting of
+contiguous k-mers, k <= 31, canonical or not, and of the reference's
+gapped L+R chunks, with its byte-exact parity dump.  Native ingest to
+2-bit codes, one hand-written Hopper kernel per batch
+(ops/kernels/fused_extract, ops/kernels/fused_gapped), and host
+aggregation into a KmerTable whose keys, TSV and .npz match kmer_tpu's
+bit for bit.
 
-    from kmer_tpu_torch import count_fasta
+    from kmer_tpu_torch import KmerConfig, count_fasta, parity_md5
     table = count_fasta("reads.fasta", k=21, canonical=True, device="cuda")
+    chunks = count_fasta("reads.fasta", KmerConfig(gapped=True))
+    assert parity_md5("tests/data/sample.fasta") == SAMPLE_FASTA_MD5
 """
 
 from .config import KmerConfig
 from .pipeline.count import count_codes, count_fasta, count_files
+from .pipeline.parity import SAMPLE_FASTA_MD5, parity_dump, parity_md5
 from .pipeline.table import KmerTable
 
 __version__ = "0.5.0"
 
 __all__ = ["KmerConfig", "KmerTable", "count_fasta", "count_files",
-           "count_codes"]
+           "count_codes", "parity_dump", "parity_md5", "SAMPLE_FASTA_MD5"]

@@ -1,9 +1,10 @@
 """Command-line interface.
 
   count     FASTA/FASTQ -> sorted "kmer\\tcount" TSV on stdout
+  parity    FASTA -> the reference's exact sorted chunk dump on stdout
 
 The flags are kmer_tpu's for the options this port carries, plus
---device.  The TSV is byte for byte the one `python -m kmer_tpu count`
+--device.  The output is byte for byte the one `python -m kmer_tpu`
 writes for the same input and flags.
 """
 
@@ -44,32 +45,87 @@ def main(argv: list[str] | None = None) -> int:
                     help="also save the table as a .npz (KmerTable.load)")
     pc.add_argument("--stats", action="store_true",
                     help="JSONL per-batch stats on stderr")
-    pc.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                    help="cuda: the Hopper kernel (default); cpu: the "
-                         "plain torch version")
+    pc.add_argument("--gapped", action="store_true",
+                    help="gapped L+R chunks (the reference's window "
+                         "semantics) instead of contiguous k-mers; -k is "
+                         "then ignored")
+    pc.add_argument("--l-len", type=int, default=27,
+                    help="gapped left window length")
+    pc.add_argument("--r-len", type=int, default=27,
+                    help="gapped right window length")
+    pc.add_argument("--c-min", type=int, default=80,
+                    help="gapped minimum chunk span")
+    pc.add_argument("--c-max", type=int, default=140,
+                    help="gapped maximum chunk span")
+    _add_device(pc)
+
+    pp = sub.add_parser("parity", help="reference-parity sorted chunk dump")
+    pp.add_argument("fasta")
+    pp.add_argument("--batch-reads", type=int, default=256)
+    pp.add_argument("--max-read-len", type=int, default=512)
+    pp.add_argument("--bounded", action="store_true",
+                    help="bounded-memory streaming dump: spill "
+                         "per-partition line runs, sort one partition at "
+                         "a time; byte-identical output")
+    pp.add_argument("--spill-dir", default=None,
+                    help="spill directory for --bounded (default: a temp "
+                         "dir, removed afterwards)")
+    pp.add_argument("--partitions", type=int, default=64,
+                    help="spill partitions for --bounded")
+    _add_device(pp)
 
     args = ap.parse_args(argv)
     try:
-        return _count(args)
+        return _parity(args) if args.cmd == "parity" else _count(args)
     except (ValueError, OSError, NotImplementedError) as e:
         print(f"kmer_tpu_torch: error: {e}", file=sys.stderr)
         return 1
 
 
+def _add_device(p) -> None:
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="cuda: the Hopper kernels (default); cpu: their "
+                        "plain torch versions")
+
+
 def _count(args) -> int:
     from .config import KmerConfig
     from .pipeline.count import count_files
-    cfg = KmerConfig(k=args.k, canonical=args.canonical,
-                     batch_reads=args.batch_reads,
-                     max_read_len=max(args.max_read_len, args.k),
-                     skip_invalid=args.skip_invalid or args.min_qual > 0,
-                     min_qual=args.min_qual, stats=args.stats)
+    if args.gapped and args.canonical:
+        raise ValueError("--canonical applies to contiguous k-mers (gapped "
+                         "chunks have no reverse-complement contract)")
+    kw = dict(batch_reads=args.batch_reads,
+              skip_invalid=args.skip_invalid or args.min_qual > 0,
+              min_qual=args.min_qual, stats=args.stats)
+    if args.gapped:
+        cfg = KmerConfig(gapped=True, l_len=args.l_len, r_len=args.r_len,
+                         c_min=args.c_min, c_max=args.c_max,
+                         max_read_len=max(args.max_read_len, args.c_max),
+                         **kw)
+    else:
+        cfg = KmerConfig(k=args.k, canonical=args.canonical,
+                         max_read_len=max(args.max_read_len, args.k), **kw)
     table = count_files(args.fasta, cfg, device=args.device)
     if args.min_count > 1 or args.max_count is not None:
         table = table.filter_count_range(args.min_count, args.max_count)
     if args.out_npz:
         table.save(args.out_npz)
     table.write_tsv(sys.stdout)
+    return 0
+
+
+def _parity(args) -> int:
+    from .config import KmerConfig
+    from .pipeline.parity import parity_dump, parity_dump_stream
+    cfg = KmerConfig(gapped=True, batch_reads=args.batch_reads,
+                     max_read_len=args.max_read_len)
+    if args.bounded:
+        parity_dump_stream(args.fasta, sys.stdout.buffer, cfg,
+                           spill_dir=args.spill_dir,
+                           partitions=args.partitions, device=args.device)
+    else:
+        sys.stdout.buffer.write(parity_dump(args.fasta, cfg,
+                                            device=args.device))
     return 0
 
 

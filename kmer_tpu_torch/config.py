@@ -60,6 +60,13 @@ class KmerConfig:
             raise ValueError(f"unknown mode {self.mode!r}")
         if self.mode == "dense" and self.k > 12:
             raise ValueError("dense mode requires k <= 12")
+        if self.gapped and self.mode == "dense":
+            raise ValueError("gapped mode requires sort mode")
+        if self.gapped and (self.l_len < 1 or self.r_len < 1):
+            raise ValueError("gapped mode needs l_len, r_len >= 1")
+        if self.gapped and self.c_min < self.l_len + self.r_len:
+            raise ValueError("gapped mode needs c_min >= l_len + r_len "
+                             "(non-overlapping L/R windows)")
         if self.max_read_len < self.window_span:
             raise ValueError(f"max_read_len={self.max_read_len} < window "
                              f"span {self.window_span}")
@@ -70,8 +77,9 @@ class KmerConfig:
             raise ValueError("min_qual masks bases to the ambiguous "
                              "code; set skip_invalid=True (CLI: "
                              "--min-qual implies --skip-invalid)")
-        if self.gapped:
-            raise _not_ported("gapped", "7 (gapped counting and parity)")
+        if self.gapped and max(self.l_len, self.r_len) > MAX_K:
+            raise _not_ported(f"gapped l_len/r_len > {MAX_K}",
+                              "15 (gapped windows over 31 bases)")
         if self.seed_mask is not None:
             raise _not_ported("seed_mask", "8 (spaced seeds)")
         if self.compact:
@@ -81,19 +89,19 @@ class KmerConfig:
         if self.device_merge == "on":
             raise _not_ported('device_merge="on"',
                               "11 (device-resident table)")
-        if self.k > MAX_K:
+        if not self.gapped and self.k > MAX_K:
             raise _not_ported(f"k={self.k} > {MAX_K}",
                               "5 (two-word int64 keys, 32 <= k <= 63)")
 
     @property
     def n_bases(self) -> int:
-        """Bases per key (the key width)."""
-        return self.k
+        """Bases per key (the key width): l_len + r_len gapped, else k."""
+        return (self.l_len + self.r_len) if self.gapped else self.k
 
     @property
     def window_span(self) -> int:
         """Longest window the extractor needs in one batch row."""
-        return self.k
+        return self.c_max if self.gapped else self.k
 
     @property
     def overlap(self) -> int:

@@ -12,6 +12,24 @@ from ..ops.encode import BASE_ORDER
 _BASES = np.frombuffer(BASE_ORDER.encode(), dtype=np.uint8)
 
 
+def reference_style_fasta(n_records: int = 200, lines_per_record: int = 5,
+                          line_len: int = 80, pool_size: int = 10,
+                          seed: int = 0) -> str:
+    """Records in the shape of the reference generator's output: each
+    record `lines_per_record` lines drawn from a pool of `pool_size`
+    shared random lines, so gapped chunks recur (multiplicity > 1)."""
+    rng = np.random.default_rng(seed)
+    pool = ["".join(BASE_ORDER[c] for c in rng.integers(0, 4, line_len))
+            for _ in range(pool_size)]
+    buf = _io.StringIO()
+    for i in range(1, n_records + 1):
+        buf.write(f">dummy_sequence_{i:03d} {i}th record\n")
+        for _ in range(lines_per_record):
+            buf.write(pool[int(rng.integers(0, pool_size))])
+            buf.write("\n")
+    return buf.getvalue()
+
+
 def random_reads_fasta(n_reads: int, read_len: int, seed: int = 0) -> str:
     """n_reads uniform-random reads of read_len bp."""
     rng = np.random.default_rng(seed)

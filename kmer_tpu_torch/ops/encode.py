@@ -1,4 +1,4 @@
-"""2-bit DNA base encoding, the int64 key layout, and converters to the
+"""2-bit DNA base encoding, the int64 key layouts, and converters to the
 uint32 word layout of the table layer.
 
 Bases are 2-bit codes from the parser on: A=0, C=1, G=2, T=3, so integer
@@ -11,10 +11,16 @@ and invalid lanes hold SENTINEL_KEY (INT64_MAX), which sorts after every
 real key (at most 62 bits).  torch has no shifts, compares or `where` on
 uint32/uint64, and int64 has all of them.
 
+A gapped L+R key (l_len + r_len <= 62 bases) is the int64 PAIR (hi, lo):
+hi the l-mer value, lo the r-mer value, SENTINEL_KEY in both on invalid
+lanes.  Lexicographic order on (hi, lo) equals numeric order on the key
+value hi * 4**r_len + lo, so a pair sorts as it stands.
+
 The table layer keeps the (M, W) uint32 most-significant-first word
-layout, W = words_per_key(k) (one spare bit above the 2k value bits), so
-tables, TSV and .npz files are the same in every package that uses it.
-keys_i64_to_u32 / keys_u32_to_i64 convert between the two exactly.
+layout, W = words_per_key(n_bases) (one spare bit above the value bits),
+so tables, TSV and .npz files are the same in every package that uses
+it.  keys_i64_to_u32 / keys_u32_to_i64 (one int64) and
+pairs_to_u32 / u32_to_pairs (gapped pairs) convert exactly.
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ BASE_ORDER = "ACGT"
 AMBIG_CODE = np.uint8(4)          # N / IUPAC codes in skip-invalid mode
 SENTINEL_KEY = np.iinfo(np.int64).max
 SENTINEL_WORD = np.uint32(0xFFFFFFFF)
-MAX_K = 31                        # one int64 key word
+MAX_K = 31                        # one int64 key word (kernel K1)
+MAX_KEY_BASES = 63                # the table layer: W <= 4 uint32 words
 
 _LUT = np.full(256, 255, dtype=np.uint8)
 for _i, _b in enumerate(BASE_ORDER):
@@ -48,8 +55,15 @@ def words_per_key(n_bases: int) -> int:
     return (2 * n_bases + 1 + 31) // 32
 
 
+def check_key_width(n_bases: int) -> None:
+    """Key widths the table layer takes: 1..63 bases, W <= 4 words."""
+    if not 1 <= n_bases <= MAX_KEY_BASES:
+        raise ValueError(f"{n_bases}-base keys: the table layer takes 1 "
+                         f"to {MAX_KEY_BASES} bases (W <= 4 words)")
+
+
 def check_k(k: int) -> None:
-    """Keys wider than one int64 word are not ported yet."""
+    """Contiguous keys wider than one int64 word are not ported yet."""
     if not 1 <= k <= MAX_K:
         raise NotImplementedError(
             f"k={k}: only 1 <= k <= {MAX_K} (one int64 key word) is "
@@ -122,6 +136,21 @@ def decode_key_words_to_bytes(words: np.ndarray, n_bases: int) -> np.ndarray:
     return np.frombuffer(raw, dtype=f"S{n_bases}")
 
 
+def decode_key_words_to_lines(words: np.ndarray, n_bases: int) -> bytes:
+    """Batch-decode (M, W) key words into newline-terminated ASCII bytes,
+    n_bases characters + '\\n' a line, in row order (the parity dump)."""
+    words = np.atleast_2d(np.asarray(words, dtype=np.uint32))
+    from ..pipeline.nativeagg import decode_rows
+    rows = decode_rows(words, n_bases, newline=True)
+    if rows is not None:
+        return rows.tobytes()
+    codes = codes_from_key_words(words, n_bases)
+    out = np.empty((codes.shape[0], n_bases + 1), dtype=np.uint8)
+    out[:, :n_bases] = _CODE_TO_ASCII[codes]
+    out[:, n_bases] = ord("\n")
+    return out.tobytes()
+
+
 def unpack_codes_i32(packed: torch.Tensor, L: int) -> torch.Tensor:
     """Inverse of the host 2-bit packer (io.fasta packed batches):
     (B, ceil(L/16)) int32 rows, 16 bases per word with the first base in
@@ -166,3 +195,64 @@ def keys_u32_to_i64(words: np.ndarray, k: int) -> np.ndarray:
         v = (v << np.uint64(32)) | words[:, 1]
     sent = (words == SENTINEL_WORD).all(axis=1)
     return np.where(sent, SENTINEL_KEY, v.view(np.int64))
+
+
+def pairs_to_value(hi: np.ndarray, lo: np.ndarray, r_len: int
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """Gapped (hi, lo) int64 pairs -> the key value hi * 4**r_len + lo as
+    128 bits: (vhi, vlo) uint64.  Sentinel pairs give garbage; callers
+    mask them."""
+    hi = np.asarray(hi, dtype=np.int64).reshape(-1).view(np.uint64)
+    lo = np.asarray(lo, dtype=np.int64).reshape(-1).view(np.uint64)
+    s = 2 * r_len                                    # 2 <= s <= 62
+    return hi >> np.uint64(64 - s), (hi << np.uint64(s)) | lo
+
+
+def value_to_words(vhi: np.ndarray, vlo: np.ndarray, W: int) -> np.ndarray:
+    """128-bit key values (vhi, vlo) uint64 -> (M, W) uint32 words, most
+    significant first (W <= 4; the value must fit 32 W bits)."""
+    chunks = (vlo, vlo >> np.uint64(32), vhi, vhi >> np.uint64(32))
+    out = np.empty((len(vlo), W), np.uint32)
+    for j in range(W):
+        out[:, j] = chunks[W - 1 - j]            # astype cuts to 32 bits
+    return out
+
+
+def pairs_to_u32(hi: np.ndarray, lo: np.ndarray, l_len: int, r_len: int
+                 ) -> np.ndarray:
+    """(M,) gapped int64 pairs -> (M, W) uint32 most-significant-first
+    words, W = words_per_key(l_len + r_len); sentinel pairs (hi ==
+    SENTINEL_KEY) map to all-0xFFFFFFFF words."""
+    n_bases = l_len + r_len
+    check_key_width(n_bases)
+    out = value_to_words(*pairs_to_value(hi, lo, r_len),
+                         words_per_key(n_bases))
+    sent = np.asarray(hi).reshape(-1) == SENTINEL_KEY
+    if sent.any():
+        out[sent] = SENTINEL_WORD
+    return out
+
+
+def u32_to_pairs(words: np.ndarray, l_len: int, r_len: int
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """Inverse of pairs_to_u32: (M, W) uint32 words -> (hi, lo) int64;
+    all-0xFFFFFFFF (sentinel) rows map to SENTINEL_KEY in both."""
+    n_bases = l_len + r_len
+    check_key_width(n_bases)
+    W = words_per_key(n_bases)
+    words = np.asarray(words, dtype=np.uint32)
+    if words.ndim != 2 or words.shape[1] != W:
+        raise ValueError(f"keys of shape {words.shape} are not (M, {W}) "
+                         f"words for {n_bases} bases")
+    u64 = [np.zeros(len(words), np.uint64) for _ in range(2)]   # vhi, vlo
+    for j in range(W):
+        i = W - 1 - j                            # 32-bit chunk index
+        u64[1 - i // 2] |= (words[:, j].astype(np.uint64)
+                            << np.uint64(32 * (i % 2)))
+    vhi, vlo = u64
+    s = np.uint64(2 * r_len)
+    lo = (vlo & ((np.uint64(1) << s) - np.uint64(1))).view(np.int64)
+    hi = ((vlo >> s) | (vhi << (np.uint64(64) - s))).view(np.int64)
+    sent = (words == SENTINEL_WORD).all(axis=1)
+    return (np.where(sent, SENTINEL_KEY, hi),
+            np.where(sent, SENTINEL_KEY, lo))

@@ -1,10 +1,11 @@
 """End-to-end counting pipeline: FASTA -> device batches -> KmerTable.
 
 Single-device pipeline, sort mode.  Each batch goes to the device 2-bit
-packed and runs ONE kernel (ops/kernels/fused_extract: extraction,
-canonical key, validity and the in-segment collapse); its outputs come
-back to pinned host buffers while the device runs the next batch, and
-the host aggregates one batch behind the device.
+packed and runs ONE kernel: contiguous k-mers through
+ops/kernels/fused_extract (extraction, canonical key, validity and the
+in-segment collapse), gapped L+R chunks through ops/kernels/fused_gapped.
+Its outputs come back to pinned host buffers while the device runs the
+next batch, and the host aggregates one batch behind the device.
 """
 
 from __future__ import annotations
@@ -16,11 +17,12 @@ import torch
 
 from ..config import KmerConfig
 from ..io.fasta import iter_batches, iter_parse_chunks, parse_seqs
+from ..ops.kernels import fused_gapped
 from ..ops.kernels.fused_extract import fused_extract_count
 from ..utils import stagetime
 from ..utils.stats import StatsLogger, Timer, prefetch_iter
 from .table import (KmerTable, TableAccumulator, device_run_pairs,
-                    reduce_fused, unfuse_words)
+                    gapped_run_pairs, reduce_fused, unfuse_words)
 
 # positions per in-segment collapse: only changes how many duplicate
 # pairs reach the host, never the table
@@ -53,38 +55,68 @@ def count_step_sort(codes: torch.Tensor, lengths: torch.Tensor,
                                packed_width=packed_width)
 
 
-class _Readback:
-    """One batch's outputs on their way to the host.  On a GPU they are
-    copied into pinned buffers on the compute stream, and an event marks
-    the end of the copy, so the host can wait for THIS batch alone while
-    the device works on the next."""
+def gapped_step_sort(codes: torch.Tensor, lengths: torch.Tensor,
+                     limits: torch.Tensor, *, c_min: int, c_max: int,
+                     l_len: int = 27, r_len: int = 27,
+                     mask_ambiguous: bool = False, packed_width: int = 0):
+    """One device batch of gapped L+R chunks (reference semantics: every
+    chunk size c in [c_min, c_max] and offset o with o + c <= len):
+    (hi, lo (B, T_pad) int64, counts (B, T_pad) int8) under the
+    partial-aggregation contract.  Runs on the device the tensors lie
+    on."""
+    return fused_gapped.fused_gapped_count(
+        codes, lengths, limits, l_len=l_len, r_len=r_len, c_min=c_min,
+        c_max=c_max, mask_ambiguous=mask_ambiguous, seg=SEG,
+        packed_width=packed_width)
 
-    def __init__(self, keys: torch.Tensor, counts: torch.Tensor):
-        if keys.device.type == "cuda":
-            self.keys = torch.empty(keys.shape, dtype=keys.dtype,
-                                    pin_memory=True)
-            self.counts = torch.empty(counts.shape, dtype=counts.dtype,
-                                      pin_memory=True)
-            self.keys.copy_(keys, non_blocking=True)
-            self.counts.copy_(counts, non_blocking=True)
+
+class _Readback:
+    """One batch's output planes on their way to the host.  On a GPU
+    they are copied into pinned buffers on the compute stream, and an
+    event marks the end of the copy, so the host can wait for THIS batch
+    alone while the device works on the next."""
+
+    def __init__(self, planes: tuple[torch.Tensor, ...]):
+        if planes[0].device.type == "cuda":
+            self.planes = tuple(torch.empty(p.shape, dtype=p.dtype,
+                                            pin_memory=True) for p in planes)
+            for host, dev in zip(self.planes, planes):
+                host.copy_(dev, non_blocking=True)
             self.event = torch.cuda.Event()
             self.event.record()
         else:
-            self.keys, self.counts, self.event = keys, counts, None
+            self.planes, self.event = planes, None
 
     def wait(self) -> None:
         if self.event is not None:
             self.event.synchronize()
 
-    def pairs(self) -> tuple[np.ndarray, np.ndarray]:
-        """Live (uint64 key, int64 count) pairs; call after wait()."""
-        return device_run_pairs(self.keys.numpy(), self.counts.numpy())
+    def host(self) -> list[np.ndarray]:
+        """The planes as numpy arrays; call after wait()."""
+        return [p.numpy() for p in self.planes]
 
 
 def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     # from pageable memory the copy is staged before this returns, so the
     # numpy buffer may be reused at once
     return torch.from_numpy(a).to(dev, non_blocking=True)
+
+
+def device_batches(codes: np.ndarray, offsets: np.ndarray, cfg: KmerConfig,
+                   packed: bool):
+    """The fixed-shape device batches of one parsed chunk, at the tight
+    width: the chunk's longest record rounded up to 32, floored at the
+    window span (c_max for gapped chunks) and capped at the gapped
+    kernel's widest row.  Longer records split with overlap seams, so
+    the table does not depend on the width."""
+    max_len = cfg.max_read_len
+    if len(offsets) > 1:
+        longest = int(np.max(np.diff(offsets)))
+        max_len = min(max_len, -(-max(longest, cfg.window_span) // 32) * 32)
+    if cfg.gapped:
+        max_len = min(max_len, fused_gapped.MAX_ROW)
+    return iter_batches(codes, offsets, batch_reads=cfg.batch_reads,
+                        max_len=max_len, overlap=cfg.overlap, packed=packed)
 
 
 def count_codes(codes: np.ndarray, offsets: np.ndarray, cfg: KmerConfig,
@@ -100,6 +132,23 @@ def count_codes(codes: np.ndarray, offsets: np.ndarray, cfg: KmerConfig,
     log = stats or StatsLogger(enabled=cfg.stats)
     k = cfg.n_bases
     n_batches = 0
+    if cfg.gapped:
+        def step(codes_d, lengths_d, limits_d, pw):
+            return gapped_step_sort(codes_d, lengths_d, limits_d,
+                                    c_min=cfg.c_min, c_max=cfg.c_max,
+                                    l_len=cfg.l_len, r_len=cfg.r_len,
+                                    mask_ambiguous=cfg.skip_invalid,
+                                    packed_width=pw)
+
+        def run_pairs(hi, lo, counts):
+            return gapped_run_pairs(hi, lo, counts, cfg.r_len, k)
+    else:
+        def step(codes_d, lengths_d, limits_d, pw):
+            return count_step_sort(codes_d, lengths_d, limits_d, k=k,
+                                   canonical=cfg.canonical,
+                                   mask_ambiguous=cfg.skip_invalid,
+                                   packed_width=pw)
+        run_pairs = device_run_pairs
 
     # buffered flush schedule: batch pairs are bulk-merged (one sort over
     # many batches) on a background thread once flush_pairs accumulate;
@@ -143,7 +192,7 @@ def count_codes(codes: np.ndarray, offsets: np.ndarray, cfg: KmerConfig,
         with stagetime.stage("readback"):
             rb.wait()
         with stagetime.stage("table_build"):
-            part = rb.pairs()
+            part = run_pairs(*rb.host())
         parts.append(part)
         buffered += len(part[1])
         if buffered >= flush_pairs:
@@ -152,28 +201,17 @@ def count_codes(codes: np.ndarray, offsets: np.ndarray, cfg: KmerConfig,
     # 2-bit packed host-to-device copy; the ambiguity code needs a third
     # bit, so skip-invalid mode ships u8 rows
     packed = cfg.packed_transfer and not cfg.skip_invalid
-    # tight batch width: this chunk's longest record rounded up to 32,
-    # floored at the window span; longer records split with overlap
-    # seams, so the table does not depend on the width
-    max_len = cfg.max_read_len
-    if len(offsets) > 1:
-        longest = int(np.max(np.diff(offsets)))
-        max_len = min(max_len, -(-max(longest, cfg.window_span) // 32) * 32)
     pending = None
     try:
-        for batch in stagetime.stage_iter("batch_prep", iter_batches(
-                codes, offsets, batch_reads=cfg.batch_reads,
-                max_len=max_len, overlap=cfg.overlap, packed=packed)):
+        for batch in stagetime.stage_iter("batch_prep", device_batches(
+                codes, offsets, cfg, packed)):
             with Timer() as t:
                 with stagetime.stage("dispatch"):
                     bc = batch.codes.view(np.int32) if packed else batch.codes
-                    keys, counts = count_step_sort(
+                    rb = _Readback(step(
                         _to_device(bc, dev), _to_device(batch.lengths, dev),
-                        _to_device(batch.start_limits, dev), k=k,
-                        canonical=cfg.canonical,
-                        mask_ambiguous=cfg.skip_invalid,
-                        packed_width=batch.packed_width)
-                    rb = _Readback(keys, counts)
+                        _to_device(batch.start_limits, dev),
+                        batch.packed_width))
                 if pending is not None:
                     take(pending)
                 pending = rb

@@ -56,27 +56,23 @@ def _threads() -> int:
     return min(os.cpu_count() or 1, 16)
 
 
-def aggregate_fused(fused_ls: list[np.ndarray], counts: np.ndarray
-                    ) -> tuple[list[np.ndarray], np.ndarray] | None:
-    """Aggregate from_pairs' fused-uint64 columns natively.
+def aggregate_fused(fused: np.ndarray, counts: np.ndarray
+                    ) -> tuple[np.ndarray, np.ndarray] | None:
+    """Aggregate fused keys natively (pipeline/table.fuse_words layout).
 
-    fused_ls: 1 or 2 uint64 columns, LEAST significant first; counts:
-    (n,) int64.  Returns (cols_ms, counts) -- unique keys ascending,
-    columns MOST significant first -- or None when n < MIN_N (the numpy
-    path is faster there) or the native call reports an error."""
+    fused: (n,) uint64 key values, or (n, 2) uint64 [high, low] halves
+    (the native library's most-significant-first layout as it stands);
+    counts: (n,) int64.  Returns (keys, counts) -- unique keys ascending,
+    in the input's layout -- or None when n < MIN_N (the numpy path is
+    faster there) or the native call reports an error."""
     n = len(counts)
-    if n < MIN_N or len(fused_ls) > 2:
+    if n < MIN_N:
         return None
     lib = load()
-    nw = len(fused_ls)
-    if nw == 1:
-        keys = np.ascontiguousarray(fused_ls[0], np.uint64)
-    else:
-        keys = np.empty((n, 2), np.uint64)
-        keys[:, 0] = fused_ls[1]       # most significant word first
-        keys[:, 1] = fused_ls[0]
+    keys = np.ascontiguousarray(fused, np.uint64)
+    nw = 1 if keys.ndim == 1 else 2
     counts = np.ascontiguousarray(counts, np.int64)
-    out_k = np.empty_like(keys).reshape(n, nw)
+    out_k = np.empty_like(keys)
     out_c = np.empty(n, np.int64)
     m = lib.aggregate_pairs(keys.ctypes.data_as(_u64p),
                             counts.ctypes.data_as(_i64p), n, nw, _threads(),
@@ -85,11 +81,7 @@ def aggregate_fused(fused_ls: list[np.ndarray], counts: np.ndarray
     if m < 0:
         return None            # bad arguments / out of memory: numpy path
     # copy the live prefix so the n-row scratch is not pinned by a view
-    out_k = out_k[:m].copy()
-    out_c = out_c[:m].copy()
-    if nw == 1:
-        return [out_k.reshape(-1)], out_c
-    return [out_k[:, 0], out_k[:, 1]], out_c
+    return out_k[:m].copy(), out_c[:m].copy()
 
 
 def _check_words(words: np.ndarray, n_bases: int) -> np.ndarray | None:

@@ -3,10 +3,12 @@
 KmerTable stores the same (M, W) uint32 most-significant-first key words
 as kmer_tpu.pipeline.table.KmerTable (ops/encode layout), so two tables
 compare with ==, write the same TSV and save the same .npz in both
-packages.  Aggregation works on keys FUSED into one uint64 column: for
-k <= 31 (W <= 2) the fused column (w0 << 32 | w1) is exactly the int64
-key the device step emits, so device output needs no conversion before
-the sort.
+packages.  Aggregation works on keys FUSED into uint64: one (M,) column
+for W <= 2 (up to 31 bases), an (M, 2) most-significant-first matrix for
+W = 3, 4 (up to 63 bases; kmer_tpu's two fused columns).  A fused key is
+the key value itself, so the k <= 31 device output (one int64) needs no
+conversion, and a gapped pair (hi, lo) converts with two shifts
+(ops/encode.pairs_to_value).
 """
 
 from __future__ import annotations
@@ -16,54 +18,64 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..ops.encode import check_k, decode_key_words, words_per_key
+from ..ops.encode import (check_key_width, decode_key_words, pairs_to_value,
+                          value_to_words, words_per_key)
 
 
 def fuse_words(keys: np.ndarray, k: int) -> np.ndarray:
-    """(M, W) uint32 key words -> (M,) uint64 key values (W <= 2)."""
+    """(M, W) uint32 key words -> (M,) uint64 key values (W <= 2) or
+    (M, 2) uint64 [high, low] halves (W = 3, 4)."""
     W = words_per_key(k)
     keys = np.ascontiguousarray(keys, dtype=np.uint32).reshape(-1, W)
     if W == 1:
         return keys[:, 0].astype(np.uint64)
-    if sys.byteorder == "little":
+    if W == 2 and sys.byteorder == "little":
         # the uint64 view reads (w0 | w1 << 32); a 32-bit rotate swaps it
         v = keys.view(np.uint64).reshape(-1)
         return (v >> np.uint64(32)) | (v << np.uint64(32))
-    return (keys[:, 0].astype(np.uint64) << np.uint64(32)) | keys[:, 1]
+    u = keys.astype(np.uint64)
+    lo = (u[:, W - 2] << np.uint64(32)) | u[:, W - 1]
+    if W == 2:
+        return lo
+    hi = u[:, 0] if W == 3 else (u[:, 0] << np.uint64(32)) | u[:, 1]
+    return np.stack([hi, lo], axis=1)
 
 
 def unfuse_words(fused: np.ndarray, k: int) -> np.ndarray:
-    """Inverse of fuse_words: (M,) uint64 -> (M, W) uint32."""
+    """Inverse of fuse_words: uint64 values -> (M, W) uint32."""
     W = words_per_key(k)
-    if W == 1:
-        return fused.astype(np.uint32).reshape(-1, 1)
-    if sys.byteorder == "little":
+    if W == 2 and sys.byteorder == "little":
         rot = (fused >> np.uint64(32)) | (fused << np.uint64(32))
         return np.ascontiguousarray(rot.view(np.uint32).reshape(-1, 2))
-    kb = np.empty((len(fused), 2), np.uint32)
-    kb[:, 0] = fused >> np.uint64(32)
-    kb[:, 1] = fused.astype(np.uint32)
-    return kb
+    if W <= 2:
+        return value_to_words(np.zeros_like(fused), fused, W)
+    return value_to_words(fused[:, 0], fused[:, 1], W)
 
 
 def reduce_fused(fused: np.ndarray, counts: np.ndarray
                  ) -> tuple[np.ndarray, np.ndarray]:
-    """Unsorted (uint64 key, int64 count) pairs -> (sorted unique keys,
+    """Unsorted (fused key, int64 count) pairs -> (sorted unique keys,
     summed counts).  Large inputs go to the native bucket-parallel
-    sort-reduce (pipeline/nativeagg); small ones to one numpy argsort."""
+    sort-reduce (pipeline/nativeagg); small ones to one numpy sort."""
     counts = np.asarray(counts, dtype=np.int64)
     if len(counts) == 0:
-        return np.zeros(0, np.uint64), np.zeros(0, np.int64)
+        return fused[:0], np.zeros(0, np.int64)
     from .nativeagg import aggregate_fused
-    nat = aggregate_fused([fused], counts)
+    nat = aggregate_fused(fused, counts)
     if nat is not None:
-        cols_ms, merged = nat
-        return cols_ms[0], merged
-    order = np.argsort(fused)              # unstable is fine: equal keys
-    fs = fused[order]                      # are identical
-    new_run = np.empty(len(fs), bool)
-    new_run[0] = True
-    np.not_equal(fs[1:], fs[:-1], out=new_run[1:])
+        return nat
+    if fused.ndim == 1:
+        order = np.argsort(fused)          # unstable is fine: equal keys
+        fs = fused[order]                  # are identical
+        new_run = np.empty(len(fs), bool)
+        new_run[0] = True
+        np.not_equal(fs[1:], fs[:-1], out=new_run[1:])
+    else:
+        order = np.lexsort((fused[:, 1], fused[:, 0]))
+        fs = fused[order]
+        new_run = np.empty(len(fs), bool)
+        new_run[0] = True
+        np.any(fs[1:] != fs[:-1], axis=1, out=new_run[1:])
     if int(np.count_nonzero(new_run)) == len(fs):
         return fs, counts[order]           # all distinct: nothing to sum
     starts = np.flatnonzero(new_run)
@@ -121,7 +133,7 @@ class KmerTable:
     @staticmethod
     def from_fused(k: int, fused: np.ndarray, counts: np.ndarray
                    ) -> "KmerTable":
-        """Aggregate unsorted fused-uint64 (key, count) pairs."""
+        """Aggregate unsorted fused (key, count) pairs."""
         fu, merged = reduce_fused(fused, counts)
         return KmerTable(k, unfuse_words(fu, k), merged)
 
@@ -138,7 +150,7 @@ class KmerTable:
                    ) -> "KmerTable":
         """Aggregate unsorted (key words, count) pairs into a sorted
         unique table: one sort + run-sum over the fused uint64 keys."""
-        check_k(k)
+        check_key_width(k)
         W = words_per_key(k)
         keys = np.asarray(keys, dtype=np.uint32)
         if keys.ndim == 2 and keys.shape[0] and keys.shape[1] != W:
@@ -188,6 +200,18 @@ def device_run_pairs(keys, counts) -> tuple[np.ndarray, np.ndarray]:
     counts = np.asarray(counts).reshape(-1)
     live = counts > 0
     return keys[live].view(np.uint64), counts[live].astype(np.int64)
+
+
+def gapped_run_pairs(hi, lo, counts, r_len: int, n_bases: int
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """device_run_pairs for the gapped step's (hi, lo) int64 pairs: the
+    live lanes as fused key values (fuse_words' layout for n_bases)."""
+    counts = np.asarray(counts).reshape(-1)
+    live = counts > 0
+    vhi, vlo = pairs_to_value(np.asarray(hi).reshape(-1)[live],
+                              np.asarray(lo).reshape(-1)[live], r_len)
+    fused = vlo if words_per_key(n_bases) <= 2 else np.stack([vhi, vlo], 1)
+    return fused, counts[live].astype(np.int64)
 
 
 class TableAccumulator:

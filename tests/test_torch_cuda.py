@@ -1,6 +1,6 @@
-"""The CUDA kernel K1 against its plain torch version, and the whole
-count on the card against the count on the CPU.  Every test here needs a
-GPU and skips without one.  This file imports neither jax nor kmer_tpu,
+"""The CUDA kernels K1 and K3 against their plain torch versions, and
+the whole count and parity dump on the card against the CPU.  Every test
+here needs a GPU and skips without one.  This file imports neither jax nor kmer_tpu,
 so it also runs on a machine that has only the port:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -12,8 +12,10 @@ import torch
 
 import kmer_tpu_torch
 from kmer_tpu_torch.io.fasta import pack_batch_codes
-from kmer_tpu_torch.io.generator import genome_reads_fasta
+from kmer_tpu_torch.io.generator import (genome_reads_fasta,
+                                         reference_style_fasta)
 from kmer_tpu_torch.ops.kernels import fused_extract as fe
+from kmer_tpu_torch.ops.kernels import fused_gapped as fg
 
 pytestmark = pytest.mark.cuda
 
@@ -76,3 +78,64 @@ def test_count_fasta_cuda_equals_cpu(cuda, tmp_path):
     assert got == want and got.total == 300 * 130
     # 150-base reads in 96-base rows: two rows a read, 64 rows a batch
     assert fe.launches == -(-300 * 2 // 64)
+
+
+@pytest.mark.parametrize("llen,rlen,cmin,cmax,L,amb,seg,packed", [
+    (27, 27, 80, 140, 416, False, 2, True),    # the parity shape
+    (13, 9, 30, 40, 64, False, 4, True),       # asymmetric windows
+    (27, 27, 80, 140, 300, True, 2, False),    # u8 rows, ambiguous codes
+    (13, 9, 30, 40, 36, True, 8, False),       # c_max > L
+    (5, 5, 10, 30, 57, False, 16, True),       # many chunk sizes a tile
+    (27, 27, 54, 60, 96, True, 16, False),
+])
+def test_gapped_kernel_equals_plain(cuda, llen, rlen, cmin, cmax, L, amb,
+                                    seg, packed):
+    rng = np.random.default_rng(L + seg)
+    B = 70
+    codes = rng.integers(0, 4, (B, L), dtype=np.uint8)
+    if amb:
+        codes[rng.random((B, L)) < 0.01] = 4
+    lengths = rng.integers(0, L + 1, B).astype(np.int32)
+    lengths[:3] = 0                   # zero-length padding rows
+    lengths[3:6] = L
+    limits = rng.integers(1, L + 1, B).astype(np.int32)
+    limits[3:6] = L
+    host = [torch.from_numpy(pack_batch_codes(codes).view(np.int32)
+                             if packed else codes),
+            torch.from_numpy(lengths), torch.from_numpy(limits)]
+    kw = dict(l_len=llen, r_len=rlen, c_min=cmin, c_max=cmax,
+              mask_ambiguous=amb, seg=seg, packed_width=L if packed else 0)
+    want = fg.fused_gapped_count(*host, **kw)
+    before = fg.launches
+    got = fg.fused_gapped_count(*(t.to(cuda) for t in host), **kw)
+    torch.cuda.synchronize()
+    assert fg.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int((want[2] > 0).sum()) > 0
+
+
+def test_gapped_kernel_no_lanes(cuda):
+    """A row narrower than c_min has no lanes: an empty result and no
+    launch."""
+    codes = torch.zeros((8, 60), dtype=torch.uint8, device=cuda)
+    lens = torch.full((8,), 60, dtype=torch.int32, device=cuda)
+    before = fg.launches
+    hi, lo, counts = fg.fused_gapped_count(codes, lens, lens, l_len=27,
+                                           r_len=27, c_min=80, c_max=140)
+    assert hi.shape == lo.shape == counts.shape == (8, 0)
+    assert fg.launches == before
+
+
+def test_gapped_count_and_parity_cuda_equal_cpu(cuda, tmp_path):
+    path = tmp_path / "r.fasta"
+    path.write_text(reference_style_fasta(n_records=40, seed=5))
+    cfg = kmer_tpu_torch.KmerConfig(gapped=True, batch_reads=16,
+                                    max_read_len=512)
+    want = kmer_tpu_torch.count_fasta(str(path), cfg, device="cpu")
+    fg.launches = 0
+    got = kmer_tpu_torch.count_fasta(str(path), cfg, device="cuda")
+    assert got == want and got.total == 40 * 17751
+    assert fg.launches == 3           # 40 records, 16 rows a batch
+    assert (kmer_tpu_torch.parity_dump(str(path), cfg, device="cuda")
+            == kmer_tpu_torch.parity_dump(str(path), cfg, device="cpu"))

@@ -72,7 +72,8 @@ def test_encode_and_decode_match_reference():
             jenc.decode_key_words_to_bytes(words, k))
 
 
-@pytest.mark.parametrize("kw", [dict(k=32), dict(k=63), dict(gapped=True),
+@pytest.mark.parametrize("kw", [dict(k=32), dict(k=63),
+                                dict(gapped=True, l_len=32, c_min=80),
                                 dict(seed_mask="11011"), dict(compact=True),
                                 dict(mode="dense", k=8),
                                 dict(device_merge="on")])
