@@ -25,15 +25,35 @@ few) to stdout:
      against the batch count, and an independent numpy oracle on the
      first 50,000 reads;
   5. the reference's parity dump of tests/data/sample.fasta on the card:
-     its md5 by count + expand, by the per-batch multiset sort and
-     bounded-memory with 7 spill partitions, each timed;
+     its md5 by count + expand (the GPU default, compacted by K4), by the
+     per-batch multiset sort and bounded-memory with 7 spill partitions,
+     each timed;
   6. the gapped path end to end: count_fasta(..., KmerConfig(gapped=True,
      batch_reads=256, max_read_len=512), device="cuda") on
      reference_style_fasta(n_records=4000) (400-base records, ~71.0 M
      chunks): the table total, K3's launch count against the batch
      count, sorted unique keys, and the card's table against the CPU's
      on the first 300 records;
-  7. one JSON line with every kernel of the paths, then the result line
+  7. kernel K4 (kmer_tpu_torch/csrc/compact.cu) against its plain
+     version on the card, bit for bit (records in lane order and the
+     total), on K1's output at the main shape and K3's at the parity
+     shape, and at edge cases (no live lane, every lane live, a ragged
+     last tile, a one-uint64 gapped record, no lanes at all); both timed;
+  8. kernel K5 (kmer_tpu_torch/csrc/histogram.cu) the same way, at bits
+     = 8, 15 and 16 over a stream the size of one k=21 batch, and in its
+     HyperLogLog mode on K1's main-shape output; both timed;
+  9. the k=21 run of phase 4 again with compact=True: its table equals
+     phase 4's, K1 and K4 launch once a batch; the stage breakdown;
+ 10. the gapped run of phase 6 again with compact=True: its table equals
+     phase 6's (the parity runs of phase 5 already took the GPU default,
+     compact=True);
+ 11. dense mode on phase 4's corpus: k=8 through K5 and k=12 through the
+     host hybrid, each table equal to the sort-mode table at that k and
+     its total equal to sum(len - k + 1);
+ 12. `card -k 21 --canonical` on phase 4's corpus: the class histogram
+     equals the plain version's on the first 50,000 reads, and the
+     estimate falls within 15% of phase 4's exact distinct count;
+ 13. one JSON line with every kernel of the paths, then the result line
      {"ok": true, "device": {...}} last.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -278,7 +298,7 @@ def phase_end_to_end(dev, seed: int, tmp: str, n_reads: int = N_READS,
          f"k1_launches={launches} wall_s={wall} "
          f"reads_per_s={n_reads / wall} kmers_per_s={total_kmers / wall}")
     _say("stages_s " + json.dumps(times, sort_keys=True))
-    return launches
+    return launches, table, path, small
 
 
 def gapped_batch(rng, B, L, *, packed, amb, short, full_len=GAP_LEN):
@@ -384,8 +404,8 @@ def phase_parity(dev) -> None:
                 del os.environ["KMER_TPU_PARITY"]
         wall = time.perf_counter() - t0
         md5 = hashlib.md5(dumps[mode]).hexdigest()
-        _say(f"parity mode={mode} lines={dumps[mode].count(10)} md5={md5} "
-             f"wall_s={wall}")
+        _say(f"parity mode={mode} compact={mode == 'count_expand'} "
+             f"lines={dumps[mode].count(10)} md5={md5} wall_s={wall}")
         if md5 != SAMPLE_FASTA_MD5 or dumps[mode] != dumps["count_expand"]:
             raise AssertionError(f"parity {mode}: md5 {md5} != "
                                  f"{SAMPLE_FASTA_MD5}")
@@ -450,17 +470,273 @@ def phase_gapped_end_to_end(dev, seed: int, tmp: str) -> int:
          f"k3_launches={launches} wall_s={wall} "
          f"chunks_per_s={want_total / wall}")
     _say("gapped_stages_s " + json.dumps(times, sort_keys=True))
+
+    # phase 10: the same run compacted on the device
+    from kmer_tpu_torch.ops.kernels import compact as ck
+    ctimes: dict[str, float] = {}
+    torch.cuda.synchronize()
+    fg.launches = ck.launches = 0
+    with stagetime.collect(ctimes):
+        ctable = count_fasta(path, cfg.replace(compact=True), device=dev)
+    if not (ctable == table and fg.launches == ck.launches == want_batches):
+        raise AssertionError("gapped compact table != the uncompacted one "
+                             f"(K3 {fg.launches}, K4 {ck.launches} launches)")
+    _say(f"gapped_compact_end_to_end equal=True k3_launches={fg.launches} "
+         f"k4_launches={ck.launches} wall_s={ctimes['total']} "
+         f"chunks_per_s={want_total / ctimes['total']}")
+    _say("gapped_compact_stages_s " + json.dumps(ctimes, sort_keys=True))
     return launches
+
+
+def time_pair(kernel, plain) -> tuple[float, float]:
+    """Device ms of the kernel and of its plain version, in turns
+    (plain, kernel, kernel, plain); the smaller reading of each."""
+    p1, k1, k2, p2 = (time_ms(plain), time_ms(kernel), time_ms(kernel),
+                      time_ms(plain))
+    return min(k1, k2), min(p1, p2)
+
+
+def phase_compact_kernel(dev, seed: int) -> dict:
+    """K4 == plain version on `dev`, records in lane order and the total;
+    returns K4's JSON record (without the main-path launch count)."""
+    from kmer_tpu_torch.ops.kernels import compact as ck
+    from kmer_tpu_torch.ops.kernels import fused_extract as fe
+    from kmer_tpu_torch.ops.kernels import fused_gapped as fg
+    rng = np.random.default_rng(seed + 2)
+
+    def k1_out(B, L, k, short=False, lengths=None):
+        host = kernel_batch(rng, B, L, k, packed=True, amb=False,
+                            short=short)
+        if lengths is not None:
+            host[1].fill_(lengths)
+        return fe.fused_extract_count(*(t.to(dev) for t in host), k,
+                                      canonical=True, seg=SEG,
+                                      packed_width=L)
+
+    def k3_out(B, L, win, short=False):
+        host = gapped_batch(rng, B, L, packed=True, amb=False, short=short)
+        return fg.fused_gapped_count(*(t.to(dev) for t in host), **win,
+                                     seg=SEG, packed_width=L)
+
+    small = dict(l_len=5, r_len=5, c_min=12, c_max=20)
+    cases = {  # name -> (planes, counts, kwargs, expect a launch)
+        "k1_main": (*k1_out(MAIN_B, MAIN_L, K), {}),
+        "k3_parity": (*k3_out(GAP_B, GAP_L, GAP), dict(r_len=27,
+                                                        n_bases=54)),
+        "k1_short_k5": (*k1_out(4096, 150, 5, short=True), {}),
+        "k1_ragged_k31": (*k1_out(999, 77, 31, short=True), {}),
+        "k1_no_live_lane": (*k1_out(512, 160, K, lengths=0), {}),
+        "k3_one_word": (*k3_out(512, 64, small, short=True),
+                        dict(r_len=5, n_bases=10)),
+        "k3_no_lanes": (*k3_out(64, 70, GAP), dict(r_len=27, n_bases=54)),
+    }
+    cases["all_live"] = (torch.arange(70_000, dtype=torch.int64,
+                                      device=dev),
+                         torch.ones(70_000, dtype=torch.int8, device=dev),
+                         {})
+    max_err = 0
+    for name, case in cases.items():
+        *planes, counts, kw = case
+        before = ck.launches
+        got = ck.compact(planes, counts, **kw)
+        want = ck.compact_ref(planes, counts, **kw)
+        torch.cuda.synchronize()
+        t = int(want[2][0])
+        err = abs(int(got[2][0]) - t)
+        if t:
+            err = max(err, int((got[0][:t] - want[0][:t]).abs().max()),
+                      int((got[1][:t] - want[1][:t]).abs().max()))
+        launched = ck.launches - before
+        max_err = max(max_err, err)
+        _say(f"compact_check case={name} lanes={counts.numel()} total={t} "
+             f"launches={launched} max_abs_err={err}")
+        expect_total = {"k1_no_live_lane": 0, "k3_no_lanes": 0,
+                        "all_live": 70_000}.get(name)
+        if (err != 0 or launched != int(counts.numel() > 0)
+                or (expect_total is not None and t != expect_total)
+                or (expect_total is None and t == 0)):
+            raise AssertionError(f"K4 != plain version ({name}: "
+                                 f"max_abs_err={err}, total={t})")
+    rec = {"name": "compact", "route": "cuda", "source": ck.SOURCE,
+           "replaces": ck.REPLACES, "max_abs_err": max_err}
+    for name, lane_bytes in (("k1_main", 9), ("k3_parity", 17)):
+        *planes, counts, kw = cases[name]
+        ms, plain_ms = time_pair(
+            functools.partial(ck.compact, planes, counts, **kw),
+            functools.partial(ck.compact_ref, planes, counts, **kw))
+        n = counts.numel()
+        _say(f"compact_time case={name} lanes={n} kernel_ms={ms} "
+             f"plain_ms={plain_ms} speedup={plain_ms / ms} "
+             f"in_GB_per_s={n * lane_bytes / (ms * 1e-3) / 1e9} "
+             f"(tolerance: exact, max_abs_err must be 0)")
+        rec.update({"ms": ms, "plain_ms": plain_ms} if name == "k1_main"
+                   else {"gapped_ms": ms, "gapped_plain_ms": plain_ms})
+    return rec
+
+
+def phase_histogram_kernel(dev, seed: int) -> dict:
+    """K5 == plain version on `dev`, bit for bit, in both modes; returns
+    K5's JSON record (without the main-path launch count)."""
+    from kmer_tpu_torch.ops.kernels import fused_extract as fe
+    from kmer_tpu_torch.ops.kernels import histogram as hk
+    rng = np.random.default_rng(seed + 3)
+    n = (MAIN_L - K + 1) * MAIN_B            # one k=21 batch of lanes
+    w = torch.from_numpy(rng.integers(0, 3, n).astype(np.int8)).to(dev)
+    rec = {"name": "index_histogram", "route": "cuda", "source": hk.SOURCE,
+           "replaces": hk.REPLACES, "max_abs_err": 0}
+    for bits in (8, 15, 16):
+        idx = torch.from_numpy(rng.integers(0, 1 << bits, n)).to(dev)
+        got = hk.index_histogram(idx, w, bits)
+        want = hk.index_histogram_ref(idx, w, bits)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        ms, plain_ms = time_pair(
+            functools.partial(hk.index_histogram, idx, w, bits),
+            functools.partial(hk.index_histogram_ref, idx, w, bits))
+        _say(f"histogram_check bits={bits} lanes={n} sum={int(got.sum())} "
+             f"max_abs_err={err} kernel_ms={ms} plain_ms={plain_ms} "
+             f"speedup={plain_ms / ms} (tolerance: exact)")
+        if err != 0:
+            raise AssertionError(f"K5 != plain version (bits={bits})")
+        if bits == 16:
+            rec.update(ms=ms, plain_ms=plain_ms)
+    main = [t.to(dev) for t in kernel_batch(rng, MAIN_B, MAIN_L, K,
+                                            packed=True, amb=False,
+                                            short=False)]
+    keys, counts = fe.fused_extract_count(*main, K, canonical=True, seg=SEG,
+                                          packed_width=MAIN_L)
+    for b in (10, 11):
+        got = hk.hll_class_histogram(keys, counts, k=K, b=b)
+        want = hk.hll_class_histogram_ref(keys, counts, k=K, b=b)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        ms, plain_ms = time_pair(
+            functools.partial(hk.hll_class_histogram, keys, counts, k=K, b=b),
+            functools.partial(hk.hll_class_histogram_ref, keys, counts, k=K,
+                              b=b))
+        _say(f"hll_histogram_check k={K} b={b} lanes={keys.numel()} "
+             f"sum={int(got.sum())} max_abs_err={err} kernel_ms={ms} "
+             f"plain_ms={plain_ms} speedup={plain_ms / ms} "
+             f"(tolerance: exact)")
+        if err != 0 or int(got.sum()) != int(counts.sum()):
+            raise AssertionError(f"K5 HLL != plain version (b={b})")
+        if b == 10:
+            rec.update(hll_ms=ms, hll_plain_ms=plain_ms)
+    empty = torch.zeros(0, dtype=torch.int64, device=dev)
+    before = hk.launches
+    got = hk.index_histogram(empty, empty.to(torch.int8), 8)
+    if hk.launches != before or int(got.abs().sum()) != 0:
+        raise AssertionError("K5 on an empty stream launched or was not 0")
+    _say("histogram_check empty launches=0 zeros=True")
+    return rec
+
+
+def phase_compact_end_to_end(dev, path: str, want_table) -> int:
+    """Phase 4's run with compact=True; returns K4's launches."""
+    from kmer_tpu_torch import KmerConfig, count_fasta
+    from kmer_tpu_torch.ops.kernels import compact as ck
+    from kmer_tpu_torch.ops.kernels import fused_extract as fe
+    from kmer_tpu_torch.utils import stagetime
+    cfg = KmerConfig(k=K, canonical=True, compact=True)
+    want_batches = -(-N_READS // cfg.batch_reads)
+    times: dict[str, float] = {}
+    torch.cuda.synchronize()
+    fe.launches = ck.launches = 0
+    with stagetime.collect(times):
+        table = count_fasta(path, cfg, device=dev)
+    launches = ck.launches
+    if not (table == want_table
+            and fe.launches == launches == want_batches):
+        raise AssertionError("compact k=21 table != the sort table, or "
+                             f"K1 {fe.launches} / K4 {launches} launches != "
+                             f"{want_batches} batches")
+    wall = times["total"]
+    total_kmers = N_READS * (READ_LEN - K + 1)
+    _say(f"compact_end_to_end reads={N_READS} distinct={table.num_distinct} "
+         f"equal_to_sort=True k1_launches={fe.launches} "
+         f"k4_launches={launches} wall_s={wall} "
+         f"reads_per_s={N_READS / wall} kmers_per_s={total_kmers / wall}")
+    _say("compact_stages_s " + json.dumps(times, sort_keys=True))
+    return launches
+
+
+def phase_dense(dev, path: str) -> int:
+    """Dense k=8 (K5) and k=12 (host hybrid) against sort mode at the
+    same k; returns K5's launches in the k=8 run."""
+    from kmer_tpu_torch import KmerConfig, count_fasta
+    from kmer_tpu_torch.ops.kernels import histogram as hk
+    from kmer_tpu_torch.utils import stagetime
+    launches = 0
+    for k in (8, 12):
+        sort_table = count_fasta(path, KmerConfig(k=k, canonical=True),
+                                 device=dev)
+        cfg = KmerConfig(k=k, canonical=True, mode="dense")
+        want_batches = -(-N_READS // cfg.batch_reads)
+        times: dict[str, float] = {}
+        torch.cuda.synchronize()
+        hk.launches = 0
+        with stagetime.collect(times):
+            table = count_fasta(path, cfg, device=dev)
+        want_total = N_READS * (READ_LEN - k + 1)
+        want_launches = want_batches if k == 8 else 0
+        if not (table == sort_table and table.total == want_total
+                and hk.launches == want_launches):
+            raise AssertionError(f"dense k={k} != sort table, total "
+                                 f"{table.total} != {want_total}, or K5 "
+                                 f"launches {hk.launches}")
+        if k == 8:
+            launches = hk.launches
+        _say(f"dense k={k} path={'K5' if k == 8 else 'hybrid'} "
+             f"distinct={table.num_distinct} total={table.total} "
+             f"equal_to_sort=True k5_launches={hk.launches} "
+             f"wall_s={times['total']} "
+             f"kmers_per_s={want_total / times['total']}")
+        _say(f"dense_k{k}_stages_s " + json.dumps(times, sort_keys=True))
+    return launches
+
+
+def phase_card(dev, path: str, small: str, exact_distinct: int) -> None:
+    """`card -k 21 --canonical` through the CLI's estimator."""
+    from kmer_tpu_torch import KmerConfig
+    from kmer_tpu_torch.ops.kernels import histogram as hk
+    from kmer_tpu_torch.pipeline.sketch import (estimate_distinct_multi_k,
+                                                sketch_histograms)
+    cfg = KmerConfig(k=K, canonical=True, batch_reads=2048)
+    got, _ = sketch_histograms(small, [K], cfg, device=dev)
+    want, _ = sketch_histograms(small, [K], cfg, device="cpu")
+    if not np.array_equal(got[K], want[K]):
+        raise AssertionError("card class histogram on the card != the "
+                             f"plain version's ({ORACLE_READS} reads)")
+    _say(f"card_check reads={ORACLE_READS} histogram_equal=True "
+         f"sum={int(got[K].sum())}")
+    torch.cuda.synchronize()
+    hk.launches = 0
+    t0 = time.perf_counter()
+    [(est, total)] = estimate_distinct_multi_k(path, [K], cfg, device=dev)
+    wall = time.perf_counter() - t0
+    rel = est / exact_distinct - 1
+    want_batches = -(-N_READS // cfg.batch_reads)
+    _say(f"card k={K} canonical=True b=10 estimate={est} "
+         f"exact_distinct={exact_distinct} rel_err={rel} total={total} "
+         f"k5_launches={hk.launches} wall_s={wall} "
+         f"kmers_per_s={total / wall}")
+    if (abs(rel) > 0.15 or total != N_READS * (READ_LEN - K + 1)
+            or hk.launches != want_batches):
+        raise AssertionError(f"card estimate {est} not within 15% of "
+                             f"{exact_distinct}, or total/launches wrong")
 
 
 def build_all() -> None:
     """Build every kernel and native library at once, one compiler
     process each."""
     from kmer_tpu_torch.io import fasta
+    from kmer_tpu_torch.ops.kernels import compact as ck
     from kmer_tpu_torch.ops.kernels import fused_extract as fe
     from kmer_tpu_torch.ops.kernels import fused_gapped as fg
+    from kmer_tpu_torch.ops.kernels import histogram as hk
     from kmer_tpu_torch.pipeline import nativeagg
-    loaders = (fe.load, fg.load, fasta.load_native, nativeagg.load)
+    loaders = (fe.load, fg.load, ck.load, hk.load, fasta.load_native,
+               nativeagg.load)
     with cf.ThreadPoolExecutor(len(loaders)) as ex:
         for fut in [ex.submit(fn) for fn in loaders]:
             fut.result()
@@ -491,18 +767,24 @@ def main(argv=None) -> int:
          f"native_aggregator_loaded={nativeagg.native_loaded()} "
          f"build_s={json.dumps(build.build_seconds, sort_keys=True)}")
 
-    # phases 2-3: each kernel against its plain version
+    # phases 2-3 and 7-8: each kernel against its plain version
     k1 = phase_kernel(dev, args.seed)
     k3 = phase_gapped_kernel(dev, args.seed)
+    k4 = phase_compact_kernel(dev, args.seed)
+    k5 = phase_histogram_kernel(dev, args.seed)
 
-    # phases 4-6: the paths end to end, each kernel's count set to 0
-    # just before its path and read just after
+    # phases 4-6 and 9-12: the paths end to end, each kernel's count set
+    # to 0 just before its path and read just after
     with tempfile.TemporaryDirectory() as tmp:
-        k1["launches"] = phase_end_to_end(dev, args.seed, tmp)
+        k1["launches"], table, path, small = phase_end_to_end(
+            dev, args.seed, tmp)
         phase_parity(dev)
         k3["launches"] = phase_gapped_end_to_end(dev, args.seed, tmp)
+        k4["launches"] = phase_compact_end_to_end(dev, path, table)
+        k5["launches"] = phase_dense(dev, path)
+        phase_card(dev, path, small, table.num_distinct)
 
-    _say(json.dumps({"kernels": [k1, k3]}))
+    _say(json.dumps({"kernels": [k1, k3, k4, k5]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

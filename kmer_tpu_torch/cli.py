@@ -2,6 +2,7 @@
 
   count     FASTA/FASTQ -> sorted "kmer\\tcount" TSV on stdout
   parity    FASTA -> the reference's exact sorted chunk dump on stdout
+  card      estimate DISTINCT k-mers (HyperLogLog) without a table
 
 The flags are kmer_tpu's for the options this port carries, plus
 --device.  The output is byte for byte the one `python -m kmer_tpu`
@@ -57,6 +58,12 @@ def main(argv: list[str] | None = None) -> int:
                     help="gapped minimum chunk span")
     pc.add_argument("--c-max", type=int, default=140,
                     help="gapped maximum chunk span")
+    pc.add_argument("--compact", action="store_true",
+                    help="on-device compaction: device->host transfer "
+                         "scales with distinct k-mers (sort mode)")
+    pc.add_argument("--mode", choices=["auto", "dense", "sort"],
+                    default="auto",
+                    help="dense: a 4^k table (k <= 12); auto is sort")
     _add_device(pc)
 
     pp = sub.add_parser("parity", help="reference-parity sorted chunk dump")
@@ -74,9 +81,33 @@ def main(argv: list[str] | None = None) -> int:
                     help="spill partitions for --bounded")
     _add_device(pp)
 
+    pe = sub.add_parser("card", help="estimate DISTINCT k-mers (F0 "
+                                     "cardinality, HyperLogLog) without "
+                                     "building a table")
+    pe.add_argument("fasta", nargs="+",
+                    help="input FASTA/FASTQ file(s), auto-detected")
+    pe.add_argument("--batch-reads", type=int, default=2048)
+    pe.add_argument("--max-read-len", type=int, default=256)
+    pe.add_argument("--stats", action="store_true",
+                    help="JSONL per-batch stats on stderr")
+    pe.add_argument("-k", type=int, action="append", default=None,
+                    help="k value; repeatable (-k 17 -k 21 -k 31): all "
+                         "ks are sketched in ONE ingest pass (default: 21)")
+    pe.add_argument("--canonical", action="store_true")
+    pe.add_argument("--skip-invalid", action="store_true")
+    pe.add_argument("--min-qual", type=int, default=0)
+    pe.add_argument("--seed-mask", default=None,
+                    help="estimate distinct SPACED keys (0/1 mask; "
+                         "exclusive with -k)")
+    pe.add_argument("--buckets-log2", type=int, default=10,
+                    help="HLL precision b: 2^b buckets, relative error "
+                         "~1.04/sqrt(2^b) (default 10: ~3.3%%)")
+    _add_device(pe)
+
     args = ap.parse_args(argv)
+    run = {"count": _count, "parity": _parity, "card": _card}[args.cmd]
     try:
-        return _parity(args) if args.cmd == "parity" else _count(args)
+        return run(args)
     except (ValueError, OSError, NotImplementedError) as e:
         print(f"kmer_tpu_torch: error: {e}", file=sys.stderr)
         return 1
@@ -96,14 +127,14 @@ def _count(args) -> int:
                          "chunks have no reverse-complement contract)")
     kw = dict(batch_reads=args.batch_reads,
               skip_invalid=args.skip_invalid or args.min_qual > 0,
-              min_qual=args.min_qual, stats=args.stats)
+              min_qual=args.min_qual, stats=args.stats, compact=args.compact)
     if args.gapped:
         cfg = KmerConfig(gapped=True, l_len=args.l_len, r_len=args.r_len,
                          c_min=args.c_min, c_max=args.c_max,
                          max_read_len=max(args.max_read_len, args.c_max),
                          **kw)
     else:
-        cfg = KmerConfig(k=args.k, canonical=args.canonical,
+        cfg = KmerConfig(k=args.k, canonical=args.canonical, mode=args.mode,
                          max_read_len=max(args.max_read_len, args.k), **kw)
     table = count_files(args.fasta, cfg, device=args.device)
     if args.min_count > 1 or args.max_count is not None:
@@ -111,6 +142,29 @@ def _count(args) -> int:
     if args.out_npz:
         table.save(args.out_npz)
     table.write_tsv(sys.stdout)
+    return 0
+
+
+def _card(args) -> int:
+    from .config import KmerConfig
+    from .pipeline.sketch import estimate_distinct_multi_k
+    if args.seed_mask and args.k:
+        raise ValueError("--seed-mask selects its own key width (the mask "
+                         "popcount); -k cannot be combined with it")
+    ks = list(dict.fromkeys(args.k or [21]))
+    span = len(args.seed_mask) if args.seed_mask else max(ks)
+    cfg = KmerConfig(k=max(ks), canonical=args.canonical,
+                     batch_reads=args.batch_reads,
+                     max_read_len=max(args.max_read_len, span),
+                     skip_invalid=args.skip_invalid or args.min_qual > 0,
+                     seed_mask=args.seed_mask, min_qual=args.min_qual,
+                     stats=args.stats)
+    res = estimate_distinct_multi_k(args.fasta, ks, cfg,
+                                    b=args.buckets_log2, device=args.device)
+    for kk, (est, total) in zip(ks, res):
+        prefix = f"k={kk}\t" if len(ks) > 1 else ""
+        sys.stdout.write(f"{prefix}distinct_estimate\t{round(est)}\n"
+                         f"{prefix}total_kmers\t{total}\n")
     return 0
 
 

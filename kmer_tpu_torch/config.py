@@ -11,7 +11,7 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
-from .ops.encode import MAX_K
+from .ops.encode import MAX_K, words_per_key
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -77,15 +77,16 @@ class KmerConfig:
             raise ValueError("min_qual masks bases to the ambiguous "
                              "code; set skip_invalid=True (CLI: "
                              "--min-qual implies --skip-invalid)")
+        if self.compact and words_per_key(self.n_bases) > 7:
+            raise ValueError("compact mode caps at 7 key words "
+                             f"(<= 111 bases; got {self.n_bases})")
+        if self.compact and self.mode == "dense":
+            raise ValueError("compact applies to sort mode")
         if self.gapped and max(self.l_len, self.r_len) > MAX_K:
             raise _not_ported(f"gapped l_len/r_len > {MAX_K}",
                               "15 (gapped windows over 31 bases)")
         if self.seed_mask is not None:
             raise _not_ported("seed_mask", "8 (spaced seeds)")
-        if self.compact:
-            raise _not_ported("compact", "10 (on-device compaction)")
-        if self.mode == "dense":
-            raise _not_ported('mode="dense"', "9 (dense mode and HLL)")
         if self.device_merge == "on":
             raise _not_ported('device_merge="on"',
                               "11 (device-resident table)")
@@ -110,10 +111,12 @@ class KmerConfig:
 
     @property
     def effective_mode(self) -> str:
-        """Always "sort": kmer_tpu's dense mode gives the same tables
-        (its config.py documents that), and the port has no dense path
-        yet, so "auto" needs no link probe."""
-        return "sort"
+        """The mode a run takes: dense for mode="dense", else sort.
+        kmer_tpu's "auto" picks dense only behind a probed slow
+        device-to-host link; the two modes give the same table, and the
+        port has no link probe (ROADMAP Queue 1 item 11), so auto is
+        sort."""
+        return "dense" if self.mode == "dense" else "sort"
 
     def replace(self, **kw) -> "KmerConfig":
         return dataclasses.replace(self, **kw)

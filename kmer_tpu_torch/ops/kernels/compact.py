@@ -1,0 +1,172 @@
+"""On-device compaction: the live lanes (count > 0) of one count step's
+output as contiguous host-ready records, as one hand-written Hopper
+kernel (csrc/compact.cu) and its plain torch version.
+
+Counterpart of kmer_tpu/ops/pallas/compact.py `pack_groups` and of the
+back half of kmer_tpu/ops/count.py `compact_from_runs`.  kmer_tpu packs
+repacked uint32 key words and the count into 128-lane rows (its TPU
+tiling unit), and sorts each group's live records to its front first so
+that one in-order DMA per group can pack them.  Here a record is what
+the host aggregation (pipeline/table.reduce_fused) takes as it stands:
+
+- from K1's (keys, counts): the int64 key, read as uint64;
+- from K3's (hi, lo, counts): the key value hi * 4**r_len + lo, one
+  uint64 when the key has at most 31 bases, else the two uint64 halves
+  [vhi, vlo] (ops/encode.pairs_to_value);
+
+and the count, widened to int64.  Output contract: keys (n,) or (n, 2)
+int64, counts (n,) int64 and total (1,) int64 on the input's device,
+n = the number of lanes; rows [0, total) hold every live lane's record
+in lane order, rows past total are unspecified.  The host reads back
+rows [0, total) only, so the copy scales with the live lanes.
+
+compact dispatches on where its inputs lie: CPU tensors run the plain
+version, CUDA tensors launch the kernel (or raise).  A stream with no
+lanes launches nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+
+import numpy as np
+import torch
+
+from ..encode import words_per_key
+
+SOURCE = "kmer_tpu_torch/csrc/compact.cu"
+REPLACES = "kmer_tpu/ops/pallas/compact.py:96"
+TILE = 4096                    # lanes per block (csrc/compact.cu)
+# calls of compact that launched the kernel (the plain version on CPU
+# tensors does not count)
+launches = 0
+_lib = None
+
+
+def load():
+    global _lib
+    if _lib is None:
+        from ...utils.build import CSRC_DIR, build_cdll
+        lib = build_cdll(os.path.join(CSRC_DIR, "compact.cu"),
+                         "kmer_compact", cuda=True)
+        vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.compact_launch.restype = i
+        lib.compact_launch.argtypes = [vp, vp, vp, i64, vp, i, i, vp, vp, vp,
+                                       vp]
+        _lib = lib
+    return _lib
+
+
+def _mode(planes, r_len: int, n_bases: int) -> int:
+    """0: one key plane; 1: a gapped pair to one uint64 (n_bases <= 31);
+    2: a gapped pair to two uint64 halves."""
+    if len(planes) == 1:
+        return 0
+    if len(planes) != 2 or not 1 <= r_len <= 31:
+        raise ValueError("compact takes (keys,) or (hi, lo) with "
+                         f"1 <= r_len <= 31, got {len(planes)} planes, "
+                         f"r_len={r_len}")
+    return 1 if words_per_key(n_bases) <= 2 else 2
+
+
+def compact_ref(planes, counts: torch.Tensor, *, r_len: int = 0,
+                n_bases: int = 0):
+    """Plain torch version: a boolean mask over the flat lanes, then the
+    pair -> value shifts on int64 (hi is below 2**62 on live lanes, so
+    the arithmetic shift is the logical one)."""
+    mode = _mode(planes, r_len, n_bases)
+    n = counts.numel()
+    live = counts.reshape(-1) > 0
+    total = int(live.sum())
+    key0 = planes[0].reshape(-1)[live]
+    keys = torch.zeros((n, 2) if mode == 2 else (n,), dtype=torch.int64,
+                       device=counts.device)
+    if mode == 0:
+        keys[:total] = key0
+    else:
+        s = 2 * r_len
+        vlo = (key0 << s) | planes[1].reshape(-1)[live]
+        if mode == 1:
+            keys[:total] = vlo
+        else:
+            keys[:total, 0] = key0 >> (64 - s)
+            keys[:total, 1] = vlo
+    out_counts = torch.zeros(n, dtype=torch.int64, device=counts.device)
+    out_counts[:total] = counts.reshape(-1)[live]
+    return keys, out_counts, torch.tensor([total], dtype=torch.int64,
+                                          device=counts.device)
+
+
+def compact(planes, counts: torch.Tensor, *, r_len: int = 0,
+            n_bases: int = 0):
+    """(keys,) or (hi, lo) int64 planes + int8 counts of the same shape
+    -> (keys (n,) or (n, 2) int64, counts (n,) int64, total (1,) int64);
+    r_len and n_bases describe a gapped pair."""
+    planes = tuple(planes)
+    if counts.device.type == "cpu":
+        return compact_ref(planes, counts, r_len=r_len, n_bases=n_bases)
+    if counts.device.type != "cuda":
+        raise ValueError(f"no compact on {counts.device}")
+    mode = _mode(planes, r_len, n_bases)
+    for p in planes:
+        if (p.device != counts.device or p.dtype != torch.int64
+                or p.shape != counts.shape or not p.is_contiguous()):
+            raise ValueError(f"key planes must be contiguous int64 tensors "
+                             f"of shape {tuple(counts.shape)} on "
+                             f"{counts.device}")
+    if counts.dtype != torch.int8 or not counts.is_contiguous():
+        raise ValueError("counts must be a contiguous int8 tensor")
+    n = counts.numel()
+    dev = counts.device
+    keys = torch.empty((n, 2) if mode == 2 else (n,), dtype=torch.int64,
+                       device=dev)
+    out_counts = torch.empty(n, dtype=torch.int64, device=dev)
+    total = torch.zeros(1, dtype=torch.int64, device=dev)
+    if n == 0:
+        return keys, out_counts, total
+    scratch = torch.empty(-(-n // TILE), dtype=torch.int32, device=dev)
+    lib = load()
+    with torch.cuda.device(dev):
+        rc = lib.compact_launch(
+            planes[0].data_ptr(), planes[-1].data_ptr(), counts.data_ptr(), n,
+            scratch.data_ptr(), mode, 2 * r_len, keys.data_ptr(),
+            out_counts.data_ptr(), total.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"compact kernel launch failed: cudaError {rc}")
+    global launches
+    launches += 1
+    return keys, out_counts, total
+
+
+def record_width(n_fields: int) -> int:
+    """kmer_tpu's record width in uint32 fields (compact.py:27): the
+    power of two >= n_fields, at least 4."""
+    return max(4, 1 << (n_fields - 1).bit_length())
+
+
+def records_from_tpu_rows(row_blocks: np.ndarray, n_bases: int):
+    """kmer_tpu's compacted row blocks ((R, 128) uint32 rows of repacked
+    key words + count + zero padding, as KmerTable.from_compact reads
+    them) -> this port's records (fused uint64 keys, int64 counts) of
+    the live rows, in row order."""
+    from ...pipeline.table import fuse_words
+    W = words_per_key(n_bases)
+    rows = np.asarray(row_blocks, np.uint32).reshape(-1, record_width(W + 1))
+    rows = rows[rows[:, W] > 0]
+    rw = [rows[:, j] for j in range(W)]
+    s = 2 * n_bases - 32 * (W - 1)
+    if W == 1:
+        std = rw
+    elif s == 0:
+        std = [rw[-1]] + rw[:-1]          # the last word is a 0 flag
+    else:
+        # 32 key bits in words 0..W-2, the s residual bits in the last
+        t, s = np.uint32(32 - s), np.uint32(s)
+        std = [rw[0] >> t]
+        std += [(rw[j - 1] << s) | (rw[j] >> t) for j in range(1, W - 1)]
+        std.append((rw[W - 2] << s) | rw[W - 1])
+    keys = np.stack(std, axis=1) if rows.size else np.zeros((0, W),
+                                                            np.uint32)
+    return fuse_words(keys, n_bases), rows[:, W].astype(np.int64)

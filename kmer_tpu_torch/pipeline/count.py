@@ -1,24 +1,35 @@
 """End-to-end counting pipeline: FASTA -> device batches -> KmerTable.
 
-Single-device pipeline, sort mode.  Each batch goes to the device 2-bit
-packed and runs ONE kernel: contiguous k-mers through
+Single-device pipeline.  Each batch goes to the device 2-bit packed and
+runs the fused count step: contiguous k-mers through
 ops/kernels/fused_extract (extraction, canonical key, validity and the
 in-segment collapse), gapped L+R chunks through ops/kernels/fused_gapped.
-Its outputs come back to pinned host buffers while the device runs the
-next batch, and the host aggregates one batch behind the device.
+
+- sort mode: the step's output comes back to pinned host buffers while
+  the device runs the next batch, and the host aggregates one batch
+  behind the device.  With compact=True the step's live lanes are first
+  packed on the device into host-ready records (ops/kernels/compact) and
+  only those rows cross.
+- dense mode, k <= 8: the step's keys and counts go into a 4**k int64
+  histogram that stays on the device (ops/kernels/histogram) and is read
+  once per corpus.  k = 9..12: the sort-mode step, then a host
+  np.add.at into a 4**k int64 table (kmer_tpu's fast-link "hybrid").
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import os
 
 import numpy as np
 import torch
 
 from ..config import KmerConfig
 from ..io.fasta import iter_batches, iter_parse_chunks, parse_seqs
+from ..ops.kernels import compact as compact_kernel
 from ..ops.kernels import fused_gapped
 from ..ops.kernels.fused_extract import fused_extract_count
+from ..ops.kernels.histogram import index_histogram
 from ..utils import stagetime
 from ..utils.stats import StatsLogger, Timer, prefetch_iter
 from .table import (KmerTable, TableAccumulator, device_run_pairs,
@@ -27,6 +38,9 @@ from .table import (KmerTable, TableAccumulator, device_run_pairs,
 # positions per in-segment collapse: only changes how many duplicate
 # pairs reach the host, never the table
 SEG = 2
+# dense mode keeps a device-resident 4**k table up to this k (kernel K5
+# takes indices of up to 16 bits)
+DENSE_DEVICE_K_MAX = 8
 
 
 def resolve_device(device) -> torch.device:
@@ -70,6 +84,48 @@ def gapped_step_sort(codes: torch.Tensor, lengths: torch.Tensor,
         packed_width=packed_width)
 
 
+def count_step_compact(codes: torch.Tensor, lengths: torch.Tensor,
+                       limits: torch.Tensor, *, k: int, canonical: bool,
+                       mask_ambiguous: bool = False, packed_width: int = 0):
+    """count_step_sort with on-device compaction: (keys (n,) int64,
+    counts (n,) int64, total (1,) int64), rows [0, total) the batch's
+    live (key, count) records (ops/kernels/compact)."""
+    keys, counts = count_step_sort(codes, lengths, limits, k=k,
+                                   canonical=canonical,
+                                   mask_ambiguous=mask_ambiguous,
+                                   packed_width=packed_width)
+    return compact_kernel.compact((keys,), counts)
+
+
+def gapped_step_compact(codes: torch.Tensor, lengths: torch.Tensor,
+                        limits: torch.Tensor, *, c_min: int, c_max: int,
+                        l_len: int = 27, r_len: int = 27,
+                        mask_ambiguous: bool = False, packed_width: int = 0):
+    """gapped_step_sort with on-device compaction: records of the key
+    value (one uint64 column up to 31 bases, else [vhi, vlo]) as
+    count_step_compact."""
+    hi, lo, counts = gapped_step_sort(codes, lengths, limits, c_min=c_min,
+                                      c_max=c_max, l_len=l_len, r_len=r_len,
+                                      mask_ambiguous=mask_ambiguous,
+                                      packed_width=packed_width)
+    return compact_kernel.compact((hi, lo), counts, r_len=r_len,
+                                  n_bases=l_len + r_len)
+
+
+def count_step_dense(codes: torch.Tensor, lengths: torch.Tensor,
+                     limits: torch.Tensor, hist: torch.Tensor, *, k: int,
+                     canonical: bool, mask_ambiguous: bool = False,
+                     packed_width: int = 0) -> torch.Tensor:
+    """One device batch, dense mode (k <= 8): the sort-mode step, then
+    its keys weighted by their in-segment counts accumulated in place
+    into `hist` ((4**k,) int64 on the batch's device); returns hist."""
+    keys, counts = count_step_sort(codes, lengths, limits, k=k,
+                                   canonical=canonical,
+                                   mask_ambiguous=mask_ambiguous,
+                                   packed_width=packed_width)
+    return index_histogram(keys, counts, 2 * k, out=hist)
+
+
 class _Readback:
     """One batch's output planes on their way to the host.  On a GPU
     they are copied into pinned buffers on the compute stream, and an
@@ -96,6 +152,47 @@ class _Readback:
         return [p.numpy() for p in self.planes]
 
 
+class _CompactReadback:
+    """One compacted batch (keys, counts, total) on its way to the host.
+    On a GPU only the total crosses at once, into pinned memory behind an
+    event; wait() then copies rows [0, total) of the records, on a side
+    stream so that the next batch's kernels, queued on the compute
+    stream, do not hold the copy."""
+
+    def __init__(self, out, copy_stream=None):
+        self.keys, self.counts, total = out
+        self.copy_stream = copy_stream
+        if total.device.type == "cuda":
+            self.total = torch.empty(1, dtype=torch.int64, pin_memory=True)
+            self.total.copy_(total, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.total, self.event = total, None
+
+    def wait(self) -> None:
+        if self.event is not None:
+            self.event.synchronize()
+        t = int(self.total[0])
+        dev = (self.keys[:t], self.counts[:t])
+        if self.event is None:
+            self.keys, self.counts = dev
+            return
+        host = [torch.empty(d.shape, dtype=d.dtype, pin_memory=True)
+                for d in dev]
+        if t:
+            with torch.cuda.stream(self.copy_stream):
+                for h, d in zip(host, dev):
+                    h.copy_(d, non_blocking=True)
+            self.copy_stream.synchronize()
+        self.keys, self.counts = host
+
+    def pairs(self) -> tuple[np.ndarray, np.ndarray]:
+        """(fused uint64 keys, int64 counts) as views of the records;
+        call after wait()."""
+        return self.keys.numpy().view(np.uint64), self.counts.numpy()
+
+
 def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     # from pageable memory the copy is staged before this returns, so the
     # numpy buffer may be reused at once
@@ -103,20 +200,47 @@ def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 
 def device_batches(codes: np.ndarray, offsets: np.ndarray, cfg: KmerConfig,
-                   packed: bool):
+                   packed: bool, span: int | None = None):
     """The fixed-shape device batches of one parsed chunk, at the tight
     width: the chunk's longest record rounded up to 32, floored at the
-    window span (c_max for gapped chunks) and capped at the gapped
-    kernel's widest row.  Longer records split with overlap seams, so
-    the table does not depend on the width."""
+    window span (c_max for gapped chunks, or `span`) and capped at the
+    gapped kernel's widest row.  Longer records split with overlap
+    seams (span - 1 bases), so the table does not depend on the
+    width."""
+    span = span or cfg.window_span
     max_len = cfg.max_read_len
     if len(offsets) > 1:
         longest = int(np.max(np.diff(offsets)))
-        max_len = min(max_len, -(-max(longest, cfg.window_span) // 32) * 32)
+        max_len = min(max_len, -(-max(longest, span) // 32) * 32)
     if cfg.gapped:
         max_len = min(max_len, fused_gapped.MAX_ROW)
     return iter_batches(codes, offsets, batch_reads=cfg.batch_reads,
-                        max_len=max_len, overlap=cfg.overlap, packed=packed)
+                        max_len=max_len, overlap=span - 1, packed=packed)
+
+
+def dispatch_batches(codes: np.ndarray, offsets: np.ndarray,
+                     cfg: KmerConfig, dev: torch.device, step,
+                     log: StatsLogger, span: int | None = None):
+    """Ship each device batch of a parsed chunk to `dev` and yield (the
+    host batch, step(codes, lengths, limits, packed_width)).  Batches
+    cross 2-bit packed; the ambiguity code needs a third bit, so
+    skip-invalid mode ships u8 rows.  Each batch's log line times its
+    dispatch plus what the caller does with the yielded value."""
+    packed = cfg.packed_transfer and not cfg.skip_invalid
+    n = 0
+    for batch in stagetime.stage_iter("batch_prep", device_batches(
+            codes, offsets, cfg, packed, span)):
+        with Timer() as t:
+            with stagetime.stage("dispatch"):
+                bc = batch.codes.view(np.int32) if packed else batch.codes
+                out = step(_to_device(bc, dev),
+                           _to_device(batch.lengths, dev),
+                           _to_device(batch.start_limits, dev),
+                           batch.packed_width)
+            yield batch, out
+        n += 1
+        log.log("batch", i=n, reads=int((batch.lengths > 0).sum()),
+                secs=round(t.elapsed, 4))
 
 
 def count_codes(codes: np.ndarray, offsets: np.ndarray, cfg: KmerConfig,
@@ -125,30 +249,58 @@ def count_codes(codes: np.ndarray, offsets: np.ndarray, cfg: KmerConfig,
     """Count k-mers of pre-parsed records (the codes/offsets contract of
     io.fasta.parse_seqs) on `device` ("cuda" or "cpu").
 
-    The device step is dispatched asynchronously and the host
-    aggregation runs one batch behind: while the device counts batch i,
-    the host merges batch i-1's pairs."""
+    Sort mode: the device step is dispatched asynchronously and the
+    host aggregation runs one batch behind: while the device counts
+    batch i, the host merges batch i-1's pairs."""
     dev = resolve_device(device)
     log = stats or StatsLogger(enabled=cfg.stats)
-    k = cfg.n_bases
-    n_batches = 0
-    if cfg.gapped:
-        def step(codes_d, lengths_d, limits_d, pw):
-            return gapped_step_sort(codes_d, lengths_d, limits_d,
-                                    c_min=cfg.c_min, c_max=cfg.c_max,
-                                    l_len=cfg.l_len, r_len=cfg.r_len,
-                                    mask_ambiguous=cfg.skip_invalid,
-                                    packed_width=pw)
+    if cfg.effective_mode == "dense":
+        table, n_batches = _count_dense(codes, offsets, cfg, dev, log)
+    else:
+        table, n_batches = _count_sort(codes, offsets, cfg, dev, log)
+    log.log("done", batches=n_batches, reads=len(offsets) - 1,
+            distinct=table.num_distinct, total=table.total)
+    return table
 
-        def run_pairs(hi, lo, counts):
-            return gapped_run_pairs(hi, lo, counts, cfg.r_len, k)
+
+def _count_sort(codes, offsets, cfg: KmerConfig, dev: torch.device,
+                log: StatsLogger) -> tuple[KmerTable, int]:
+    k = cfg.n_bases
+    win = dict(c_min=cfg.c_min, c_max=cfg.c_max, l_len=cfg.l_len,
+               r_len=cfg.r_len)
+    copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    if cfg.gapped and cfg.compact:
+        def step(codes_d, lengths_d, limits_d, pw):
+            return _CompactReadback(gapped_step_compact(
+                codes_d, lengths_d, limits_d, **win,
+                mask_ambiguous=cfg.skip_invalid, packed_width=pw),
+                copy_stream)
+    elif cfg.gapped:
+        def step(codes_d, lengths_d, limits_d, pw):
+            return _Readback(gapped_step_sort(
+                codes_d, lengths_d, limits_d, **win,
+                mask_ambiguous=cfg.skip_invalid, packed_width=pw))
+    elif cfg.compact:
+        def step(codes_d, lengths_d, limits_d, pw):
+            return _CompactReadback(count_step_compact(
+                codes_d, lengths_d, limits_d, k=k, canonical=cfg.canonical,
+                mask_ambiguous=cfg.skip_invalid, packed_width=pw),
+                copy_stream)
     else:
         def step(codes_d, lengths_d, limits_d, pw):
-            return count_step_sort(codes_d, lengths_d, limits_d, k=k,
-                                   canonical=cfg.canonical,
-                                   mask_ambiguous=cfg.skip_invalid,
-                                   packed_width=pw)
-        run_pairs = device_run_pairs
+            return _Readback(count_step_sort(
+                codes_d, lengths_d, limits_d, k=k, canonical=cfg.canonical,
+                mask_ambiguous=cfg.skip_invalid, packed_width=pw))
+
+    if cfg.compact:
+        def batch_pairs(rb):
+            return rb.pairs()                  # records as they came
+    elif cfg.gapped:
+        def batch_pairs(rb):
+            return gapped_run_pairs(*rb.host(), cfg.r_len, k)
+    else:
+        def batch_pairs(rb):
+            return device_run_pairs(*rb.host())
 
     # buffered flush schedule: batch pairs are bulk-merged (one sort over
     # many batches) on a background thread once flush_pairs accumulate;
@@ -187,38 +339,25 @@ def count_codes(codes: np.ndarray, offsets: np.ndarray, cfg: KmerConfig,
             parts = []
             buffered = 0
 
-    def take(rb: _Readback) -> None:
+    def take(rb) -> None:
         nonlocal buffered
         with stagetime.stage("readback"):
             rb.wait()
         with stagetime.stage("table_build"):
-            part = run_pairs(*rb.host())
+            part = batch_pairs(rb)
         parts.append(part)
         buffered += len(part[1])
         if buffered >= flush_pairs:
             flush()
 
-    # 2-bit packed host-to-device copy; the ambiguity code needs a third
-    # bit, so skip-invalid mode ships u8 rows
-    packed = cfg.packed_transfer and not cfg.skip_invalid
     pending = None
+    n_batches = 0
     try:
-        for batch in stagetime.stage_iter("batch_prep", device_batches(
-                codes, offsets, cfg, packed)):
-            with Timer() as t:
-                with stagetime.stage("dispatch"):
-                    bc = batch.codes.view(np.int32) if packed else batch.codes
-                    rb = _Readback(step(
-                        _to_device(bc, dev), _to_device(batch.lengths, dev),
-                        _to_device(batch.start_limits, dev),
-                        batch.packed_width))
-                if pending is not None:
-                    take(pending)
-                pending = rb
+        for _, rb in dispatch_batches(codes, offsets, cfg, dev, step, log):
+            if pending is not None:
+                take(pending)
+            pending = rb
             n_batches += 1
-            log.log("batch", i=n_batches,
-                    reads=int((batch.lengths > 0).sum()),
-                    secs=round(t.elapsed, 4))
         if pending is not None:
             take(pending)
         harvest()
@@ -229,12 +368,60 @@ def count_codes(codes: np.ndarray, offsets: np.ndarray, cfg: KmerConfig,
         merge_pool.shutdown(wait=True)
     if parts:
         fused, cts = parts[0]
-        table = KmerTable(k, unfuse_words(fused, k), cts)
-    else:
-        table = KmerTable.empty(k)
-    log.log("done", batches=n_batches, reads=len(offsets) - 1,
-            distinct=table.num_distinct, total=table.total)
-    return table
+        return KmerTable(k, unfuse_words(fused, k), cts), n_batches
+    return KmerTable.empty(k), n_batches
+
+
+def _count_dense(codes, offsets, cfg: KmerConfig, dev: torch.device,
+                 log: StatsLogger) -> tuple[KmerTable, int]:
+    """Dense mode: k <= 8 accumulates a device-resident int64 4**k table
+    (kernel K5) read once at the end; k = 9..12 runs the sort-mode step
+    and adds each batch's live pairs into a host 4**k table one batch
+    behind the device."""
+    k = cfg.k
+    n_batches = 0
+    if k <= DENSE_DEVICE_K_MAX:
+        hist = torch.zeros(4 ** k, dtype=torch.int64, device=dev)
+
+        def step(codes_d, lengths_d, limits_d, pw):
+            return count_step_dense(codes_d, lengths_d, limits_d, hist, k=k,
+                                    canonical=cfg.canonical,
+                                    mask_ambiguous=cfg.skip_invalid,
+                                    packed_width=pw)
+        for _ in dispatch_batches(codes, offsets, cfg, dev, step, log):
+            n_batches += 1
+        with stagetime.stage("readback"):
+            final = hist.cpu().numpy()
+        return KmerTable.from_dense(final, k), n_batches
+
+    if os.environ.get("KMER_TPU_DENSE_SCATTER") == "1":
+        raise NotImplementedError(
+            "the device scatter-add branch of dense k = 9..12 "
+            "(KMER_TPU_DENSE_SCATTER=1, a slow-link policy) is not ported "
+            "to kmer_tpu_torch yet (ROADMAP Queue 1 item 11)")
+    table = np.zeros(4 ** k, np.int64)
+
+    def step(codes_d, lengths_d, limits_d, pw):
+        return _Readback(count_step_sort(
+            codes_d, lengths_d, limits_d, k=k, canonical=cfg.canonical,
+            mask_ambiguous=cfg.skip_invalid, packed_width=pw))
+
+    def take(rb: _Readback) -> None:
+        with stagetime.stage("readback"):
+            rb.wait()
+            keys, counts = device_run_pairs(*rb.host())
+        with stagetime.stage("host_merge"):
+            np.add.at(table, keys.view(np.int64), counts)
+
+    pending = None
+    for _, rb in dispatch_batches(codes, offsets, cfg, dev, step, log):
+        if pending is not None:
+            take(pending)
+        pending = rb
+        n_batches += 1
+    if pending is not None:
+        take(pending)
+    return KmerTable.from_dense(table, k), n_batches
 
 
 def count_fasta(path: str, cfg: KmerConfig | None = None, *, device="cuda",
@@ -256,6 +443,16 @@ def count_files(paths, cfg: KmerConfig | None = None, *, device="cuda",
         cfg = cfg.replace(**cfg_kw)
     resolve_device(device)
     acc = TableAccumulator(cfg.n_bases)
+    for codes, offsets in iter_chunks(paths, cfg):
+        acc.add(count_codes(codes, offsets, cfg, device=device))
+    with stagetime.stage("host_merge"):
+        return acc.result()
+
+
+def iter_chunks(paths, cfg: KmerConfig):
+    """(codes, offsets) of each parsed ingest chunk of each file: chunked
+    by cfg.ingest_chunk_bases and parsed on a background thread, or each
+    whole file when that is 0."""
     for p in paths:
         if cfg.ingest_chunk_bases > 0:
             chunks = stagetime.stage_iter("ingest", prefetch_iter(
@@ -269,6 +466,4 @@ def count_files(paths, cfg: KmerConfig | None = None, *, device="cuda",
                                             min_qual=cfg.min_qual)
             chunks = [(codes, offsets, -1)]
         for codes, offsets, _cursor in chunks:
-            acc.add(count_codes(codes, offsets, cfg, device=device))
-    with stagetime.stage("host_merge"):
-        return acc.result()
+            yield codes, offsets

@@ -36,9 +36,12 @@ from .streaming import route_partition
 SAMPLE_FASTA_MD5 = "1a4ca1e7d4f2e70253aadca10d8351b4"
 
 
-def _parity_cfg(cfg: KmerConfig | None) -> KmerConfig:
-    """The parity default (kmer_tpu's off-TPU one: no compaction)."""
-    cfg = cfg or KmerConfig(gapped=True, batch_reads=256, max_read_len=512)
+def _parity_cfg(cfg: KmerConfig | None, device) -> KmerConfig:
+    """The parity default: on a GPU with on-device compaction, so the
+    readback scales with distinct chunks (kmer_tpu's default on its
+    accelerator); on the CPU without, as kmer_tpu off its accelerator."""
+    cfg = cfg or KmerConfig(gapped=True, batch_reads=256, max_read_len=512,
+                            compact=resolve_device(device).type == "cuda")
     return cfg if cfg.gapped else cfg.replace(gapped=True)
 
 
@@ -86,7 +89,7 @@ def parity_dump(path: str, cfg: KmerConfig | None = None, *,
     """The reference's sorted chunk dump of a FASTA file, as bytes:
     count + expand, or the per-batch multiset sort when
     KMER_TPU_PARITY=multiset."""
-    cfg = _parity_cfg(cfg)
+    cfg = _parity_cfg(cfg, device)
     if os.environ.get("KMER_TPU_PARITY") == "multiset":
         return _parity_dump_multiset(path, cfg, device)
     table = count_fasta(path, cfg, device=device)
@@ -120,7 +123,7 @@ def parity_dump_stream(path: str, out, cfg: KmerConfig | None = None,
     partition at a time and streams it out.  Peak memory is about one
     ingest chunk plus the largest partition; ingest is chunked
     (cfg.ingest_chunk_bases) at record boundaries."""
-    cfg = _parity_cfg(cfg)
+    cfg = _parity_cfg(cfg, device)
     dev = resolve_device(device)
     n_bases = cfg.n_bases
     own_dir = spill_dir is None

@@ -138,6 +138,26 @@ class KmerTable:
         return KmerTable(k, unfuse_words(fu, k), merged)
 
     @staticmethod
+    def from_dense(hist: np.ndarray, k: int) -> "KmerTable":
+        """Dense 4**k histogram (the bin is the key value) -> the sparse
+        sorted table of its non-zero bins."""
+        hist = np.asarray(hist)
+        nz = np.flatnonzero(hist)
+        W = words_per_key(k)
+        keys = np.zeros((nz.size, W), np.uint32)
+        keys[:, W - 1] = nz.astype(np.uint32)
+        return KmerTable(k, keys, hist[nz].astype(np.int64))
+
+    @staticmethod
+    def from_compact(n_bases: int, keys: np.ndarray, counts: np.ndarray
+                     ) -> "KmerTable":
+        """Aggregate one compacted batch's records (ops/kernels/compact,
+        rows [0, total)): fused keys, int64 or uint64, in reduce_fused's
+        layout, so no per-record conversion."""
+        return KmerTable.from_fused(n_bases, np.asarray(keys).view(np.uint64),
+                                    counts)
+
+    @staticmethod
     def from_device_runs(k: int, keys, counts) -> "KmerTable":
         """Aggregate one device count step's output: keys int64 (any
         shape, SENTINEL_KEY on invalid lanes), counts of the same shape

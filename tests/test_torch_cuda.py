@@ -1,5 +1,6 @@
-"""The CUDA kernels K1 and K3 against their plain torch versions, and
-the whole count and parity dump on the card against the CPU.  Every test
+"""The CUDA kernels K1, K3, K4 and K5 against their plain torch
+versions, and the whole count (sort, compact and dense), the parity dump
+and the HyperLogLog estimate on the card against the CPU.  Every test
 here needs a GPU and skips without one.  This file imports neither jax nor kmer_tpu,
 so it also runs on a machine that has only the port:
 
@@ -14,8 +15,10 @@ import kmer_tpu_torch
 from kmer_tpu_torch.io.fasta import pack_batch_codes
 from kmer_tpu_torch.io.generator import (genome_reads_fasta,
                                          reference_style_fasta)
+from kmer_tpu_torch.ops.kernels import compact as ck
 from kmer_tpu_torch.ops.kernels import fused_extract as fe
 from kmer_tpu_torch.ops.kernels import fused_gapped as fg
+from kmer_tpu_torch.ops.kernels import histogram as hk
 
 pytestmark = pytest.mark.cuda
 
@@ -139,3 +142,125 @@ def test_gapped_count_and_parity_cuda_equal_cpu(cuda, tmp_path):
     assert fg.launches == 3           # 40 records, 16 rows a batch
     assert (kmer_tpu_torch.parity_dump(str(path), cfg, device="cuda")
             == kmer_tpu_torch.parity_dump(str(path), cfg, device="cpu"))
+
+
+def _k1_stream(dev, seed, B, L, k, *, empty=False):
+    """K1's (keys, counts) on `dev` for random full-length reads."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, (B, L), dtype=np.uint8)
+    lengths = np.full(B, 0 if empty else L, np.int32)
+    limits = np.full(B, L, np.int32)
+    return fe.fused_extract_count(
+        *(torch.from_numpy(a).to(dev) for a in (codes, lengths, limits)), k,
+        canonical=True)
+
+
+def _compact_both(planes, counts, **kw):
+    before = ck.launches
+    got = ck.compact(planes, counts, **kw)
+    want = ck.compact_ref(planes, counts, **kw)
+    torch.cuda.synchronize()
+    t = int(want[2][0])
+    assert int(got[2][0]) == t
+    assert torch.equal(got[0][:t], want[0][:t])
+    assert torch.equal(got[1][:t], want[1][:t])
+    return ck.launches - before, t
+
+
+@pytest.mark.parametrize("B,L,k", [(8192, 160, 21),   # the main path's shape
+                                   (300, 78, 5), (999, 77, 31),
+                                   (37, 40, 16)])     # a ragged last tile
+def test_compact_kernel_equals_plain_k1(cuda, B, L, k):
+    keys, counts = _k1_stream(cuda, B + k, B, L, k)
+    launched, t = _compact_both((keys,), counts)
+    assert launched == 1 and t == int((counts > 0).sum()) > 0
+
+
+def test_compact_kernel_edges(cuda):
+    keys, counts = _k1_stream(cuda, 1, 64, 50, 21, empty=True)
+    launched, t = _compact_both((keys,), counts)
+    assert launched == 1 and t == 0                    # no live lane
+    ones = torch.ones(5000, dtype=torch.int8, device=cuda)
+    keys = torch.arange(5000, dtype=torch.int64, device=cuda)
+    launched, t = _compact_both((keys,), ones)
+    assert t == 5000                                   # every lane live
+    empty = torch.zeros((8, 0), dtype=torch.int64, device=cuda)
+    before = ck.launches
+    out = ck.compact((empty,), empty.to(torch.int8))
+    assert ck.launches == before and int(out[2][0]) == 0
+
+
+@pytest.mark.parametrize("llen,rlen,cmin,cmax,L", [(27, 27, 80, 140, 416),
+                                                   (5, 5, 12, 20, 64)])
+def test_compact_kernel_equals_plain_k3(cuda, llen, rlen, cmin, cmax, L):
+    rng = np.random.default_rng(L)
+    B = 256
+    codes = rng.integers(0, 4, (B, L), dtype=np.uint8)
+    lengths = np.full(B, L - 16, np.int32)
+    limits = np.full(B, L, np.int32)
+    hi, lo, counts = fg.fused_gapped_count(
+        *(torch.from_numpy(a).to(cuda) for a in (codes, lengths, limits)),
+        l_len=llen, r_len=rlen, c_min=cmin, c_max=cmax)
+    launched, t = _compact_both((hi, lo), counts, r_len=rlen,
+                                n_bases=llen + rlen)
+    assert launched == 1 and t > 0
+
+
+@pytest.mark.parametrize("bits", [8, 15, 16])
+def test_histogram_kernel_equals_plain(cuda, bits):
+    rng = np.random.default_rng(bits)
+    n = 1_150_000                                      # one k=21 batch
+    idx = torch.from_numpy(rng.integers(-3, (1 << bits) + 3, n)).to(cuda)
+    w = torch.from_numpy(rng.integers(0, 4, n).astype(np.int8)).to(cuda)
+    out = torch.full((1 << bits,), 7, dtype=torch.int64, device=cuda)
+    before = hk.launches
+    got = hk.index_histogram(idx, w, bits, out=out.clone())
+    want = hk.index_histogram_ref(idx, w, bits, out=out.clone())
+    torch.cuda.synchronize()
+    assert hk.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k,b", [(21, 10), (11, 11), (16, 4)])
+def test_hll_histogram_kernel_equals_plain(cuda, k, b):
+    keys, counts = _k1_stream(cuda, k, 2048, 150, k)
+    got = hk.hll_class_histogram(keys, counts, k=k, b=b)
+    want = hk.hll_class_histogram_ref(keys, counts, k=k, b=b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and int(got.sum()) == int(counts.sum())
+
+
+def test_histogram_kernel_empty(cuda):
+    before = hk.launches
+    got = hk.index_histogram(torch.zeros(0, dtype=torch.int64, device=cuda),
+                             torch.zeros(0, dtype=torch.int8, device=cuda), 8)
+    assert hk.launches == before and int(got.abs().sum()) == 0
+
+
+def test_compact_dense_and_card_cuda_equal_cpu(cuda, tmp_path):
+    path = tmp_path / "g.fasta"
+    path.write_text(genome_reads_fasta(300, 150, genome_len=3000, seed=2,
+                                       error_rate=0.01))
+    kw = dict(canonical=True, batch_reads=64, max_read_len=96)
+    for extra in (dict(k=21, compact=True), dict(k=8, mode="dense"),
+                  dict(k=12, mode="dense")):
+        want = kmer_tpu_torch.count_fasta(str(path), device="cpu", **kw,
+                                          **extra)
+        ck.launches = hk.launches = 0
+        got = kmer_tpu_torch.count_fasta(str(path), device="cuda", **kw,
+                                         **extra)
+        assert got == want
+        batches = -(-300 * 2 // 64)
+        assert ck.launches == (batches if extra.get("compact") else 0)
+        assert hk.launches == (batches if extra["k"] <= 8 else 0)
+    cfg = kmer_tpu_torch.KmerConfig(k=21, **kw)
+    assert (kmer_tpu_torch.estimate_distinct_multi_k(str(path), [11, 21], cfg,
+                                                     device="cuda")
+            == kmer_tpu_torch.estimate_distinct_multi_k(str(path), [11, 21],
+                                                        cfg, device="cpu"))
+    gcfg = kmer_tpu_torch.KmerConfig(gapped=True, batch_reads=16,
+                                     max_read_len=512, compact=True)
+    rpath = tmp_path / "r.fasta"
+    rpath.write_text(reference_style_fasta(n_records=40, seed=5))
+    assert (kmer_tpu_torch.count_fasta(str(rpath), gcfg, device="cuda")
+            == kmer_tpu_torch.count_fasta(str(rpath), gcfg, device="cpu"))

@@ -74,8 +74,9 @@ def test_encode_and_decode_match_reference():
 
 @pytest.mark.parametrize("kw", [dict(k=32), dict(k=63),
                                 dict(gapped=True, l_len=32, c_min=80),
-                                dict(seed_mask="11011"), dict(compact=True),
-                                dict(mode="dense", k=8),
+                                dict(seed_mask="11011"),
+                                dict(k=33, compact=True),
+                                dict(gapped=True, r_len=32, c_min=80),
                                 dict(device_merge="on")])
 def test_options_not_ported_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
