@@ -7,7 +7,8 @@ few) to stdout:
 
   1. environment: torch/CUDA versions, the card's name and power limit,
      nvcc, and the kernels and native host libraries, all built at once
-     (one compiler process each), with their build times;
+     (one compiler process each), with their build times; the probed
+     device-to-host link rate behind the "auto" policies;
   2. kernel K1 (kmer_tpu_torch/csrc/fused_extract.cu) against its plain
      torch version on the card, bit-exact lane for lane, at the main
      path's shape (B=8192, L=160, k=21, canonical, seg=2, packed rows)
@@ -26,8 +27,8 @@ few) to stdout:
      first 50,000 reads;
   5. the reference's parity dump of tests/data/sample.fasta on the card:
      its md5 by count + expand (the GPU default, compacted by K4), by the
-     per-batch multiset sort and bounded-memory with 7 spill partitions,
-     each timed;
+     per-batch multiset sort and bounded-memory with 7 spill partitions
+     (both sorted by K6, which must launch), each timed;
   6. the gapped path end to end: count_fasta(..., KmerConfig(gapped=True,
      batch_reads=256, max_read_len=512), device="cuda") on
      reference_style_fasta(n_records=4000) (400-base records, ~71.0 M
@@ -49,15 +50,36 @@ few) to stdout:
      compact=True);
  11. dense mode on phase 4's corpus: k=8 through K5 and k=12 through the
      host hybrid, each table equal to the sort-mode table at that k and
-     its total equal to sum(len - k + 1);
+     its total equal to sum(len - k + 1); then k=12 again with
+     KMER_TPU_DENSE_SCATTER=1 (a device index_add_ table): equal to the
+     hybrid's;
  12. `card -k 21 --canonical` on phase 4's corpus: the class histogram
      equals the plain version's on the first 50,000 reads, and the
      estimate falls within 15% of phase 4's exact distinct count;
- 13. one JSON line with every kernel of the paths, then the result line
-     {"ok": true, "device": {...}} last.
+ 13. kernel K6 (kmer_tpu_torch/csrc/sort.cu) against its plain version,
+     bit for bit: at the device merge's shape (2 words, a 2**24-row
+     state plus 2**23 lanes of K1 output with counts), at the parity
+     shape (K3's live (hi, lo, counts) at B=256, L=416, 3 words) and at
+     edge cases (N = 1, N around the 4096-row tile, a non-power-of-two
+     N, all sentinels, all equal rows, W = 4); timed beside the plain
+     version and torch.sort of one word at the same N;
+ 14. phase 4's run with device_merge="on" (the table on the card, merged
+     by K6): its table equals phase 4's, K6 launches once a merge, the
+     stage breakdown and wall beside phase 4's host-merge wall; then the
+     same run under torch.profiler: device time by kernel and the
+     device's busy share;
+ 15. phase 6's run with device_merge="on": its table equals phase 6's;
+ 16. one JSON line with every kernel of the paths (with its bound and,
+     where one PyTorch call computes the same function, that call's
+     time), then the result line {"ok": true, "device": {...}} last.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  Without a CUDA device it fails at once.
+
+Bounds: the larger of the bytes a kernel must move (each input read
+once, each output written once) over HBM3's 3.35 TB/s and its integer
+operations over 67 T/s (the H100 SXM's rate outside the tensor cores),
+both from NVIDIA's data sheet.
 """
 
 from __future__ import annotations
@@ -67,6 +89,7 @@ import concurrent.futures as cf
 import functools
 import hashlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -86,6 +109,17 @@ GAP = dict(l_len=27, r_len=27, c_min=80, c_max=140)
 GAP_B, GAP_L, GAP_LEN = 256, 416, 400
 GAP_RECORDS, GAP_ORACLE_RECORDS = 4000, 300
 REPO = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: bytes over HBM bandwidth or
+    operations over the ALU rate, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / ALU_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def _say(*parts) -> None:
@@ -194,16 +228,23 @@ def phase_kernel(dev, seed: int) -> dict:
     ms, plain_ms = time_ms(kernel), time_ms(plain)
     host_ms, plain_host_ms = time_host_ms(kernel), time_host_ms(plain)
     lanes = (MAIN_L - K + 1) * MAIN_B
-    out_bytes = lanes * 9
+    out_bytes = kernel()[1].numel() * 9            # int64 key + int8 count
+    # packed codes, lengths and limits in; ~16 integer operations a lane
+    # (rolling forward and reverse-complement values, min, validity,
+    # collapse)
+    b = bound(main[0].numel() * 4 + MAIN_B * 8 + out_bytes, lanes * 16)
     _say(f"kernel_time B={MAIN_B} L={MAIN_L} k={K} kernel_ms={ms} "
          f"plain_ms={plain_ms} speedup={plain_ms / ms} "
          f"lanes_per_s={lanes / (ms * 1e-3)} "
          f"out_GB_per_s={out_bytes / (ms * 1e-3) / 1e9} "
          f"kernel_call_ms={host_ms} plain_call_ms={plain_host_ms} "
+         f"bound_ms={b['bound_ms']} bound_by={b['bound_by']} "
+         f"library_ms=None (no single PyTorch call extracts k-mers) "
          f"(tolerance: exact, max_abs_err must be 0)")
     return {"name": "fused_extract_count", "route": "cuda",
             "source": fe.SOURCE, "replaces": fe.REPLACES,
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": None}
 
 
 def oracle_table(path: str, k: int) -> tuple[np.ndarray, np.ndarray]:
@@ -298,7 +339,7 @@ def phase_end_to_end(dev, seed: int, tmp: str, n_reads: int = N_READS,
          f"k1_launches={launches} wall_s={wall} "
          f"reads_per_s={n_reads / wall} kmers_per_s={total_kmers / wall}")
     _say("stages_s " + json.dumps(times, sort_keys=True))
-    return launches, table, path, small
+    return launches, table, path, small, wall
 
 
 def gapped_batch(rng, B, L, *, packed, amb, short, full_len=GAP_LEN):
@@ -370,20 +411,27 @@ def phase_gapped_kernel(dev, seed: int) -> dict:
     host_ms, plain_host_ms = time_host_ms(kernel), time_host_ms(plain)
     T_pad = kernel()[0].shape[1]
     lanes = T_pad * GAP_B
+    # packed codes, lengths and limits in, (hi, lo, count) out; ~8
+    # integer operations a lane (two table reads, validity, collapse)
+    b = bound(main[0].numel() * 4 + GAP_B * 8 + lanes * 17, lanes * 8)
     _say(f"gapped_kernel_time B={GAP_B} L={GAP_L} T_pad={T_pad} "
          f"kernel_ms={ms} plain_ms={plain_ms} speedup={plain_ms / ms} "
          f"lanes_per_s={lanes / (ms * 1e-3)} "
          f"out_GB_per_s={lanes * 17 / (ms * 1e-3) / 1e9} "
          f"kernel_call_ms={host_ms} plain_call_ms={plain_host_ms} "
+         f"bound_ms={b['bound_ms']} bound_by={b['bound_by']} "
+         f"library_ms=None (no single PyTorch call forms gapped chunks) "
          f"(tolerance: exact, max_abs_err must be 0)")
     return {"name": "fused_gapped_count", "route": "cuda",
             "source": fg.SOURCE, "replaces": fg.REPLACES,
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": None}
 
 
 def phase_parity(dev) -> None:
     """The sample.fasta md5 on `dev` by every parity mode."""
     import io
+    from kmer_tpu_torch.ops.kernels import sort as sk
     from kmer_tpu_torch.pipeline.parity import (SAMPLE_FASTA_MD5,
                                                 parity_dump,
                                                 parity_dump_stream)
@@ -391,6 +439,7 @@ def phase_parity(dev) -> None:
     dumps = {}
     for mode in ("count_expand", "multiset", "bounded"):
         torch.cuda.synchronize()
+        sk.launches = 0
         t0 = time.perf_counter()
         if mode == "bounded":
             buf = io.BytesIO()
@@ -405,15 +454,19 @@ def phase_parity(dev) -> None:
         wall = time.perf_counter() - t0
         md5 = hashlib.md5(dumps[mode]).hexdigest()
         _say(f"parity mode={mode} compact={mode == 'count_expand'} "
-             f"lines={dumps[mode].count(10)} md5={md5} wall_s={wall}")
+             f"lines={dumps[mode].count(10)} md5={md5} "
+             f"k6_launches={sk.launches} wall_s={wall}")
         if md5 != SAMPLE_FASTA_MD5 or dumps[mode] != dumps["count_expand"]:
             raise AssertionError(f"parity {mode}: md5 {md5} != "
                                  f"{SAMPLE_FASTA_MD5}")
+        if (sk.launches > 0) != (mode != "count_expand"):
+            raise AssertionError(f"parity {mode}: K6 launched "
+                                 f"{sk.launches} times")
 
 
-def phase_gapped_end_to_end(dev, seed: int, tmp: str) -> int:
+def phase_gapped_end_to_end(dev, seed: int, tmp: str):
     """count_fasta(gapped) on `dev`; returns K3's launches in the timed
-    run."""
+    run, the table, the corpus and the wall."""
     from kmer_tpu_torch import KmerConfig, count_fasta
     from kmer_tpu_torch.io.fasta import parse_seqs
     from kmer_tpu_torch.io.generator import reference_style_fasta
@@ -485,7 +538,192 @@ def phase_gapped_end_to_end(dev, seed: int, tmp: str) -> int:
          f"k4_launches={ck.launches} wall_s={ctimes['total']} "
          f"chunks_per_s={want_total / ctimes['total']}")
     _say("gapped_compact_stages_s " + json.dumps(ctimes, sort_keys=True))
+    return launches, table, path, wall
+
+
+def phase_sort_kernel(dev, seed: int) -> dict:
+    """K6 == plain version on `dev`, bit for bit, at the device merge's
+    and the parity path's shapes and at edge cases; returns K6's JSON
+    record (without the main-path launch count)."""
+    from kmer_tpu_torch.ops.kernels import fused_extract as fe
+    from kmer_tpu_torch.ops.kernels import fused_gapped as fg
+    from kmer_tpu_torch.ops.kernels import sort as sk
+    rng = np.random.default_rng(seed + 4)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sent = sk.SENTINEL
+
+    def rand(n, hi):
+        return torch.randint(0, hi, (n,), generator=gen, device=dev)
+
+    # the device merge: a 2**24-row state (sorted unique keys, counts)
+    # and 2**23 lanes of K1 output, dead lanes made sentinel rows
+    state = torch.unique(rand(1 << 24, 4 ** K))
+    main = [t.to(dev) for t in kernel_batch(rng, MAIN_B, MAIN_L, K,
+                                            packed=True, amb=False,
+                                            short=False)]
+    keys, counts = fe.fused_extract_count(*main, K, canonical=True, seg=SEG,
+                                          packed_width=MAIN_L)
+    reps = -(-(1 << 23) // keys.numel())
+    bk = keys.reshape(-1).repeat(reps)[:1 << 23]
+    bc = counts.reshape(-1).to(torch.int64).repeat(reps)[:1 << 23]
+    bk = torch.where(bc > 0, bk, sent)
+    merge = [torch.cat([state, bk]),
+             torch.cat([rand(state.numel(), 50) + 1, bc])]
+    # the parity path: K3's live (hi, lo, counts) of one batch
+    hi, lo, gc = fg.fused_gapped_count(
+        *(t.to(dev) for t in gapped_batch(rng, GAP_B, GAP_L, packed=True,
+                                          amb=False, short=False)),
+        **GAP, seg=SEG, packed_width=GAP_L)
+    live = gc.reshape(-1) > 0
+    parity = [hi.reshape(-1)[live], lo.reshape(-1)[live],
+              gc.reshape(-1)[live].to(torch.int64)]
+
+    def with_sentinels(words, share=0.2):
+        dead = torch.rand(words[0].numel(), generator=gen, device=dev) < share
+        return [torch.where(dead, sent, w) for w in words]
+
+    cases = {
+        "devmerge": merge, "parity": parity,
+        "n1": [rand(1, 100), rand(1, 100)],
+        "tile": with_sentinels([rand(4096, 1 << 62)]),
+        "tile_plus_1": with_sentinels([rand(4097, 50), rand(4097, 50)]),
+        "odd_n": with_sentinels([rand(1_000_003, 1 << 42), rand(1_000_003,
+                                                                1 << 20),
+                                 rand(1_000_003, 7)]),
+        "all_sentinels": [torch.full((100_000,), sent, device=dev)] * 2,
+        "all_equal": [torch.full((70_000,), 7, device=dev)] * 3,
+        "w4": with_sentinels([rand(300_001, 4) for _ in range(4)]),
+    }
+    max_err = 0
+    for name, words in cases.items():
+        before = sk.launches
+        got = sk.sort_words([w.clone() for w in words])
+        want = sk.sort_words_ref(words)
+        torch.cuda.synchronize()
+        err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+        launched = sk.launches - before
+        _say(f"sort_check case={name} W={len(words)} N={words[0].numel()} "
+             f"launches={launched} max_abs_err={err}")
+        if err != 0 or launched != 1 or not all(
+                torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"K6 != plain version ({name}: "
+                                 f"max_abs_err={err})")
+        max_err = max(max_err, err)
+    del got, want
+
+    def kernel_ms(words, reps, inner):
+        # K6 sorts in place: every call gets its own unsorted copy
+        copies = iter([[w.clone() for w in words]
+                       for _ in range(5 + reps * inner)])
+        return time_ms(lambda: sk.sort_words(next(copies)), reps=reps,
+                       inner=inner)
+
+    rec = {"name": "sort_words", "route": "cuda", "source": sk.SOURCE,
+           "replaces": sk.REPLACES, "max_abs_err": max_err}
+    for name, reps, inner in (("devmerge", 5, 2), ("parity", 10, 2)):
+        words = cases[name]
+        n, W = words[0].numel(), len(words)
+        plain = functools.partial(sk.sort_words_ref, words)
+        p1 = time_ms(plain, reps=reps, inner=inner)
+        k1_, k2_ = kernel_ms(words, reps, inner), kernel_ms(words, reps,
+                                                            inner)
+        p2 = time_ms(plain, reps=reps, inner=inner)
+        ms, plain_ms = min(k1_, k2_), min(p1, p2)
+        library_ms = time_ms(functools.partial(torch.sort, words[0]),
+                             reps=reps, inner=inner)
+        # one read and one write of N rows of W words; N log2 N row
+        # comparisons of W words each
+        b = bound(2 * n * W * 8, n * math.ceil(math.log2(n)) * W)
+        _say(f"sort_time case={name} W={W} N={n} kernel_ms={ms} "
+             f"plain_ms={plain_ms} speedup={plain_ms / ms} "
+             f"library_ms={library_ms} (torch.sort, one word) "
+             f"bound_ms={b['bound_ms']} bound_by={b['bound_by']} "
+             f"GB_per_s={2 * n * W * 8 / (ms * 1e-3) / 1e9} "
+             f"(tolerance: exact, max_abs_err must be 0)")
+        if name == "devmerge":
+            rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b)
+        else:
+            rec.update(parity_ms=ms, parity_plain_ms=plain_ms,
+                       parity_library_ms=library_ms,
+                       parity_bound_ms=b["bound_ms"])
+    return rec
+
+
+def phase_devmerge(dev, path: str, cfg, want_table, host_wall: float,
+                   label: str) -> int:
+    """The run of `cfg` with device_merge="on" against its host-merge
+    table and wall from the same run of this script; returns K6's
+    launches, one a merge."""
+    from kmer_tpu_torch import count_fasta
+    from kmer_tpu_torch.ops import devmerge
+    from kmer_tpu_torch.ops.kernels import sort as sk
+    from kmer_tpu_torch.utils import stagetime
+    merges = []
+    orig = devmerge.merge_batch
+
+    def counted(*args):
+        merges.append(1)
+        return orig(*args)
+    times: dict[str, float] = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    devmerge.merge_batch = counted
+    sk.launches = 0
+    try:
+        with stagetime.collect(times):
+            table = count_fasta(path, cfg.replace(device_merge="on"),
+                                device=dev)
+    finally:
+        devmerge.merge_batch = orig
+    launches = sk.launches
+    if not (table == want_table and launches == len(merges) > 0):
+        raise AssertionError(f"{label} device-merge table != the host-merge "
+                             f"table, or K6 launches {launches} != merges "
+                             f"{len(merges)}")
+    wall = times["total"]
+    _say(f"{label}_devmerge equal_to_host_merge=True merges={len(merges)} "
+         f"k6_launches={launches} distinct={table.num_distinct} "
+         f"wall_s={wall} host_merge_wall_s={host_wall} "
+         f"peak_device_GB={torch.cuda.max_memory_allocated() / 1e9}")
+    _say(f"{label}_devmerge_stages_s " + json.dumps(times, sort_keys=True))
     return launches
+
+
+def profile_devmerge(dev, path: str, cfg) -> None:
+    """The k=21 device-merge run once more under torch.profiler: device
+    time by kernel and the device's busy share of the wall (kernel time
+    summed over the run's kernels, which share one stream)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kmer_tpu_torch import count_fasta
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        count_fasta(path, cfg.replace(device_merge="on"), device=dev)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+    # the device's own events only: a host op's row repeats the time of
+    # the kernels it launched
+    rows = sorted(((device_us(e), e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and device_us(e) > 0),
+                  reverse=True)
+    busy = sum(us for us, _, _ in rows) / 1e6
+    if not rows:
+        _say("k21_devmerge_profile device time not measured (the profiler "
+             "saw no device events)")
+        return
+    _say(f"k21_devmerge_profile wall_s={wall} device_busy_s={busy} "
+         f"device_busy_share={busy / wall} (wall under the profiler)")
+    _say("k21_devmerge_profile_top " + json.dumps(
+        [{"kernel": key[:60], "ms": us / 1e3, "calls": n}
+         for us, key, n in rows[:8]]))
 
 
 def time_pair(kernel, plain) -> tuple[float, float]:
@@ -571,6 +809,16 @@ def phase_compact_kernel(dev, seed: int) -> dict:
              f"(tolerance: exact, max_abs_err must be 0)")
         rec.update({"ms": ms, "plain_ms": plain_ms} if name == "k1_main"
                    else {"gapped_ms": ms, "gapped_plain_ms": plain_ms})
+    # K1's output: int8 counts and int64 keys in, a 16-byte record for
+    # each live lane out; two operations a lane (test, prefix)
+    *planes, counts, _ = cases["k1_main"]
+    live = int((counts > 0).sum())
+    n = counts.numel()
+    rec.update(bound(n * 9 + live * 16 + 8, n * 2), library_ms=None)
+    _say(f"compact_bound case=k1_main lanes={n} live={live} "
+         f"bound_ms={rec['bound_ms']} bound_by={rec['bound_by']} "
+         "library_ms=None (no single PyTorch call packs key and count "
+         "records)")
     return rec
 
 
@@ -599,7 +847,17 @@ def phase_histogram_kernel(dev, seed: int) -> dict:
         if err != 0:
             raise AssertionError(f"K5 != plain version (bits={bits})")
         if bits == 16:
-            rec.update(ms=ms, plain_ms=plain_ms)
+            # indices and int8 weights in, 2**16 int64 bins out; one add
+            # a lane.  The yardstick: torch.bincount with the weights
+            # (as floats: it takes no integer weights)
+            wf = w.to(torch.float32)
+            library_ms = time_ms(functools.partial(
+                torch.bincount, idx, weights=wf, minlength=1 << bits))
+            rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       **bound(n * 9 + (8 << bits), n))
+            _say(f"histogram_bound bits={bits} lanes={n} "
+                 f"bound_ms={rec['bound_ms']} bound_by={rec['bound_by']} "
+                 f"library_ms={library_ms} (torch.bincount, weights)")
     main = [t.to(dev) for t in kernel_batch(rng, MAIN_B, MAIN_L, K,
                                             packed=True, amb=False,
                                             short=False)]
@@ -692,6 +950,20 @@ def phase_dense(dev, path: str) -> int:
              f"wall_s={times['total']} "
              f"kmers_per_s={want_total / times['total']}")
         _say(f"dense_k{k}_stages_s " + json.dumps(times, sort_keys=True))
+    # k = 12 again on the device: index_add_ into a 4**12 int64 table
+    stimes: dict[str, float] = {}
+    os.environ["KMER_TPU_DENSE_SCATTER"] = "1"
+    try:
+        with stagetime.collect(stimes):
+            scatter = count_fasta(path, cfg, device=dev)
+    finally:
+        del os.environ["KMER_TPU_DENSE_SCATTER"]
+    if scatter != table:
+        raise AssertionError("dense k=12 scatter table != the hybrid's")
+    _say(f"dense k=12 path=scatter distinct={scatter.num_distinct} "
+         f"equal_to_hybrid=True wall_s={stimes['total']} "
+         f"kmers_per_s={want_total / stimes['total']}")
+    _say("dense_k12_scatter_stages_s " + json.dumps(stimes, sort_keys=True))
     return launches
 
 
@@ -734,9 +1006,10 @@ def build_all() -> None:
     from kmer_tpu_torch.ops.kernels import fused_extract as fe
     from kmer_tpu_torch.ops.kernels import fused_gapped as fg
     from kmer_tpu_torch.ops.kernels import histogram as hk
+    from kmer_tpu_torch.ops.kernels import sort as sk
     from kmer_tpu_torch.pipeline import nativeagg
-    loaders = (fe.load, fg.load, ck.load, hk.load, fasta.load_native,
-               nativeagg.load)
+    loaders = (fe.load, fg.load, ck.load, hk.load, sk.load,
+               fasta.load_native, nativeagg.load)
     with cf.ThreadPoolExecutor(len(loaders)) as ex:
         for fut in [ex.submit(fn) for fn in loaders]:
             fut.result()
@@ -766,25 +1039,37 @@ def main(argv=None) -> int:
     _say(f"native_parser_loaded={fasta.native_loaded()} "
          f"native_aggregator_loaded={nativeagg.native_loaded()} "
          f"build_s={json.dumps(build.build_seconds, sort_keys=True)}")
+    from kmer_tpu_torch.utils.linkspeed import d2h_gbps
+    _say(f"d2h_link_probe_GBps={d2h_gbps(dev)} (device_merge=\"auto\" is on "
+         "below 0.5, mode=\"auto\" dense below 5)")
 
-    # phases 2-3 and 7-8: each kernel against its plain version
+    # phases 2-3, 7-8 and 13: each kernel against its plain version
     k1 = phase_kernel(dev, args.seed)
     k3 = phase_gapped_kernel(dev, args.seed)
     k4 = phase_compact_kernel(dev, args.seed)
     k5 = phase_histogram_kernel(dev, args.seed)
+    k6 = phase_sort_kernel(dev, args.seed)
 
-    # phases 4-6 and 9-12: the paths end to end, each kernel's count set
-    # to 0 just before its path and read just after
+    # phases 4-6, 9-12 and 14-15: the paths end to end, each kernel's
+    # count set to 0 just before its path and read just after
+    from kmer_tpu_torch import KmerConfig
     with tempfile.TemporaryDirectory() as tmp:
-        k1["launches"], table, path, small = phase_end_to_end(
+        k1["launches"], table, path, small, wall = phase_end_to_end(
             dev, args.seed, tmp)
+        k6["launches"] = phase_devmerge(
+            dev, path, KmerConfig(k=K, canonical=True), table, wall, "k21")
+        profile_devmerge(dev, path, KmerConfig(k=K, canonical=True))
         phase_parity(dev)
-        k3["launches"] = phase_gapped_end_to_end(dev, args.seed, tmp)
+        k3["launches"], gtable, gpath, gwall = phase_gapped_end_to_end(
+            dev, args.seed, tmp)
+        phase_devmerge(dev, gpath, KmerConfig(gapped=True, batch_reads=GAP_B,
+                                              max_read_len=512),
+                       gtable, gwall, "gapped")
         k4["launches"] = phase_compact_end_to_end(dev, path, table)
         k5["launches"] = phase_dense(dev, path)
         phase_card(dev, path, small, table.num_distinct)
 
-    _say(json.dumps({"kernels": [k1, k3, k4, k5]}))
+    _say(json.dumps({"kernels": [k1, k3, k4, k5, k6]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

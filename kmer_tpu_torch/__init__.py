@@ -4,14 +4,16 @@ A port of kmer_tpu to an NVIDIA H100, one slice at a time; kmer_tpu stays
 beside it as the reference.  Ported so far: sort-mode counting of
 contiguous k-mers, k <= 31, canonical or not, and of the reference's
 gapped L+R chunks, with its byte-exact parity dump; on-device compaction
-(compact=True); dense mode (k <= 12); and the HyperLogLog distinct-k-mer
-estimate.  Native ingest to 2-bit codes, hand-written Hopper kernels per
-batch (ops/kernels: fused_extract, fused_gapped, compact, histogram), and
-host aggregation into a KmerTable whose keys, TSV and .npz match
-kmer_tpu's bit for bit.
+(compact=True); the device-resident table (device_merge="on"); dense mode
+(k <= 12); and the HyperLogLog distinct-k-mer estimate.  Native ingest to
+2-bit codes, hand-written Hopper kernels (ops/kernels: fused_extract,
+fused_gapped, compact, histogram, sort), and host aggregation into a
+KmerTable whose keys, TSV and .npz match kmer_tpu's bit for bit.
 
     from kmer_tpu_torch import KmerConfig, count_fasta, parity_md5
     table = count_fasta("reads.fasta", k=21, canonical=True, device="cuda")
+    same = count_fasta("reads.fasta", k=21, canonical=True,
+                       device_merge="on")
     chunks = count_fasta("reads.fasta", KmerConfig(gapped=True))
     assert parity_md5("tests/data/sample.fasta") == SAMPLE_FASTA_MD5
     [(estimate, total)] = estimate_distinct_multi_k("reads.fasta", [21],
@@ -19,6 +21,7 @@ kmer_tpu's bit for bit.
 """
 
 from .config import KmerConfig
+from .ops.count import sort_words
 from .pipeline.count import count_codes, count_fasta, count_files
 from .pipeline.parity import SAMPLE_FASTA_MD5, parity_dump, parity_md5
 from .pipeline.sketch import estimate_distinct_files, estimate_distinct_multi_k
@@ -28,4 +31,5 @@ __version__ = "0.5.0"
 
 __all__ = ["KmerConfig", "KmerTable", "count_fasta", "count_files",
            "count_codes", "parity_dump", "parity_md5", "SAMPLE_FASTA_MD5",
-           "estimate_distinct_files", "estimate_distinct_multi_k"]
+           "estimate_distinct_files", "estimate_distinct_multi_k",
+           "sort_words"]

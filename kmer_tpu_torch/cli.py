@@ -61,9 +61,17 @@ def main(argv: list[str] | None = None) -> int:
     pc.add_argument("--compact", action="store_true",
                     help="on-device compaction: device->host transfer "
                          "scales with distinct k-mers (sort mode)")
+    pc.add_argument("--device-merge", choices=("auto", "on", "off"),
+                    default="auto",
+                    help="device-resident table: the table stays on the "
+                         "device and only distinct rows are read back "
+                         "(auto: on when the probed device->host link is "
+                         "slow)")
     pc.add_argument("--mode", choices=["auto", "dense", "sort"],
                     default="auto",
-                    help="dense: a 4^k table (k <= 12); auto is sort")
+                    help="dense: a 4^k table (k <= 12); auto: dense for "
+                         "k <= 8 when the probed device->host link is "
+                         "slow, else sort")
     _add_device(pc)
 
     pp = sub.add_parser("parity", help="reference-parity sorted chunk dump")
@@ -127,7 +135,8 @@ def _count(args) -> int:
                          "chunks have no reverse-complement contract)")
     kw = dict(batch_reads=args.batch_reads,
               skip_invalid=args.skip_invalid or args.min_qual > 0,
-              min_qual=args.min_qual, stats=args.stats, compact=args.compact)
+              min_qual=args.min_qual, stats=args.stats, compact=args.compact,
+              device_merge=args.device_merge)
     if args.gapped:
         cfg = KmerConfig(gapped=True, l_len=args.l_len, r_len=args.r_len,
                          c_min=args.c_min, c_max=args.c_max,

@@ -12,6 +12,7 @@ import dataclasses
 from dataclasses import dataclass
 
 from .ops.encode import MAX_K, words_per_key
+from .utils.linkspeed import dense_auto_ok
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -87,9 +88,6 @@ class KmerConfig:
                               "15 (gapped windows over 31 bases)")
         if self.seed_mask is not None:
             raise _not_ported("seed_mask", "8 (spaced seeds)")
-        if self.device_merge == "on":
-            raise _not_ported('device_merge="on"',
-                              "11 (device-resident table)")
         if not self.gapped and self.k > MAX_K:
             raise _not_ported(f"k={self.k} > {MAX_K}",
                               "5 (two-word int64 keys, 32 <= k <= 63)")
@@ -111,12 +109,16 @@ class KmerConfig:
 
     @property
     def effective_mode(self) -> str:
-        """The mode a run takes: dense for mode="dense", else sort.
-        kmer_tpu's "auto" picks dense only behind a probed slow
-        device-to-host link; the two modes give the same table, and the
-        port has no link probe (ROADMAP Queue 1 item 11), so auto is
-        sort."""
-        return "dense" if self.mode == "dense" else "sort"
+        """The mode a run takes.  auto is dense only for contiguous,
+        uncompacted k <= 8 behind a device-to-host link slower than
+        utils/linkspeed.DENSE_BREAKEVEN_GBPS (probed on the default
+        device at the first call, or KMER_TPU_D2H_GBPS), as kmer_tpu's;
+        else sort.  The two modes give the same table."""
+        if self.mode != "auto":
+            return self.mode
+        if self.compact or self.gapped or self.k > 8:
+            return "sort"
+        return "dense" if dense_auto_ok() else "sort"
 
     def replace(self, **kw) -> "KmerConfig":
         return dataclasses.replace(self, **kw)

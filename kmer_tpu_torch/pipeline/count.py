@@ -10,10 +10,16 @@ in-segment collapse), gapped L+R chunks through ops/kernels/fused_gapped.
   behind the device.  With compact=True the step's live lanes are first
   packed on the device into host-ready records (ops/kernels/compact) and
   only those rows cross.
+- sort mode with the device merge (device_merge="on", or "auto" behind a
+  probed device-to-host link slower than DEVMERGE_BREAKEVEN_GBPS): the
+  table stays on the device (ops/devmerge, sorted by kernel K6) and the
+  host reads its distinct rows once (DeviceMerge).
 - dense mode, k <= 8: the step's keys and counts go into a 4**k int64
   histogram that stays on the device (ops/kernels/histogram) and is read
   once per corpus.  k = 9..12: the sort-mode step, then a host
-  np.add.at into a 4**k int64 table (kmer_tpu's fast-link "hybrid").
+  np.add.at into a 4**k int64 table (kmer_tpu's fast-link "hybrid"), or,
+  behind a link slower than utils/linkspeed.SCATTER_BREAKEVEN_GBPS, a
+  device index_add_ into a 4**k int64 table read once.
 """
 
 from __future__ import annotations
@@ -26,11 +32,13 @@ import torch
 
 from ..config import KmerConfig
 from ..io.fasta import iter_batches, iter_parse_chunks, parse_seqs
+from ..ops import devmerge
 from ..ops.kernels import compact as compact_kernel
 from ..ops.kernels import fused_gapped
 from ..ops.kernels.fused_extract import fused_extract_count
 from ..ops.kernels.histogram import index_histogram
 from ..utils import stagetime
+from ..utils.linkspeed import d2h_gbps, dense_scatter_ok
 from ..utils.stats import StatsLogger, Timer, prefetch_iter
 from .table import (KmerTable, TableAccumulator, device_run_pairs,
                     gapped_run_pairs, reduce_fused, unfuse_words)
@@ -41,6 +49,10 @@ SEG = 2
 # dense mode keeps a device-resident 4**k table up to this k (kernel K5
 # takes indices of up to 16 bits)
 DENSE_DEVICE_K_MAX = 8
+# the device merge trades the per-batch readback (~10 B a lane) for its
+# sorts; on a fast link the readback is cheap and the sorts are overhead
+# (kmer_tpu's constant)
+DEVMERGE_BREAKEVEN_GBPS = 0.5
 
 
 def resolve_device(device) -> torch.device:
@@ -124,6 +136,159 @@ def count_step_dense(codes: torch.Tensor, lengths: torch.Tensor,
                                    mask_ambiguous=mask_ambiguous,
                                    packed_width=packed_width)
     return index_histogram(keys, counts, 2 * k, out=hist)
+
+
+def count_step_scatter(codes: torch.Tensor, lengths: torch.Tensor,
+                       limits: torch.Tensor, table: torch.Tensor, *, k: int,
+                       canonical: bool, mask_ambiguous: bool = False,
+                       packed_width: int = 0) -> torch.Tensor:
+    """One device batch, dense k = 9..12 on the device: the sort-mode
+    step, then its live keys weighted by their counts added in place into
+    `table` ((4**k,) int64 on the batch's device) by index_add_; returns
+    table."""
+    keys, counts = count_step_sort(codes, lengths, limits, k=k,
+                                   canonical=canonical,
+                                   mask_ambiguous=mask_ambiguous,
+                                   packed_width=packed_width)
+    counts = counts.reshape(-1).to(torch.int64)
+    # dead lanes carry count 0 and the sentinel key: add 0 to bin 0
+    idx = torch.where(counts > 0, keys.reshape(-1), 0)
+    return table.index_add_(0, idx, counts)
+
+
+def _devmerge_ok(cfg: KmerConfig | None = None, device=None) -> bool:
+    """The device-merge policy: KMER_TPU_DEVMERGE=1/0 forces it, then
+    cfg.device_merge "on"/"off"; "auto" is a CUDA device whose probed
+    device-to-host link (utils/linkspeed.d2h_gbps) is slower than
+    KMER_TPU_DEVMERGE_LINK_GBPS (default DEVMERGE_BREAKEVEN_GBPS)."""
+    env = os.environ.get("KMER_TPU_DEVMERGE")
+    if env in ("0", "1"):
+        return env == "1"
+    mode = cfg.device_merge if cfg is not None else "auto"
+    if mode in ("on", "off"):
+        return mode == "on"
+    dev = torch.device(device if device is not None else
+                       "cuda" if torch.cuda.is_available() else "cpu")
+    if dev.type != "cuda":
+        return False
+    thr = float(os.environ.get("KMER_TPU_DEVMERGE_LINK_GBPS",
+                               DEVMERGE_BREAKEVEN_GBPS))
+    return d2h_gbps(dev) < thr
+
+
+class DeviceMerge:
+    """The device-resident table of one sort-mode run (ops/devmerge).
+
+    add() buffers step outputs (W int64 key planes and counts, on the
+    device) and merges them in one sort once about C/2 lanes have
+    gathered, C the state's rows, so that each lane is sorted about
+    three times however large C grows.  Before every merge of N lanes the
+    state holds C >= distinct + N: a host-side bound on distinct (the
+    lanes merged since the last sync) says when the true count must be
+    read (the "device_sync" stage), and the state then grows, within
+    devmerge.max_rows, or drains into `parts` and resets.  After a reset
+    the state grows to hold the pending group whatever the budget, so no
+    merge can drop a key.  KMER_TPU_DEVMERGE_ROWS fixes C (raised to one
+    group's lanes): every overflow drains.
+
+    A drain reads the distinct rows through the wire tiers and appends
+    to_part(keys (d, W) int64, counts (d,) int64) to `parts`; each part
+    is sorted and unique, so a run with one drain needs no host merge."""
+
+    def __init__(self, n_words: int, device, to_part, *, l_len: int = 0,
+                 r_len: int = 0):
+        self.W, self.device, self.to_part = n_words, device, to_part
+        self.wire = dict(l_len=l_len, r_len=r_len)
+        self.words = self.counts = None
+        self.fixed = False
+        self.distinct = 0          # live rows at the last sync
+        self.bound = 0             # distinct <= bound
+        self.d_dev = None          # distinct after the last merge (device)
+        self.pend: list = []
+        self.pend_lanes = 0
+        self.parts: list = []
+
+    @property
+    def capacity(self) -> int:
+        return 0 if self.counts is None else self.counts.numel()
+
+    def add(self, words, counts: torch.Tensor) -> None:
+        self.pend.append((words, counts))
+        self.pend_lanes += counts.numel()
+        if self.pend_lanes >= self.capacity // 2:
+            self.flush()
+
+    def _reset(self, rows: int) -> None:
+        self.words, self.counts = devmerge.empty_state(rows, self.W,
+                                                       self.device)
+        self.distinct = self.bound = 0
+        self.d_dev = None
+
+    def _grow(self, rows: int) -> None:
+        with stagetime.stage("dispatch"):
+            self.words, self.counts = devmerge.grow_state(self.words,
+                                                          self.counts, rows)
+
+    def _sync(self) -> None:
+        if self.d_dev is not None:
+            with stagetime.stage("device_sync"):
+                self.distinct = int(self.d_dev)
+            self.d_dev = None
+        self.bound = self.distinct
+
+    def flush(self) -> None:
+        """Merge the buffered lanes into the state."""
+        N = self.pend_lanes
+        if N == 0:
+            self.pend = []
+            return
+        pow2 = 1 << (N - 1).bit_length()
+        if self.words is None:
+            rows = max(1 << 16, 2 * pow2)
+            env = os.environ.get("KMER_TPU_DEVMERGE_ROWS")
+            self.fixed = env is not None
+            self._reset(max(int(env) if env else rows, pow2))
+        elif self.bound + N > self.capacity:
+            self._sync()
+            need = self.distinct + N
+            if need > self.capacity:
+                cap = devmerge.max_rows(self.W)
+                if not self.fixed and need <= cap:
+                    self._grow(min(cap, max(2 * self.capacity,
+                                            1 << (need - 1).bit_length())))
+                else:
+                    self.drain()
+                    if N > self.capacity:
+                        self._grow(pow2)
+        with stagetime.stage("dispatch"):
+            bw = [torch.cat([p[0][i].reshape(-1) for p in self.pend])
+                  for i in range(self.W)]
+            bc = torch.cat([p[1].reshape(-1) for p in self.pend])
+            self.words, self.counts, self.d_dev = devmerge.merge_batch(
+                self.words, self.counts, bw, bc)
+        self.bound += N
+        self.pend, self.pend_lanes = [], 0
+
+    def drain(self) -> None:
+        """Read the distinct rows into `parts` and reset the state."""
+        if self.words is None:
+            return
+        self._sync()
+        with stagetime.stage("readback"):
+            got = devmerge.fetch_state_wire(self.words, self.counts,
+                                            self.distinct, **self.wire)
+            if got is None:
+                got = devmerge.fetch_state(self.words, self.counts,
+                                           self.distinct)
+        if len(got[1]):
+            self.parts.append(self.to_part(*got))
+        self._reset(self.capacity)
+
+    def finish(self) -> list:
+        """Merge what is buffered, drain, and return the parts."""
+        self.flush()
+        self.drain()
+        return self.parts
 
 
 class _Readback:
@@ -256,6 +421,8 @@ def count_codes(codes: np.ndarray, offsets: np.ndarray, cfg: KmerConfig,
     log = stats or StatsLogger(enabled=cfg.stats)
     if cfg.effective_mode == "dense":
         table, n_batches = _count_dense(codes, offsets, cfg, dev, log)
+    elif not cfg.compact and _devmerge_ok(cfg, dev):
+        table, n_batches = _count_devmerge(codes, offsets, cfg, dev, log)
     else:
         table, n_batches = _count_sort(codes, offsets, cfg, dev, log)
     log.log("done", batches=n_batches, reads=len(offsets) - 1,
@@ -372,33 +539,78 @@ def _count_sort(codes, offsets, cfg: KmerConfig, dev: torch.device,
     return KmerTable.empty(k), n_batches
 
 
+def _count_devmerge(codes, offsets, cfg: KmerConfig, dev: torch.device,
+                    log: StatsLogger) -> tuple[KmerTable, int]:
+    """Sort mode with the table on the device (DeviceMerge): no
+    per-batch readback; the distinct rows cross once a drain."""
+    k = cfg.n_bases
+    if cfg.gapped:
+        win = dict(c_min=cfg.c_min, c_max=cfg.c_max, l_len=cfg.l_len,
+                   r_len=cfg.r_len)
+
+        def step(codes_d, lengths_d, limits_d, pw):
+            hi, lo, counts = gapped_step_sort(
+                codes_d, lengths_d, limits_d, **win,
+                mask_ambiguous=cfg.skip_invalid, packed_width=pw)
+            return (hi, lo), counts
+
+        def to_part(keys, counts):
+            return gapped_run_pairs(keys[:, 0], keys[:, 1], counts,
+                                    cfg.r_len, k)
+        dm = DeviceMerge(2, dev, to_part, l_len=cfg.l_len, r_len=cfg.r_len)
+    else:
+        def step(codes_d, lengths_d, limits_d, pw):
+            keys, counts = count_step_sort(
+                codes_d, lengths_d, limits_d, k=k, canonical=cfg.canonical,
+                mask_ambiguous=cfg.skip_invalid, packed_width=pw)
+            return (keys,), counts
+
+        def to_part(keys, counts):
+            return np.ascontiguousarray(keys[:, 0]).view(np.uint64), counts
+        dm = DeviceMerge(1, dev, to_part)
+
+    n_batches = 0
+    for _, (words, counts) in dispatch_batches(codes, offsets, cfg, dev,
+                                               step, log):
+        dm.add(words, counts)
+        n_batches += 1
+    parts = dm.finish()
+    if not parts:
+        return KmerTable.empty(k), n_batches
+    if len(parts) == 1:
+        fused, cts = parts[0]
+    else:
+        with stagetime.stage("host_merge"):
+            fused, cts = reduce_fused(np.concatenate([f for f, _ in parts]),
+                                      np.concatenate([c for _, c in parts]))
+    return KmerTable(k, unfuse_words(fused, k), cts), n_batches
+
+
 def _count_dense(codes, offsets, cfg: KmerConfig, dev: torch.device,
                  log: StatsLogger) -> tuple[KmerTable, int]:
     """Dense mode: k <= 8 accumulates a device-resident int64 4**k table
     (kernel K5) read once at the end; k = 9..12 runs the sort-mode step
     and adds each batch's live pairs into a host 4**k table one batch
-    behind the device."""
+    behind the device, or, under dense_scatter_ok, into a device table
+    read once."""
     k = cfg.k
     n_batches = 0
-    if k <= DENSE_DEVICE_K_MAX:
+    if k <= DENSE_DEVICE_K_MAX or dense_scatter_ok(dev):
         hist = torch.zeros(4 ** k, dtype=torch.int64, device=dev)
+        dense_step = (count_step_dense if k <= DENSE_DEVICE_K_MAX
+                      else count_step_scatter)
 
         def step(codes_d, lengths_d, limits_d, pw):
-            return count_step_dense(codes_d, lengths_d, limits_d, hist, k=k,
-                                    canonical=cfg.canonical,
-                                    mask_ambiguous=cfg.skip_invalid,
-                                    packed_width=pw)
+            return dense_step(codes_d, lengths_d, limits_d, hist, k=k,
+                              canonical=cfg.canonical,
+                              mask_ambiguous=cfg.skip_invalid,
+                              packed_width=pw)
         for _ in dispatch_batches(codes, offsets, cfg, dev, step, log):
             n_batches += 1
         with stagetime.stage("readback"):
             final = hist.cpu().numpy()
         return KmerTable.from_dense(final, k), n_batches
 
-    if os.environ.get("KMER_TPU_DENSE_SCATTER") == "1":
-        raise NotImplementedError(
-            "the device scatter-add branch of dense k = 9..12 "
-            "(KMER_TPU_DENSE_SCATTER=1, a slow-link policy) is not ported "
-            "to kmer_tpu_torch yet (ROADMAP Queue 1 item 11)")
     table = np.zeros(4 ** k, np.int64)
 
     def step(codes_d, lengths_d, limits_d, pw):

@@ -9,8 +9,8 @@ Every mode runs the gapped count step (kernel K3 on a GPU) per batch:
   repeated lines.  np.repeat(decode(keys), counts) IS the sorted
   multiset dump: equal chunks are adjacent by construction.
 - KMER_TPU_PARITY=multiset: each batch's chunk pairs are sorted on the
-  device, expanded to lines on the host, and the per-batch sorted dumps
-  merge with one host sort.
+  device (kernel K6 on a GPU), expanded to lines on the host, and the
+  per-batch sorted dumps merge with one host sort.
 - parity_dump_stream: bounded host memory; per-batch sorted lines go to
   order-preserving spill partitions, sorted one partition at a time.
 """
@@ -27,6 +27,7 @@ import torch
 
 from ..config import KmerConfig
 from ..io.fasta import iter_parse_chunks, parse_seqs
+from ..ops.count import sort_words
 from ..ops.encode import decode_key_words_to_lines, pairs_to_u32
 from .count import (_to_device, count_fasta, device_batches,
                     gapped_step_sort, resolve_device)
@@ -49,18 +50,16 @@ def parity_step(codes: torch.Tensor, lengths: torch.Tensor,
                 limits: torch.Tensor, *, c_min: int, c_max: int,
                 l_len: int = 27, r_len: int = 27, packed_width: int = 0):
     """One batch on the device its tensors lie on: every gapped chunk as
-    (hi, lo, counts) 1-D, sorted lexicographically by (hi, lo).  Equal
-    chunks collapsed within a segment carry their count; expanding each
-    row `counts` times gives the batch's sorted multiset."""
+    (hi, lo, counts) 1-D int64, sorted lexicographically by (hi, lo)
+    (kernel K6 on a GPU, ops/count.sort_words).  Equal chunks collapsed
+    within a segment carry their count; expanding each row `counts`
+    times gives the batch's sorted multiset."""
     hi, lo, counts = gapped_step_sort(codes, lengths, limits, c_min=c_min,
                                       c_max=c_max, l_len=l_len, r_len=r_len,
                                       packed_width=packed_width)
     live = counts.reshape(-1) > 0
-    hi, lo = hi.reshape(-1)[live], lo.reshape(-1)[live]
-    counts = counts.reshape(-1)[live]
-    order = torch.sort(lo, stable=True).indices
-    order = order[torch.sort(hi[order], stable=True).indices]
-    return hi[order], lo[order], counts[order]
+    return tuple(sort_words([hi.reshape(-1)[live], lo.reshape(-1)[live],
+                             counts.reshape(-1)[live].to(torch.int64)]))
 
 
 def _sorted_batches(codes: np.ndarray, offsets: np.ndarray,

@@ -1,6 +1,7 @@
-"""The CUDA kernels K1, K3, K4 and K5 against their plain torch
-versions, and the whole count (sort, compact and dense), the parity dump
-and the HyperLogLog estimate on the card against the CPU.  Every test
+"""The CUDA kernels K1, K3, K4, K5 and K6 against their plain torch
+versions, and the whole count (sort, compact, device merge and dense),
+the parity dump and the HyperLogLog estimate on the card against the
+CPU.  Every test
 here needs a GPU and skips without one.  This file imports neither jax nor kmer_tpu,
 so it also runs on a machine that has only the port:
 
@@ -19,6 +20,7 @@ from kmer_tpu_torch.ops.kernels import compact as ck
 from kmer_tpu_torch.ops.kernels import fused_extract as fe
 from kmer_tpu_torch.ops.kernels import fused_gapped as fg
 from kmer_tpu_torch.ops.kernels import histogram as hk
+from kmer_tpu_torch.ops.kernels import sort as sk
 
 pytestmark = pytest.mark.cuda
 
@@ -263,4 +265,63 @@ def test_compact_dense_and_card_cuda_equal_cpu(cuda, tmp_path):
     rpath = tmp_path / "r.fasta"
     rpath.write_text(reference_style_fasta(n_records=40, seed=5))
     assert (kmer_tpu_torch.count_fasta(str(rpath), gcfg, device="cuda")
+            == kmer_tpu_torch.count_fasta(str(rpath), gcfg, device="cpu"))
+
+
+def _sort_both(words):
+    """K6 (in place, on copies) and the plain version on the same rows;
+    asserts they agree bit for bit and returns the launches made."""
+    before = sk.launches
+    got = sk.sort_words([w.clone() for w in words])
+    want = sk.sort_words_ref(words)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    return sk.launches - before
+
+
+@pytest.mark.parametrize("W,N,hi", [
+    (1, 1, 10), (1, 4096, 1 << 62), (2, 4097, 50), (2, 1_000_003, 1 << 42),
+    (3, 12_345, 7), (4, 70_000, 3), (4, 8192, 1 << 62), (2, 300_000, 1)])
+def test_sort_kernel_equals_plain(cuda, W, N, hi):
+    rng = np.random.default_rng(W * 1000 + N)
+    words = [torch.from_numpy(rng.integers(0, hi, N)).to(cuda)
+             for _ in range(W)]
+    sent = torch.from_numpy(rng.random(N) < 0.2).to(cuda)
+    for w in words:
+        w[sent] = sk.SENTINEL
+    assert _sort_both(words) == 1
+
+
+def test_sort_kernel_edges(cuda):
+    n = 5000
+    cases = [[torch.full((n,), sk.SENTINEL, device=cuda)] * 2,   # sentinels
+             [torch.full((n,), 7, device=cuda)] * 3,             # all equal
+             [torch.arange(n, device=cuda)],                     # presorted
+             [torch.arange(n, 0, -1, device=cuda)] * 4]          # reversed
+    for words in cases:
+        assert _sort_both([w.clone() for w in words]) == 1
+    empty = torch.zeros(0, dtype=torch.int64, device=cuda)
+    before = sk.launches
+    assert sk.sort_words([empty])[0].numel() == 0
+    assert sk.launches == before
+
+
+def test_devmerge_count_cuda_equals_cpu(cuda, tmp_path):
+    path = tmp_path / "g.fasta"
+    path.write_text(genome_reads_fasta(300, 150, genome_len=3000, seed=3,
+                                       error_rate=0.01))
+    kw = dict(k=21, canonical=True, batch_reads=64, max_read_len=96)
+    want = kmer_tpu_torch.count_fasta(str(path), device="cpu", **kw)
+    sk.launches = 0
+    got = kmer_tpu_torch.count_fasta(str(path), device="cuda",
+                                     device_merge="on", **kw)
+    assert got == want and sk.launches > 0
+    rpath = tmp_path / "r.fasta"
+    rpath.write_text(reference_style_fasta(n_records=40, seed=5))
+    gcfg = kmer_tpu_torch.KmerConfig(gapped=True, batch_reads=16,
+                                     max_read_len=512)
+    assert (kmer_tpu_torch.count_fasta(str(rpath),
+                                       gcfg.replace(device_merge="on"),
+                                       device="cuda")
             == kmer_tpu_torch.count_fasta(str(rpath), gcfg, device="cpu"))

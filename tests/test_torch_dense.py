@@ -8,8 +8,9 @@ np.random.default_rng:
 - the port's HLL classes against kmer_tpu.ops.sketch.hll_classes on its
   numpy oracle path, and the port's hll_step histogram against
   kmer_tpu's hll_step;
-- dense tables (K5 for k <= 8, the host hybrid for k = 9..12),
-  estimate_distinct_multi_k and the `card` CLI against kmer_tpu.
+- dense tables (K5 for k <= 8, the host hybrid for k = 9..12 and its
+  device scatter branch), estimate_distinct_multi_k and the `card` CLI
+  against kmer_tpu.
 The CUDA kernel is held against the plain version in test_torch_cuda.py.
 """
 
@@ -35,7 +36,8 @@ from kmer_tpu_torch.ops import sketch
 from kmer_tpu_torch.ops.encode import keys_i64_to_u32
 from kmer_tpu_torch.ops.kernels import fused_extract as fe
 from kmer_tpu_torch.ops.kernels import histogram as hk
-from kmer_tpu_torch.pipeline.count import count_step_dense
+from kmer_tpu_torch.pipeline.count import (count_step_dense,
+                                           count_step_scatter)
 
 from test_torch_count import REPO, SMALL
 
@@ -165,14 +167,45 @@ def test_dense_tables_equal_kmer_tpu(genome, k, canonical):
 
 
 def test_dense_config_and_unported_scatter(genome, monkeypatch):
+    """The dense scatter branch (ported now): KMER_TPU_DENSE_SCATTER=1
+    gives the hybrid's table."""
     assert KmerConfig(k=8, mode="dense").effective_mode == "dense"
     assert KmerConfig(k=8).effective_mode == "sort"
     with pytest.raises(ValueError, match="k <= 12"):
         KmerConfig(k=13, mode="dense")
+    hybrid = kmer_tpu_torch.count_fasta(genome, k=10, mode="dense",
+                                        device="cpu", **SMALL)
     monkeypatch.setenv("KMER_TPU_DENSE_SCATTER", "1")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        kmer_tpu_torch.count_fasta(genome, k=10, mode="dense", device="cpu",
-                                   **SMALL)
+    assert kmer_tpu_torch.count_fasta(genome, k=10, mode="dense",
+                                      device="cpu", **SMALL) == hybrid
+
+
+@pytest.mark.parametrize("k,canonical", [(9, True), (12, False)])
+def test_dense_scatter_equals_hybrid_and_kmer_tpu(genome, monkeypatch, k,
+                                                  canonical):
+    kw = dict(k=k, canonical=canonical, mode="dense", **SMALL)
+    monkeypatch.setenv("KMER_TPU_DENSE_SCATTER", "0")
+    hybrid = kmer_tpu_torch.count_fasta(genome, device="cpu", **kw)
+    want = kmer_tpu.count_fasta(genome, **kw)
+    monkeypatch.setenv("KMER_TPU_DENSE_SCATTER", "1")
+    hk.launches = 0
+    got = kmer_tpu_torch.count_fasta(genome, device="cpu", **kw)
+    assert got == hybrid == want and got.total == 300 * (150 - k + 1)
+    assert kmer_tpu.count_fasta(genome, **kw) == want
+    assert hk.launches == 0
+
+
+def test_count_step_scatter_accumulates():
+    (codes, lengths, limits), keys, counts = _k1_batch(10, 11, False)
+    table = torch.zeros(4 ** 11, dtype=torch.int64)
+    args = [torch.from_numpy(a) for a in (codes, lengths, limits)]
+    for _ in range(2):
+        assert count_step_scatter(*args, table, k=11,
+                                  canonical=False) is table
+    live = counts > 0
+    want = np.bincount(keys[live].numpy(), weights=counts[live].numpy(),
+                       minlength=4 ** 11)
+    np.testing.assert_array_equal(table.numpy(), 2 * want.astype(np.int64))
 
 
 def test_count_step_dense_accumulates():

@@ -77,7 +77,7 @@ def test_encode_and_decode_match_reference():
                                 dict(seed_mask="11011"),
                                 dict(k=33, compact=True),
                                 dict(gapped=True, r_len=32, c_min=80),
-                                dict(device_merge="on")])
+                                dict(k=45)])
 def test_options_not_ported_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         KmerConfig(**kw)

@@ -1,0 +1,139 @@
+"""The multiset sort (kernel K6's plain version, ops/kernels/sort) against
+kmer_tpu's Pallas K6, sort_words_pallas in interpret mode, and against a
+numpy lexsort, on inputs from np.random.default_rng.  All values are
+integers: every comparison is exact.  The CUDA kernel is held against
+the plain version in test_torch_cuda.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kmer_tpu.ops.pallas.sort import sort_words_pallas
+from kmer_tpu_torch.ops.count import sort_words
+from kmer_tpu_torch.ops.encode import (SENTINEL_KEY, keys_i64_to_u32,
+                                       pairs_to_u32)
+from kmer_tpu_torch.ops.kernels import sort as sk
+from kmer_tpu_torch.pipeline.parity import parity_step
+
+
+def _rows(rng, k, N, pattern):
+    """(key planes, counts) int64: one key of k bases, or a gapped 27+27
+    (hi, lo) pair for k == 54; a share of sentinel rows with count 0."""
+    n_planes, bits = (2, 54) if k == 54 else (1, 2 * k)
+    if pattern == "dups":
+        planes = [rng.integers(0, 4, N) for _ in range(n_planes)]
+    else:
+        planes = [rng.integers(0, 1 << bits, N) for _ in range(n_planes)]
+    counts = rng.integers(1, 6, N)
+    if pattern in ("random", "dups"):
+        dead = rng.random(N) < 0.25
+    else:
+        dead = np.zeros(N, bool)
+    if pattern == "sentinels":
+        dead[:] = True
+    for p in planes:
+        p[dead] = SENTINEL_KEY
+    counts[dead] = 0
+    if pattern in ("presorted", "reversed"):
+        order = np.lexsort(planes[::-1])
+        planes = [p[order] for p in planes]
+        if pattern == "reversed":
+            planes = [p[::-1].copy() for p in planes]
+    return planes, counts
+
+
+def _u32_words(planes, k):
+    """The rows in kmer_tpu's most-significant-first uint32 words."""
+    if k == 54:
+        return pairs_to_u32(planes[0], planes[1], 27, 27)
+    return keys_i64_to_u32(planes[0], k)
+
+
+@pytest.mark.parametrize("k,N,pattern", [
+    *[(k, N, "random") for k in (5, 21, 31, 54) for N in (1024, 1500,
+                                                           4096)],
+    (21, 1500, "dups"), (54, 4096, "dups"), (21, 1500, "presorted"),
+    (31, 1500, "reversed"), (54, 1500, "reversed"), (21, 1024,
+                                                     "sentinels")])
+def test_plain_sort_equals_pallas(k, N, pattern):
+    rng = np.random.default_rng(k * 10_000 + N)
+    planes, counts = _rows(rng, k, N, pattern)
+    words = _u32_words(planes, k)
+    cols = [words[:, j] for j in range(words.shape[1])]
+    cols.append(counts.astype(np.uint32))
+    want = sort_words_pallas([jnp.asarray(c) for c in cols], chunk=1024,
+                             interpret=True)
+    want = np.stack([np.asarray(w) for w in want], axis=1)
+    got = sort_words([torch.from_numpy(p) for p in planes]
+                     + [torch.from_numpy(counts)])
+    got = [g.numpy() for g in got]
+    np.testing.assert_array_equal(_u32_words(got[:-1], k), want[:, :-1])
+    np.testing.assert_array_equal(got[-1], want[:, -1].astype(np.int64))
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 4])
+@pytest.mark.parametrize("N", [0, 1, 2, 777, 5000])
+def test_plain_sort_equals_lexsort(W, N):
+    rng = np.random.default_rng(W * 100 + N)
+    hi = [1 << 62, 1 << 40, 9, 3][W - 1]       # wide to heavily duplicated
+    planes = [rng.integers(0, hi, N) for _ in range(W)]
+    if N:
+        planes[0][rng.random(N) < 0.1] = SENTINEL_KEY
+    order = np.lexsort(planes[::-1])
+    got = sort_words([torch.from_numpy(p) for p in planes])
+    assert len(got) == W
+    for g, p in zip(got, planes):
+        assert g.dtype == torch.int64
+        np.testing.assert_array_equal(g.numpy(), p[order])
+
+
+def test_sort_words_flattens_and_leaves_cpu_inputs():
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.integers(0, 50, (6, 7)))
+    b = torch.from_numpy(rng.integers(0, 50, (6, 7)))
+    keep = a.clone()
+    sa, sb = sort_words([a, b])
+    assert sa.shape == (42,) and torch.equal(a, keep)
+    order = np.lexsort((b.numpy().reshape(-1), a.numpy().reshape(-1)))
+    np.testing.assert_array_equal(sa.numpy(), a.numpy().reshape(-1)[order])
+    np.testing.assert_array_equal(sb.numpy(), b.numpy().reshape(-1)[order])
+
+
+def test_sort_words_rejects_bad_planes():
+    x = torch.zeros(8, dtype=torch.int64)
+    with pytest.raises(ValueError, match="1 to 4"):
+        sk.sort_words([])
+    with pytest.raises(ValueError, match="1 to 4"):
+        sk.sort_words([x] * 5)
+    with pytest.raises(ValueError, match="int64"):
+        sk.sort_words([x, x.to(torch.int32)])
+    with pytest.raises(ValueError, match="one length"):
+        sk.sort_words([x, x[:4]])
+    with pytest.raises(ValueError, match="meta"):
+        sk.sort_words([x.to("meta")])
+    before = sk.launches
+    sk.sort_words([x])
+    assert sk.launches == before        # the plain version launches nothing
+
+
+def test_parity_step_sorts_live_rows():
+    """parity_step's rows: the live (hi, lo, count) lanes of the gapped
+    step, in lexicographic (hi, lo) order, counts int64."""
+    from kmer_tpu_torch.pipeline.count import gapped_step_sort
+    rng = np.random.default_rng(8)
+    B, L = 16, 200
+    args = [torch.from_numpy(rng.integers(0, 4, (B, L), dtype=np.uint8)),
+            torch.from_numpy(rng.integers(0, L + 1, B).astype(np.int32)),
+            torch.full((B,), L, dtype=torch.int32)]
+    win = dict(c_min=80, c_max=140, l_len=27, r_len=27)
+    hi, lo, counts = parity_step(*args, **win)
+    assert counts.dtype == torch.int64 and int(counts.min()) > 0
+    h, l_, c = gapped_step_sort(*args, **win)
+    live = c.reshape(-1) > 0
+    h, l_, c = (x.reshape(-1)[live].numpy() for x in (h, l_, c))
+    order = np.lexsort((c, l_, h))
+    np.testing.assert_array_equal(hi.numpy(), h[order])
+    np.testing.assert_array_equal(lo.numpy(), l_[order])
+    np.testing.assert_array_equal(counts.numpy(), c[order])
