@@ -69,7 +69,29 @@ few) to stdout:
      same run under torch.profiler: device time by kernel and the
      device's busy share;
  15. phase 6's run with device_merge="on": its table equals phase 6's;
- 16. one JSON line with every kernel of the paths (with its bound and,
+ 16. kernel K7 (kmer_tpu_torch/csrc/extract.cu) against its plain version,
+     lane for lane, at the main shape (canonical, packed rows) and at
+     k = 1, 16, 17, 31 (u8 rows with ambiguous codes, short lengths and
+     limits); both timed;
+ 17. kernels K2a, K2b and K2c (kmer_tpu_torch/csrc/grouped_count.cu)
+     against their plain versions, bit for bit (sorted planes and
+     counts): on K7's output of one main batch (1,146,880 keys, m = 256,
+     G = 4480; m = 16 for K2c), on W = 2 and W = 4 rows with many
+     duplicates and sentinels, and at edge cases (m = 2, 128, the largest
+     K2b m, G = 1, all sentinels, one run filling a group); each timed,
+     K2b and K2c beside torch.sort of one word at the same shape as a
+     sort-only yardstick;
+ 18. the unfused route at full depth, right after phase 4: phase 4's run
+     with KMER_TPU_STEP=legacy (K7, the grouped torch.sort and K2a a
+     batch): its table equals phase 4's, K7 and K2a launch once a batch,
+     the stage breakdown and wall beside phase 4's and beside the fused
+     run once more;
+ 19. the unfused route on the 50,000-read oracle file, each table against
+     the numpy oracle: KMER_TPU_GROUPED=pallas (K2b), KMER_TPU_STEP=t
+     (K2c), sort_group_keys=0 (K7 + K6 + run lengths), compact=True (K7,
+     K2a, K4 on int32 counts) and device_merge="on" (K7, K2a, K6) under
+     KMER_TPU_STEP=legacy; each run's kernels must launch;
+ 20. one JSON line with every kernel of the paths (with its bound and,
      where one PyTorch call computes the same function, that call's
      time), then the result line {"ok": true, "device": {...}} last.
 
@@ -756,9 +778,23 @@ def phase_compact_kernel(dev, seed: int) -> dict:
         return fg.fused_gapped_count(*(t.to(dev) for t in host), **win,
                                      seg=SEG, packed_width=L)
 
+    def unfused_out():
+        # K7 -> the grouped torch.sort -> K2a at the main shape: flat
+        # keys and int32 counts
+        from kmer_tpu_torch.ops import count as count_ops
+        from kmer_tpu_torch.ops.kernels import extract as ek
+        host = kernel_batch(rng, MAIN_B, MAIN_L, K, packed=True, amb=False,
+                            short=False)
+        keys = ek.extract_keys(*(t.to(dev) for t in host), K,
+                               canonical=True, packed_width=MAIN_L)
+        (flat,), counts = count_ops.grouped_count([keys], 256,
+                                                  backend="hybrid")
+        return flat, counts
+
     small = dict(l_len=5, r_len=5, c_min=12, c_max=20)
     cases = {  # name -> (planes, counts, kwargs, expect a launch)
         "k1_main": (*k1_out(MAIN_B, MAIN_L, K), {}),
+        "unfused_int32": (*unfused_out(), {}),
         "k3_parity": (*k3_out(GAP_B, GAP_L, GAP), dict(r_len=27,
                                                         n_bases=54)),
         "k1_short_k5": (*k1_out(4096, 150, 5, short=True), {}),
@@ -797,7 +833,8 @@ def phase_compact_kernel(dev, seed: int) -> dict:
                                  f"max_abs_err={err}, total={t})")
     rec = {"name": "compact", "route": "cuda", "source": ck.SOURCE,
            "replaces": ck.REPLACES, "max_abs_err": max_err}
-    for name, lane_bytes in (("k1_main", 9), ("k3_parity", 17)):
+    for name, lane_bytes in (("k1_main", 9), ("k3_parity", 17),
+                             ("unfused_int32", 12)):
         *planes, counts, kw = cases[name]
         ms, plain_ms = time_pair(
             functools.partial(ck.compact, planes, counts, **kw),
@@ -807,8 +844,10 @@ def phase_compact_kernel(dev, seed: int) -> dict:
              f"plain_ms={plain_ms} speedup={plain_ms / ms} "
              f"in_GB_per_s={n * lane_bytes / (ms * 1e-3) / 1e9} "
              f"(tolerance: exact, max_abs_err must be 0)")
-        rec.update({"ms": ms, "plain_ms": plain_ms} if name == "k1_main"
-                   else {"gapped_ms": ms, "gapped_plain_ms": plain_ms})
+        rec.update({"k1_main": {"ms": ms, "plain_ms": plain_ms},
+                    "k3_parity": {"gapped_ms": ms, "gapped_plain_ms": plain_ms},
+                    "unfused_int32": {"int32_ms": ms,
+                                      "int32_plain_ms": plain_ms}}[name])
     # K1's output: int8 counts and int64 keys in, a 16-byte record for
     # each live lane out; two operations a lane (test, prefix)
     *planes, counts, _ = cases["k1_main"]
@@ -998,18 +1037,326 @@ def phase_card(dev, path: str, small: str, exact_distinct: int) -> None:
                              f"{exact_distinct}, or total/launches wrong")
 
 
+def phase_extract_kernel(dev, seed: int) -> dict:
+    """K7 == plain version, lane for lane, on `dev`; returns K7's JSON
+    record (without the main-path launch count)."""
+    from kmer_tpu_torch.ops.encode import SENTINEL_KEY
+    from kmer_tpu_torch.ops.kernels import extract as ek
+    rng = np.random.default_rng(seed + 5)
+    cases = [  # (B, L, k, canonical, packed, ambiguous, short)
+        (MAIN_B, MAIN_L, K, True, True, False, False),
+        (4096, 150, 1, False, False, True, True),
+        (4096, 150, 16, False, False, True, True),
+        (4096, 150, 17, False, False, True, True),
+        (4096, 150, 31, False, False, True, True),
+        (999, 77, 31, True, True, False, True),
+    ]
+    max_err = 0
+    for B, L, k, canon, packed, amb, short in cases:
+        host = kernel_batch(rng, B, L, k, packed=packed, amb=amb,
+                            short=short)
+        kw = dict(canonical=canon, mask_ambiguous=amb,
+                  packed_width=L if packed else 0)
+        on_dev = [t.to(dev) for t in host]
+        before = ek.launches
+        keys = ek.extract_keys(*on_dev, k, **kw)
+        want = ek.extract_keys_ref(*on_dev, k, **kw)
+        torch.cuda.synchronize()
+        err = int((keys - want).abs().max())
+        live = int((keys != SENTINEL_KEY).sum())
+        launched = ek.launches - before
+        _say(f"extract_check B={B} L={L} k={k} canonical={canon} "
+             f"packed={packed} ambiguous={amb} short={short} "
+             f"live_lanes={live} launches={launched} max_abs_err={err}")
+        if err != 0 or live == 0 or launched != 1:
+            raise AssertionError(f"K7 != plain version (k={k}, "
+                                 f"max_abs_err={err}, live={live})")
+        max_err = max(max_err, err)
+    main = [t.to(dev) for t in kernel_batch(rng, MAIN_B, MAIN_L, K,
+                                            packed=True, amb=False,
+                                            short=False)]
+    kw = dict(canonical=True, packed_width=MAIN_L)
+    ms, plain_ms = time_pair(
+        functools.partial(ek.extract_keys, *main, K, **kw),
+        functools.partial(ek.extract_keys_ref, *main, K, **kw))
+    lanes = (MAIN_L - K + 1) * MAIN_B
+    # packed codes, lengths and limits in, one int64 key a lane out; ~8
+    # integer operations a lane (rolling forward and reverse-complement
+    # values, min, validity)
+    b = bound(main[0].numel() * 4 + MAIN_B * 8 + lanes * 8, lanes * 8)
+    _say(f"extract_time B={MAIN_B} L={MAIN_L} k={K} kernel_ms={ms} "
+         f"plain_ms={plain_ms} speedup={plain_ms / ms} "
+         f"out_GB_per_s={lanes * 8 / (ms * 1e-3) / 1e9} "
+         f"bound_ms={b['bound_ms']} bound_by={b['bound_by']} "
+         f"library_ms=None (no single PyTorch call extracts k-mers) "
+         f"(tolerance: exact, max_abs_err must be 0)")
+    return {"name": "extract_keys", "route": "cuda", "source": ek.SOURCE,
+            "replaces": ek.REPLACES, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, **b, "library_ms": None}
+
+
+def phase_grouped_kernels(dev, seed: int) -> tuple[dict, dict, dict]:
+    """K2a, K2b and K2c == their plain versions on `dev`, bit for bit;
+    returns their JSON records (without the main-path launch counts)."""
+    from kmer_tpu_torch.ops.encode import SENTINEL_KEY
+    from kmer_tpu_torch.ops.kernels import extract as ek
+    from kmer_tpu_torch.ops.kernels import grouped_count as gk
+    rng = np.random.default_rng(seed + 6)
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    main = [t.to(dev) for t in kernel_batch(rng, MAIN_B, MAIN_L, K,
+                                            packed=True, amb=False,
+                                            short=False)]
+    route = ek.extract_keys(*main, K, canonical=True,
+                            packed_width=MAIN_L).reshape(-1)
+    n = route.numel()                          # 1,146,880 keys
+    m_t = 16
+
+    def rows(shape, W, hi=8, dead=0.2):
+        planes = [torch.randint(0, hi, shape, generator=gen, device=dev)
+                  for _ in range(W)]
+        gone = torch.rand(shape, generator=gen, device=dev) < dead
+        return [torch.where(gone, SENTINEL_KEY, p) for p in planes]
+
+    big = gk.max_group_rows(1)
+    # name -> (planes in the (G, m) row layout, m)
+    cases = {
+        "route": ([route.view(n // 256, 256)], 256),
+        "w2": (rows((2048, 256), 2), 256),
+        "w4": (rows((256, 512), 4), 512),
+        "m2": (rows((50_000, 2), 1), 2),
+        "m128": (rows((1000, 128), 2, hi=1 << 40), 128),
+        f"m{big}": (rows((8, big), 1, hi=1000), big),
+        "m4096_w4": (rows((4, 4096), 4), 4096),
+        "g1": (rows((1, 1024), 3), 1024),
+        "all_sentinels": (rows((64, 256), 2, dead=1.0), 256),
+        "one_run": ([torch.full((16, 1024), 7, device=dev)], 1024),
+    }
+    max_err = {"a": 0, "b": 0, "c": 0}
+
+    def check(got, want, counter, before):
+        torch.cuda.synchronize()
+        err = 0
+        for g, w in zip(got, want):
+            err = max(err, int((g.to(torch.int64)
+                                - w.to(torch.int64)).abs().max()))
+        launched = getattr(gk, counter) - before
+        return err, launched
+
+    for name, (planes, m) in cases.items():
+        W = len(planes)
+        sorted_rows = gk.sort_groups(planes)
+        before = gk.run_lengths_launches
+        got = gk.run_lengths_grouped(sorted_rows)
+        err_a, la = check([got], [gk.run_lengths_grouped_ref(
+            sorted_rows)], "run_lengths_launches", before)
+        before = gk.grouped_launches
+        gs, gc = gk.grouped_count(planes)
+        ws, wc = gk.grouped_count_ref(planes)
+        err_b, lb = check(gs + [gc], ws + [wc], "grouped_launches",
+                          before)
+        # K2c: the same lanes as (m_c, G_c) columns (m = 16 on the route)
+        mc = m_t if name == "route" else m
+        cols = [p.reshape(mc, -1) for p in planes]
+        before = gk.strided_launches
+        cs, cc = gk.grouped_count_strided(cols)
+        ws, wc = gk.grouped_count_strided_ref(cols)
+        err_c, lc = check(cs + [cc], ws + [wc], "strided_launches",
+                          before)
+        live = int((gc > 0).sum())
+        _say(f"grouped_check case={name} W={W} G={planes[0].shape[0]} "
+             f"m={m} k2c_m={mc} live_runs={live} launches={la},{lb},{lc} "
+             f"max_abs_err={err_a},{err_b},{err_c}")
+        want_live = name != "all_sentinels"
+        if (max(err_a, err_b, err_c) or (la, lb, lc) != (1, 1, 1)
+                or (live > 0) != want_live):
+            raise AssertionError(f"K2a/K2b/K2c != plain versions ({name})")
+        for key, err in zip("abc", (err_a, err_b, err_c)):
+            max_err[key] = max(max_err[key], err)
+
+    # timings at the route's shapes
+    rows2d = cases["route"][0]
+    G = n // 256
+    sorted_route = gk.sort_groups(rows2d)
+    cols = [route.view(m_t, n // m_t)]
+
+    def stages(m):                 # bitonic stages of an m-row group
+        return int(math.log2(m)) * (int(math.log2(m)) + 1) // 2
+
+    recs = []
+    for key, kernel, plain, shape_note, sort_only, replaces, name, m in (
+            ("a", functools.partial(gk.run_lengths_grouped, sorted_route),
+             functools.partial(gk.run_lengths_grouped_ref, sorted_route),
+             f"({G}, 256)", None, gk.REPLACES_RUN_LENGTHS,
+             "run_lengths_grouped", 256),
+            ("b", functools.partial(gk.grouped_count, rows2d),
+             functools.partial(gk.grouped_count_ref, rows2d),
+             f"({G}, 256)",
+             functools.partial(torch.sort, rows2d[0], dim=1),
+             gk.REPLACES_GROUPED, "grouped_count", 256),
+            ("c", functools.partial(gk.grouped_count_strided, cols),
+             functools.partial(gk.grouped_count_strided_ref, cols),
+             f"({m_t}, {n // m_t})",
+             functools.partial(torch.sort, cols[0], dim=0),
+             gk.REPLACES_STRIDED, "grouped_count_strided", m_t)):
+        ms, plain_ms = time_pair(kernel, plain)
+        if key == "a":
+            # sorted keys in, int32 counts out; one compare a lane
+            b = bound(n * 8 + n * 4, n)
+        else:
+            # keys in, sorted keys and int32 counts out; the network's
+            # compare-exchanges of one word
+            b = bound(2 * n * 8 + n * 4, n // 2 * stages(m))
+        sort_ms = time_ms(sort_only) if sort_only else None
+        _say(f"grouped_time kernel=K2{key} shape={shape_note} W=1 "
+             f"kernel_ms={ms} plain_ms={plain_ms} speedup={plain_ms / ms} "
+             f"bound_ms={b['bound_ms']} bound_by={b['bound_by']} "
+             f"sort_only_ms={sort_ms} (torch.sort of one word at the same "
+             f"shape, no run lengths: a yardstick, not the same function) "
+             f"library_ms=None (no single PyTorch call gives grouped run "
+             f"lengths) (tolerance: exact, max_abs_err must be 0)")
+        rec = {"name": name, "route": "cuda", "source": gk.SOURCE,
+               "replaces": replaces, "max_abs_err": max_err[key], "ms": ms,
+               "plain_ms": plain_ms, **b, "library_ms": None}
+        if sort_ms is not None:
+            rec["sort_only_ms"] = sort_ms
+        recs.append(rec)
+    return tuple(recs)
+
+
+def phase_unfused_end_to_end(dev, path: str, small: str, want_table,
+                             fused_wall: float) -> tuple[int, int]:
+    """Phase 4's run with KMER_TPU_STEP=legacy (K7 + the grouped torch.sort
+    + K2a), right after phase 4, then the fused run once more, so that
+    the two fused walls bracket the unfused one; returns K7's and K2a's
+    launches."""
+    from kmer_tpu_torch import KmerConfig, count_fasta
+    from kmer_tpu_torch.ops.kernels import extract as ek
+    from kmer_tpu_torch.ops.kernels import fused_extract as fe
+    from kmer_tpu_torch.ops.kernels import grouped_count as gk
+    from kmer_tpu_torch.utils import stagetime
+    cfg = KmerConfig(k=K, canonical=True)
+    want_batches = -(-N_READS // cfg.batch_reads)
+    times: dict[str, float] = {}
+    with _env(KMER_TPU_STEP="legacy"):
+        # warm the route (allocator, pinned pool) on the small file
+        count_fasta(small, cfg, device=dev)
+        torch.cuda.synchronize()
+        ek.launches = gk.run_lengths_launches = fe.launches = 0
+        with stagetime.collect(times):
+            table = count_fasta(path, cfg, device=dev)
+    k7, k2a = ek.launches, gk.run_lengths_launches
+    if not (table == want_table and k7 == k2a == want_batches
+            and fe.launches == 0):
+        raise AssertionError(f"unfused k=21 table != the fused one, or K7 "
+                             f"{k7} / K2a {k2a} / K1 {fe.launches} launches "
+                             f"!= {want_batches} batches")
+    wall = times["total"]
+    again: dict[str, float] = {}
+    with stagetime.collect(again):
+        if count_fasta(path, cfg, device=dev) != want_table:
+            raise AssertionError("the second fused k=21 table differs")
+    total_kmers = N_READS * (READ_LEN - K + 1)
+    _say(f"unfused_end_to_end step=legacy grouped=auto(hybrid) m=256 "
+         f"reads={N_READS} distinct={table.num_distinct} equal_to_fused=True "
+         f"k7_launches={k7} k2a_launches={k2a} wall_s={wall} "
+         f"fused_wall_s={fused_wall} fused_again_wall_s={again['total']} "
+         f"kmers_per_s={total_kmers / wall}")
+    _say("unfused_stages_s " + json.dumps(times, sort_keys=True))
+    _say("fused_again_stages_s " + json.dumps(again, sort_keys=True))
+    return k7, k2a
+
+
+class _env:
+    """Set environment variables for a block, restoring them after."""
+
+    def __init__(self, **kw):
+        self.kw, self.old = kw, {}
+
+    def __enter__(self):
+        for key, value in self.kw.items():
+            self.old[key] = os.environ.get(key)
+            os.environ[key] = value
+
+    def __exit__(self, *exc):
+        for key, value in self.old.items():
+            if value is None:
+                del os.environ[key]
+            else:
+                os.environ[key] = value
+
+
+def phase_unfused_small(dev, small: str) -> tuple[int, int]:
+    """The other unfused settings on the 50,000-read oracle file, each
+    table against the numpy oracle; returns K2b's and K2c's launches."""
+    from kmer_tpu_torch import KmerConfig, count_fasta
+    from kmer_tpu_torch.ops.kernels import compact as ck
+    from kmer_tpu_torch.ops.kernels import extract as ek
+    from kmer_tpu_torch.ops.kernels import grouped_count as gk
+    from kmer_tpu_torch.ops.kernels import sort as sk
+    want_v, want_c = oracle_table(small, K)
+    cfg = KmerConfig(k=K, canonical=True)
+    batches = -(-ORACLE_READS // cfg.batch_reads)
+    runs = [  # (label, environment, config, {counter: expected launches})
+        ("grouped=pallas", dict(KMER_TPU_STEP="legacy",
+                                KMER_TPU_GROUPED="pallas"), cfg,
+         {"k7": batches, "k2b": batches}),
+        ("step=t", dict(KMER_TPU_STEP="t"), cfg,
+         {"k7": batches, "k2c": batches}),
+        ("sort_group_keys=0", {}, cfg.replace(sort_group_keys=0),
+         {"k7": batches, "k6": batches}),
+        ("compact", dict(KMER_TPU_STEP="legacy"), cfg.replace(compact=True),
+         {"k7": batches, "k2a": batches, "k4": batches}),
+        ("device_merge", dict(KMER_TPU_STEP="legacy"),
+         cfg.replace(device_merge="on"), {"k7": batches, "k2a": batches}),
+    ]
+    counters = {"k7": (ek, "launches"), "k2a": (gk, "run_lengths_launches"),
+                "k2b": (gk, "grouped_launches"),
+                "k2c": (gk, "strided_launches"), "k6": (sk, "launches"),
+                "k4": (ck, "launches")}
+    seen = {}
+    for label, env, run_cfg, want in runs:
+        with _env(**env):
+            torch.cuda.synchronize()
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            t0 = time.perf_counter()
+            table = count_fasta(small, run_cfg, device=dev)
+            wall = time.perf_counter() - t0
+        got = {name: getattr(mod, attr)
+               for name, (mod, attr) in counters.items()}
+        equal = (np.array_equal(table_values(table), want_v)
+                 and np.array_equal(table.counts, want_c))
+        _say(f"unfused_small run={label} reads={ORACLE_READS} "
+             f"equal_to_oracle={equal} launches="
+             f"{json.dumps(got, sort_keys=True)} wall_s={wall}")
+        if not equal:
+            raise AssertionError(f"unfused {label}: table != numpy oracle")
+        for name, n in want.items():
+            # the device merge sorts once a merge, not once a batch
+            if got[name] != n and not (label == "device_merge"
+                                       and name == "k6"):
+                raise AssertionError(f"unfused {label}: {name} launched "
+                                     f"{got[name]} times, want {n}")
+        if label == "device_merge" and got["k6"] == 0:
+            raise AssertionError("unfused device merge: K6 never launched")
+        seen[label] = got
+    return seen["grouped=pallas"]["k2b"], seen["step=t"]["k2c"]
+
+
 def build_all() -> None:
     """Build every kernel and native library at once, one compiler
     process each."""
     from kmer_tpu_torch.io import fasta
     from kmer_tpu_torch.ops.kernels import compact as ck
+    from kmer_tpu_torch.ops.kernels import extract as ek
     from kmer_tpu_torch.ops.kernels import fused_extract as fe
     from kmer_tpu_torch.ops.kernels import fused_gapped as fg
+    from kmer_tpu_torch.ops.kernels import grouped_count as gk
     from kmer_tpu_torch.ops.kernels import histogram as hk
     from kmer_tpu_torch.ops.kernels import sort as sk
     from kmer_tpu_torch.pipeline import nativeagg
-    loaders = (fe.load, fg.load, ck.load, hk.load, sk.load,
-               fasta.load_native, nativeagg.load)
+    loaders = (fe.load, fg.load, ck.load, hk.load, sk.load, ek.load,
+               gk.load, fasta.load_native, nativeagg.load)
     with cf.ThreadPoolExecutor(len(loaders)) as ex:
         for fut in [ex.submit(fn) for fn in loaders]:
             fut.result()
@@ -1043,19 +1390,23 @@ def main(argv=None) -> int:
     _say(f"d2h_link_probe_GBps={d2h_gbps(dev)} (device_merge=\"auto\" is on "
          "below 0.5, mode=\"auto\" dense below 5)")
 
-    # phases 2-3, 7-8 and 13: each kernel against its plain version
+    # phases 2-3, 7-8, 13 and 16-17: each kernel against its plain version
     k1 = phase_kernel(dev, args.seed)
     k3 = phase_gapped_kernel(dev, args.seed)
     k4 = phase_compact_kernel(dev, args.seed)
     k5 = phase_histogram_kernel(dev, args.seed)
     k6 = phase_sort_kernel(dev, args.seed)
+    k7 = phase_extract_kernel(dev, args.seed)
+    k2a, k2b, k2c = phase_grouped_kernels(dev, args.seed)
 
-    # phases 4-6, 9-12 and 14-15: the paths end to end, each kernel's
-    # count set to 0 just before its path and read just after
+    # phases 4-6, 9-12, 14-15 and 18-19: the paths end to end, each
+    # kernel's count set to 0 just before its path and read just after
     from kmer_tpu_torch import KmerConfig
     with tempfile.TemporaryDirectory() as tmp:
         k1["launches"], table, path, small, wall = phase_end_to_end(
             dev, args.seed, tmp)
+        k7["launches"], k2a["launches"] = phase_unfused_end_to_end(
+            dev, path, small, table, wall)
         k6["launches"] = phase_devmerge(
             dev, path, KmerConfig(k=K, canonical=True), table, wall, "k21")
         profile_devmerge(dev, path, KmerConfig(k=K, canonical=True))
@@ -1068,8 +1419,9 @@ def main(argv=None) -> int:
         k4["launches"] = phase_compact_end_to_end(dev, path, table)
         k5["launches"] = phase_dense(dev, path)
         phase_card(dev, path, small, table.num_distinct)
+        k2b["launches"], k2c["launches"] = phase_unfused_small(dev, small)
 
-    _say(json.dumps({"kernels": [k1, k3, k4, k5, k6]}))
+    _say(json.dumps({"kernels": [k1, k2a, k2b, k2c, k3, k4, k5, k6, k7]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -33,6 +33,11 @@ class KmerConfig:
     r_len: int = 27
     c_min: int = 80
     c_max: int = 140
+    # sort mode, contiguous keys: > 0 is the group size m of the unfused
+    # count step (ops/count.grouped_count; the fused step ignores it);
+    # 0 selects one exact flat sort instead (K7 + K6, even under
+    # KMER_TPU_STEP=auto) and turns the device merge off, as in kmer_tpu;
+    # compact=True keeps the fused step under auto whatever it is
     sort_group_keys: int = 256
     partitions: int = 16
     # bounded-memory ingest: parse inputs in record-aligned windows of at
@@ -57,6 +62,9 @@ class KmerConfig:
         if self.device_merge not in ("auto", "on", "off"):
             raise ValueError(
                 f"device_merge={self.device_merge!r} not in auto/on/off")
+        if self.sort_group_keys < 0:
+            raise ValueError("sort_group_keys must be >= 0, got "
+                             f"{self.sort_group_keys}")
         if self.mode not in ("auto", "dense", "sort"):
             raise ValueError(f"unknown mode {self.mode!r}")
         if self.mode == "dense" and self.k > 12:

@@ -6,9 +6,10 @@
 // (and the partition sort of kmer_tpu/ops/count.py `compact_from_runs`
 // that feeds it).
 //
-// What bounds it: memory.  It reads one int8 count a lane and the key
-// planes (8 or 16 bytes) of live lanes only, and writes one record (8 or
-// 16 bytes of key + an 8-byte count) a live lane.
+// What bounds it: memory.  It reads one count a lane (int8 from the fused
+// steps, int32 from the grouped counts of csrc/grouped_count.cu) and the
+// key planes (8 or 16 bytes) of live lanes only, and writes one record (8
+// or 16 bytes of key + an 8-byte count) a live lane.
 //
 // Design: the TPU kernel packs each group's record rows with one linear
 // DMA and lets group g+1 overwrite group g's dead tail, which needs its
@@ -41,14 +42,21 @@ constexpr int TILE = THREADS * ITEMS;
 constexpr int WARPS = THREADS / 32;
 
 // live flags of the ITEMS lanes a thread owns, as a bit mask
-__device__ __forceinline__ uint32_t live_mask(const int8_t* __restrict__ counts,
+template <typename C>
+__device__ __forceinline__ uint32_t live_mask(const C* __restrict__ counts,
                                               int64_t first, int64_t n) {
+  constexpr int PER_LOAD = 16 / sizeof(C);
   uint32_t m = 0;
   if (first + ITEMS <= n) {
-    const int4 v = __ldg(reinterpret_cast<const int4*>(counts + first));
-    const int8_t* c = reinterpret_cast<const int8_t*>(&v);
 #pragma unroll
-    for (int j = 0; j < ITEMS; ++j) m |= (uint32_t)(c[j] > 0) << j;
+    for (int v = 0; v < ITEMS / PER_LOAD; ++v) {
+      const int4 x =
+          __ldg(reinterpret_cast<const int4*>(counts + first) + v);
+      const C* c = reinterpret_cast<const C*>(&x);
+#pragma unroll
+      for (int j = 0; j < PER_LOAD; ++j)
+        m |= (uint32_t)(c[j] > 0) << (v * PER_LOAD + j);
+    }
   } else {
     for (int j = 0; j < ITEMS && first + j < n; ++j)
       m |= (uint32_t)(__ldg(counts + first + j) > 0) << j;
@@ -70,8 +78,9 @@ __device__ __forceinline__ int64_t block_sum(int64_t v, int64_t* red) {
   return s;
 }
 
+template <typename C>
 __global__ void __launch_bounds__(THREADS)
-compact_count_kernel(const int8_t* __restrict__ counts, int64_t n,
+compact_count_kernel(const C* __restrict__ counts, int64_t n,
                      int32_t* __restrict__ block_live) {
   __shared__ int64_t red[WARPS];
   const int64_t first = (int64_t)blockIdx.x * TILE + (int64_t)threadIdx.x * ITEMS;
@@ -83,10 +92,11 @@ compact_count_kernel(const int8_t* __restrict__ counts, int64_t n,
 // mode 0: one int64 key plane, written as it is;
 // mode 1: gapped (hi, lo) written as the one-word value (hi << s) | lo;
 // mode 2: gapped (hi, lo) written as [hi >> (64 - s), (hi << s) | lo]
+template <typename C>
 __global__ void __launch_bounds__(THREADS)
 compact_scatter_kernel(const int64_t* __restrict__ key0,
                        const int64_t* __restrict__ key1,
-                       const int8_t* __restrict__ counts, int64_t n,
+                       const C* __restrict__ counts, int64_t n,
                        const int32_t* __restrict__ block_live, int mode,
                        int s, int64_t* __restrict__ out_keys,
                        int64_t* __restrict__ out_counts,
@@ -107,7 +117,7 @@ compact_scatter_kernel(const int64_t* __restrict__ key0,
   const int64_t tile = (int64_t)blockIdx.x * TILE;
   for (int j = 0; j < ITEMS; ++j) {
     const int64_t i = tile + (int64_t)j * THREADS + threadIdx.x;
-    const int c = i < n ? __ldg(counts + i) : 0;
+    const int c = i < n ? (int)__ldg(counts + i) : 0;
     const uint32_t ballot = __ballot_sync(0xffffffffu, c > 0);
     if (lane == 0) warp_live[warp] = __popc(ballot);
     __syncthreads();
@@ -141,30 +151,48 @@ compact_scatter_kernel(const int64_t* __restrict__ key0,
   if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) *total = o;
 }
 
+template <typename C>
+int compact_rows(const int64_t* key0, const int64_t* key1, const C* counts,
+                 int64_t n, int32_t* block_live, int mode, int s,
+                 int64_t* out_keys, int64_t* out_counts, int64_t* total,
+                 cudaStream_t st) {
+  const int64_t tiles = (n + TILE - 1) / TILE;
+  compact_count_kernel<C><<<(unsigned)tiles, THREADS, 0, st>>>(counts, n,
+                                                               block_live);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  compact_scatter_kernel<C><<<(unsigned)tiles, THREADS, 0, st>>>(
+      key0, key1, counts, n, block_live, mode, s, out_keys, out_counts, total);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// key0/key1: n int64 lanes each (key1 unused in mode 0); counts: n int8,
-// 16-byte aligned; block_live: ceil(n / 4096) int32 scratch; out_keys:
-// n (modes 0, 1) or 2n (mode 2) int64; out_counts: n int64; total: one
-// int64.  s = 2 * r_len in [2, 62] for modes 1, 2.  Returns the first
-// failing launch's cudaError_t, or 0.
+// key0/key1: n int64 lanes each (key1 unused in mode 0); counts: n int8
+// (count_bytes 1) or int32 (count_bytes 4), 16-byte aligned; block_live:
+// ceil(n / 4096) int32 scratch; out_keys: n (modes 0, 1) or 2n (mode 2)
+// int64; out_counts: n int64; total: one int64.  s = 2 * r_len in [2, 62]
+// for modes 1, 2.  Returns the first failing launch's cudaError_t, or 0.
 extern "C" int compact_launch(const int64_t* key0, const int64_t* key1,
-                              const int8_t* counts, int64_t n,
+                              const void* counts, int count_bytes, int64_t n,
                               int32_t* block_live, int mode, int s,
                               int64_t* out_keys, int64_t* out_counts,
                               int64_t* total, void* stream) {
   static_assert(TILE == 4096, "ops/kernels/compact.py sizes the scratch");
   const int64_t tiles = (n + TILE - 1) / TILE;
   if (n < 1 || tiles > 0x7FFFFFFF || mode < 0 || mode > 2 ||
+      (count_bytes != 1 && count_bytes != 4) ||
       (mode != 0 && (s < 2 || s > 62 || key1 == nullptr)) ||
       (reinterpret_cast<uintptr_t>(counts) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  compact_count_kernel<<<(unsigned)tiles, THREADS, 0, st>>>(counts, n,
-                                                            block_live);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  compact_scatter_kernel<<<(unsigned)tiles, THREADS, 0, st>>>(
-      key0, key1, counts, n, block_live, mode, s, out_keys, out_counts, total);
-  return (int)cudaGetLastError();
+  if (count_bytes == 1)
+    return compact_rows<int8_t>(key0, key1,
+                                static_cast<const int8_t*>(counts), n,
+                                block_live, mode, s, out_keys, out_counts,
+                                total, st);
+  return compact_rows<int32_t>(key0, key1,
+                               static_cast<const int32_t*>(counts), n,
+                               block_live, mode, s, out_keys, out_counts,
+                               total, st);
 }

@@ -197,6 +197,49 @@ def keys_u32_to_i64(words: np.ndarray, k: int) -> np.ndarray:
     return np.where(sent, SENTINEL_KEY, v.view(np.int64))
 
 
+def words_from_tpu_repacked(rwords, n_bases: int) -> np.ndarray:
+    """kmer_tpu's repacked uint32 sort-layout words of keys of n_bases
+    <= 31 bases (kmer_tpu/ops/count.py repack_words) -> int64 keys of the
+    same shape, SENTINEL_KEY on invalid lanes.  The layout: W = 1, the
+    key word as it is; else s = 2 * n_bases - 32 bits, and for s > 0 the
+    top 32 key bits in word 0 and the s low bits in word 1, for s = 0
+    (16 bases) the low 32 key bits in word 0 and a 0 flag in word 1;
+    word W - 1 is SENTINEL_WORD on invalid lanes."""
+    check_k(n_bases)
+    W = words_per_key(n_bases)
+    rw = [np.asarray(w, dtype=np.uint32) for w in rwords]
+    if len(rw) != W:
+        raise ValueError(f"{len(rw)} repacked words for {n_bases} bases "
+                         f"(W = {W})")
+    dead = rw[-1] == SENTINEL_WORD
+    v = rw[0].astype(np.int64)
+    s = 2 * n_bases - 32
+    if W == 2 and s > 0:
+        v = (v << s) | rw[1].astype(np.int64)
+    return np.where(dead, SENTINEL_KEY, v)
+
+
+def words_to_tpu_repacked(keys: np.ndarray, n_bases: int
+                          ) -> list[np.ndarray]:
+    """Inverse of words_from_tpu_repacked: int64 keys (SENTINEL_KEY on
+    invalid lanes) -> kmer_tpu's W repacked uint32 words, all
+    SENTINEL_WORD on invalid lanes (as kmer_tpu's extract_repacked
+    writes them)."""
+    check_k(n_bases)
+    keys = np.asarray(keys, dtype=np.int64)
+    dead = keys == SENTINEL_KEY
+    u = np.where(dead, 0, keys).view(np.uint64)
+    s = 2 * n_bases - 32
+    if words_per_key(n_bases) == 1:
+        words = [u.astype(np.uint32)]
+    elif s == 0:
+        words = [u.astype(np.uint32), np.zeros(keys.shape, np.uint32)]
+    else:
+        words = [(u >> np.uint64(s)).astype(np.uint32),
+                 (u & np.uint64((1 << s) - 1)).astype(np.uint32)]
+    return [np.where(dead, SENTINEL_WORD, w) for w in words]
+
+
 def pairs_to_value(hi: np.ndarray, lo: np.ndarray, r_len: int
                    ) -> tuple[np.ndarray, np.ndarray]:
     """Gapped (hi, lo) int64 pairs -> the key value hi * 4**r_len + lo as

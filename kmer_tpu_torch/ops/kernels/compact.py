@@ -9,7 +9,8 @@ tiling unit), and sorts each group's live records to its front first so
 that one in-order DMA per group can pack them.  Here a record is what
 the host aggregation (pipeline/table.reduce_fused) takes as it stands:
 
-- from K1's (keys, counts): the int64 key, read as uint64;
+- from K1's (keys, int8 counts) or the unfused step's (keys, int32
+  counts) (ops/count.grouped_count): the int64 key, read as uint64;
 - from K3's (hi, lo, counts): the key value hi * 4**r_len + lo, one
   uint64 when the key has at most 31 bases, else the two uint64 halves
   [vhi, vlo] (ops/encode.pairs_to_value);
@@ -52,8 +53,8 @@ def load():
                          "kmer_compact", cuda=True)
         vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.compact_launch.restype = i
-        lib.compact_launch.argtypes = [vp, vp, vp, i64, vp, i, i, vp, vp, vp,
-                                       vp]
+        lib.compact_launch.argtypes = [vp, vp, vp, i, i64, vp, i, i, vp, vp,
+                                       vp, vp]
         _lib = lib
     return _lib
 
@@ -100,9 +101,10 @@ def compact_ref(planes, counts: torch.Tensor, *, r_len: int = 0,
 
 def compact(planes, counts: torch.Tensor, *, r_len: int = 0,
             n_bases: int = 0):
-    """(keys,) or (hi, lo) int64 planes + int8 counts of the same shape
-    -> (keys (n,) or (n, 2) int64, counts (n,) int64, total (1,) int64);
-    r_len and n_bases describe a gapped pair."""
+    """(keys,) or (hi, lo) int64 planes + counts of the same shape (int8
+    from the fused steps, int32 from ops/count.grouped_count) -> (keys
+    (n,) or (n, 2) int64, counts (n,) int64, total (1,) int64); r_len and
+    n_bases describe a gapped pair."""
     planes = tuple(planes)
     if counts.device.type == "cpu":
         return compact_ref(planes, counts, r_len=r_len, n_bases=n_bases)
@@ -115,8 +117,9 @@ def compact(planes, counts: torch.Tensor, *, r_len: int = 0,
             raise ValueError(f"key planes must be contiguous int64 tensors "
                              f"of shape {tuple(counts.shape)} on "
                              f"{counts.device}")
-    if counts.dtype != torch.int8 or not counts.is_contiguous():
-        raise ValueError("counts must be a contiguous int8 tensor")
+    if (counts.dtype not in (torch.int8, torch.int32)
+            or not counts.is_contiguous()):
+        raise ValueError("counts must be a contiguous int8 or int32 tensor")
     n = counts.numel()
     dev = counts.device
     keys = torch.empty((n, 2) if mode == 2 else (n,), dtype=torch.int64,
@@ -129,9 +132,9 @@ def compact(planes, counts: torch.Tensor, *, r_len: int = 0,
     lib = load()
     with torch.cuda.device(dev):
         rc = lib.compact_launch(
-            planes[0].data_ptr(), planes[-1].data_ptr(), counts.data_ptr(), n,
-            scratch.data_ptr(), mode, 2 * r_len, keys.data_ptr(),
-            out_counts.data_ptr(), total.data_ptr(),
+            planes[0].data_ptr(), planes[-1].data_ptr(), counts.data_ptr(),
+            counts.element_size(), n, scratch.data_ptr(), mode, 2 * r_len,
+            keys.data_ptr(), out_counts.data_ptr(), total.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"compact kernel launch failed: cudaError {rc}")

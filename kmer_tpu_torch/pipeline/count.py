@@ -1,9 +1,22 @@
 """End-to-end counting pipeline: FASTA -> device batches -> KmerTable.
 
 Single-device pipeline.  Each batch goes to the device 2-bit packed and
-runs the fused count step: contiguous k-mers through
-ops/kernels/fused_extract (extraction, canonical key, validity and the
-in-segment collapse), gapped L+R chunks through ops/kernels/fused_gapped.
+runs one count step:
+
+- the fused step (the default, KMER_TPU_STEP=auto or fused): contiguous
+  k-mers through ops/kernels/fused_extract (extraction, canonical key,
+  validity and the in-segment collapse in kernel K1), gapped L+R chunks
+  through ops/kernels/fused_gapped (K3);
+- the unfused step (KMER_TPU_STEP=legacy, any other value, or t), and
+  the uncompacted contiguous step whenever cfg.sort_group_keys is 0:
+  contiguous k-mers extracted without collapse (ops/kernels/extract,
+  K7), then counted by ops/count.grouped_count in groups of
+  sort_group_keys keys (K2a, K2b or K2c by KMER_TPU_GROUPED; K2c in
+  strided groups of KMER_TPU_T_M keys under t), or, for sort_group_keys
+  = 0, by one exact flat sort (ops/count.sort_count, K6).  kmer_tpu's
+  step selection (kmer_tpu/pipeline/count.py:57-138, 205-238).
+
+Then:
 
 - sort mode: the step's output comes back to pinned host buffers while
   the device runs the next batch, and the host aggregates one batch
@@ -11,12 +24,13 @@ in-segment collapse), gapped L+R chunks through ops/kernels/fused_gapped.
   packed on the device into host-ready records (ops/kernels/compact) and
   only those rows cross.
 - sort mode with the device merge (device_merge="on", or "auto" behind a
-  probed device-to-host link slower than DEVMERGE_BREAKEVEN_GBPS): the
-  table stays on the device (ops/devmerge, sorted by kernel K6) and the
-  host reads its distinct rows once (DeviceMerge).
-- dense mode, k <= 8: the step's keys and counts go into a 4**k int64
-  histogram that stays on the device (ops/kernels/histogram) and is read
-  once per corpus.  k = 9..12: the sort-mode step, then a host
+  probed device-to-host link slower than DEVMERGE_BREAKEVEN_GBPS; never
+  with sort_group_keys = 0, as in kmer_tpu): the table stays on the
+  device (ops/devmerge, sorted by kernel K6) and the host reads its
+  distinct rows once (DeviceMerge).
+- dense mode, k <= 8: the fused step's keys and counts go into a 4**k
+  int64 histogram that stays on the device (ops/kernels/histogram) and is
+  read once per corpus.  k = 9..12: the fused step, then a host
   np.add.at into a 4**k int64 table (kmer_tpu's fast-link "hybrid"), or,
   behind a link slower than utils/linkspeed.SCATTER_BREAKEVEN_GBPS, a
   device index_add_ into a 4**k int64 table read once.
@@ -32,9 +46,11 @@ import torch
 
 from ..config import KmerConfig
 from ..io.fasta import iter_batches, iter_parse_chunks, parse_seqs
+from ..ops import count as count_ops
 from ..ops import devmerge
 from ..ops.kernels import compact as compact_kernel
 from ..ops.kernels import fused_gapped
+from ..ops.kernels.extract import extract_keys
 from ..ops.kernels.fused_extract import fused_extract_count
 from ..ops.kernels.histogram import index_histogram
 from ..utils import stagetime
@@ -46,6 +62,9 @@ from .table import (KmerTable, TableAccumulator, device_run_pairs,
 # positions per in-segment collapse: only changes how many duplicate
 # pairs reach the host, never the table
 SEG = 2
+# KMER_TPU_STEP=t: keys per strided group (KMER_TPU_T_M; kmer_tpu's
+# default)
+T_GROUP_KEYS = 16
 # dense mode keeps a device-resident 4**k table up to this k (kernel K5
 # takes indices of up to 16 bits)
 DENSE_DEVICE_K_MAX = 8
@@ -68,17 +87,61 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def count_step_sort(codes: torch.Tensor, lengths: torch.Tensor,
-                    limits: torch.Tensor, *, k: int, canonical: bool,
-                    mask_ambiguous: bool = False, packed_width: int = 0):
-    """One device batch, sort mode: (keys (P_pad, B) int64, counts
-    (P_pad, B) int8) under the partial-aggregation contract (equal keys
-    may recur; the host sums them).  Runs on the device the tensors lie
-    on."""
+def fused_step(codes: torch.Tensor, lengths: torch.Tensor,
+               limits: torch.Tensor, *, k: int, canonical: bool,
+               mask_ambiguous: bool = False, packed_width: int = 0):
+    """The fused count step (kernel K1 on a GPU): (keys (P_pad, B) int64,
+    counts (P_pad, B) int8) under the partial-aggregation contract (equal
+    keys may recur; the host sums them).  Dense mode calls it directly,
+    whatever KMER_TPU_STEP says."""
     return fused_extract_count(codes, lengths, limits, k,
                                canonical=canonical,
                                mask_ambiguous=mask_ambiguous, seg=SEG,
                                packed_width=packed_width)
+
+
+def _fused_selected() -> bool:
+    """KMER_TPU_STEP auto (the default) or fused selects the fused step;
+    kmer_tpu's TPU default, and the H100's."""
+    return os.environ.get("KMER_TPU_STEP", "auto") in ("auto", "fused")
+
+
+def _t_group_keys() -> int:
+    m = int(os.environ.get("KMER_TPU_T_M", T_GROUP_KEYS))
+    if m < 1 or m & (m - 1):
+        raise ValueError(f"KMER_TPU_T_M={m} must be a power of two")
+    return m
+
+
+def count_step_sort(codes: torch.Tensor, lengths: torch.Tensor,
+                    limits: torch.Tensor, *, k: int, canonical: bool,
+                    mask_ambiguous: bool = False, group_keys: int = 0,
+                    packed_width: int = 0):
+    """One device batch, sort mode: (keys, counts) under the
+    partial-aggregation contract, on the device the tensors lie on.
+
+    group_keys > 0 with KMER_TPU_STEP auto or fused: the fused step,
+    (P_pad, B) int64 keys and int8 counts.  Otherwise the unfused step:
+    extraction (K7), then group_keys == 0: one exact flat sort
+    (sort_count), whatever KMER_TPU_STEP says; KMER_TPU_STEP=t: K2c over
+    strided groups of KMER_TPU_T_M keys; any other value: grouped_count
+    at m = group_keys (KMER_TPU_GROUPED) -- flat (N_pad,) int64 keys and
+    int32 counts."""
+    if group_keys > 0 and _fused_selected():
+        return fused_step(codes, lengths, limits, k=k, canonical=canonical,
+                          mask_ambiguous=mask_ambiguous,
+                          packed_width=packed_width)
+    keys = extract_keys(codes, lengths, limits, k, canonical=canonical,
+                        mask_ambiguous=mask_ambiguous,
+                        packed_width=packed_width).reshape(-1)
+    if group_keys == 0:
+        words, counts = count_ops.sort_count([keys])
+    elif os.environ.get("KMER_TPU_STEP") == "t":
+        words, counts = count_ops.grouped_count([keys], _t_group_keys(),
+                                                backend="pallas_t")
+    else:
+        words, counts = count_ops.grouped_count([keys], group_keys)
+    return words[0], counts
 
 
 def gapped_step_sort(codes: torch.Tensor, lengths: torch.Tensor,
@@ -98,15 +161,23 @@ def gapped_step_sort(codes: torch.Tensor, lengths: torch.Tensor,
 
 def count_step_compact(codes: torch.Tensor, lengths: torch.Tensor,
                        limits: torch.Tensor, *, k: int, canonical: bool,
-                       mask_ambiguous: bool = False, packed_width: int = 0):
-    """count_step_sort with on-device compaction: (keys (n,) int64,
+                       mask_ambiguous: bool = False, group_keys: int = 256,
+                       packed_width: int = 0):
+    """One sort-mode batch with on-device compaction: (keys (n,) int64,
     counts (n,) int64, total (1,) int64), rows [0, total) the batch's
-    live (key, count) records (ops/kernels/compact)."""
-    keys, counts = count_step_sort(codes, lengths, limits, k=k,
-                                   canonical=canonical,
-                                   mask_ambiguous=mask_ambiguous,
-                                   packed_width=packed_width)
-    return compact_kernel.compact((keys,), counts)
+    live (key, count) records (ops/kernels/compact).  The fused step
+    under KMER_TPU_STEP auto or fused, whatever group_keys is; else K7,
+    then grouped_count at m = group_keys (at least 1)."""
+    if _fused_selected():
+        keys, counts = fused_step(codes, lengths, limits, k=k,
+                                  canonical=canonical,
+                                  mask_ambiguous=mask_ambiguous,
+                                  packed_width=packed_width)
+        return compact_kernel.compact((keys,), counts)
+    keys = extract_keys(codes, lengths, limits, k, canonical=canonical,
+                        mask_ambiguous=mask_ambiguous,
+                        packed_width=packed_width)
+    return count_ops.grouped_count_compact([keys], group_keys)
 
 
 def gapped_step_compact(codes: torch.Tensor, lengths: torch.Tensor,
@@ -128,13 +199,13 @@ def count_step_dense(codes: torch.Tensor, lengths: torch.Tensor,
                      limits: torch.Tensor, hist: torch.Tensor, *, k: int,
                      canonical: bool, mask_ambiguous: bool = False,
                      packed_width: int = 0) -> torch.Tensor:
-    """One device batch, dense mode (k <= 8): the sort-mode step, then
+    """One device batch, dense mode (k <= 8): the fused step, then
     its keys weighted by their in-segment counts accumulated in place
     into `hist` ((4**k,) int64 on the batch's device); returns hist."""
-    keys, counts = count_step_sort(codes, lengths, limits, k=k,
-                                   canonical=canonical,
-                                   mask_ambiguous=mask_ambiguous,
-                                   packed_width=packed_width)
+    keys, counts = fused_step(codes, lengths, limits, k=k,
+                              canonical=canonical,
+                              mask_ambiguous=mask_ambiguous,
+                              packed_width=packed_width)
     return index_histogram(keys, counts, 2 * k, out=hist)
 
 
@@ -142,14 +213,14 @@ def count_step_scatter(codes: torch.Tensor, lengths: torch.Tensor,
                        limits: torch.Tensor, table: torch.Tensor, *, k: int,
                        canonical: bool, mask_ambiguous: bool = False,
                        packed_width: int = 0) -> torch.Tensor:
-    """One device batch, dense k = 9..12 on the device: the sort-mode
-    step, then its live keys weighted by their counts added in place into
+    """One device batch, dense k = 9..12 on the device: the fused step,
+    then its live keys weighted by their counts added in place into
     `table` ((4**k,) int64 on the batch's device) by index_add_; returns
     table."""
-    keys, counts = count_step_sort(codes, lengths, limits, k=k,
-                                   canonical=canonical,
-                                   mask_ambiguous=mask_ambiguous,
-                                   packed_width=packed_width)
+    keys, counts = fused_step(codes, lengths, limits, k=k,
+                              canonical=canonical,
+                              mask_ambiguous=mask_ambiguous,
+                              packed_width=packed_width)
     counts = counts.reshape(-1).to(torch.int64)
     # dead lanes carry count 0 and the sentinel key: add 0 to bin 0
     idx = torch.where(counts > 0, keys.reshape(-1), 0)
@@ -421,7 +492,8 @@ def count_codes(codes: np.ndarray, offsets: np.ndarray, cfg: KmerConfig,
     log = stats or StatsLogger(enabled=cfg.stats)
     if cfg.effective_mode == "dense":
         table, n_batches = _count_dense(codes, offsets, cfg, dev, log)
-    elif not cfg.compact and _devmerge_ok(cfg, dev):
+    elif (not cfg.compact and cfg.sort_group_keys > 0
+          and _devmerge_ok(cfg, dev)):
         table, n_batches = _count_devmerge(codes, offsets, cfg, dev, log)
     else:
         table, n_batches = _count_sort(codes, offsets, cfg, dev, log)
@@ -451,13 +523,15 @@ def _count_sort(codes, offsets, cfg: KmerConfig, dev: torch.device,
         def step(codes_d, lengths_d, limits_d, pw):
             return _CompactReadback(count_step_compact(
                 codes_d, lengths_d, limits_d, k=k, canonical=cfg.canonical,
-                mask_ambiguous=cfg.skip_invalid, packed_width=pw),
+                mask_ambiguous=cfg.skip_invalid,
+                group_keys=cfg.sort_group_keys, packed_width=pw),
                 copy_stream)
     else:
         def step(codes_d, lengths_d, limits_d, pw):
             return _Readback(count_step_sort(
                 codes_d, lengths_d, limits_d, k=k, canonical=cfg.canonical,
-                mask_ambiguous=cfg.skip_invalid, packed_width=pw))
+                mask_ambiguous=cfg.skip_invalid,
+                group_keys=cfg.sort_group_keys, packed_width=pw))
 
     if cfg.compact:
         def batch_pairs(rb):
@@ -562,7 +636,8 @@ def _count_devmerge(codes, offsets, cfg: KmerConfig, dev: torch.device,
         def step(codes_d, lengths_d, limits_d, pw):
             keys, counts = count_step_sort(
                 codes_d, lengths_d, limits_d, k=k, canonical=cfg.canonical,
-                mask_ambiguous=cfg.skip_invalid, packed_width=pw)
+                mask_ambiguous=cfg.skip_invalid,
+                group_keys=cfg.sort_group_keys, packed_width=pw)
             return (keys,), counts
 
         def to_part(keys, counts):
@@ -614,7 +689,7 @@ def _count_dense(codes, offsets, cfg: KmerConfig, dev: torch.device,
     table = np.zeros(4 ** k, np.int64)
 
     def step(codes_d, lengths_d, limits_d, pw):
-        return _Readback(count_step_sort(
+        return _Readback(fused_step(
             codes_d, lengths_d, limits_d, k=k, canonical=cfg.canonical,
             mask_ambiguous=cfg.skip_invalid, packed_width=pw))
 

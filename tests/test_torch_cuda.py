@@ -1,7 +1,7 @@
-"""The CUDA kernels K1, K3, K4, K5 and K6 against their plain torch
-versions, and the whole count (sort, compact, device merge and dense),
-the parity dump and the HyperLogLog estimate on the card against the
-CPU.  Every test
+"""The CUDA kernels K1, K2a-c, K3, K4, K5, K6 and K7 against their plain
+torch versions, and the whole count (sort, the unfused steps, compact,
+device merge and dense), the parity dump and the HyperLogLog estimate on
+the card against the CPU.  Every test
 here needs a GPU and skips without one.  This file imports neither jax nor kmer_tpu,
 so it also runs on a machine that has only the port:
 
@@ -17,8 +17,10 @@ from kmer_tpu_torch.io.fasta import pack_batch_codes
 from kmer_tpu_torch.io.generator import (genome_reads_fasta,
                                          reference_style_fasta)
 from kmer_tpu_torch.ops.kernels import compact as ck
+from kmer_tpu_torch.ops.kernels import extract as ek
 from kmer_tpu_torch.ops.kernels import fused_extract as fe
 from kmer_tpu_torch.ops.kernels import fused_gapped as fg
+from kmer_tpu_torch.ops.kernels import grouped_count as gk
 from kmer_tpu_torch.ops.kernels import histogram as hk
 from kmer_tpu_torch.ops.kernels import sort as sk
 
@@ -325,3 +327,121 @@ def test_devmerge_count_cuda_equals_cpu(cuda, tmp_path):
                                        gcfg.replace(device_merge="on"),
                                        device="cuda")
             == kmer_tpu_torch.count_fasta(str(rpath), gcfg, device="cpu"))
+
+
+@pytest.mark.parametrize("B,L,k,canon,amb,packed", [
+    (8192, 160, 21, True, False, True),      # the main path's shape
+    (300, 78, 1, False, True, False), (300, 78, 16, True, False, True),
+    (300, 78, 17, False, True, False), (999, 77, 31, True, True, False),
+    (37, 40, 31, False, False, True)])
+def test_extract_kernel_equals_plain(cuda, B, L, k, canon, amb, packed):
+    rng = np.random.default_rng(B + k)
+    codes = rng.integers(0, 5 if amb else 4, (B, L), dtype=np.uint8)
+    lengths = rng.integers(0, L + 1, B).astype(np.int32)
+    limits = rng.integers(1, L + 1, B).astype(np.int32)
+    host = [torch.from_numpy(pack_batch_codes(codes).view(np.int32)
+                             if packed else codes),
+            torch.from_numpy(lengths), torch.from_numpy(limits)]
+    kw = dict(canonical=canon, mask_ambiguous=amb,
+              packed_width=L if packed else 0)
+    want = ek.extract_keys(*host, k, **kw)
+    before = ek.launches
+    got = ek.extract_keys(*(t.to(cuda) for t in host), k, **kw)
+    torch.cuda.synchronize()
+    assert ek.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def _rows(cuda, seed, shape, W, hi=5, dead=0.2, sort=False):
+    """W int64 planes of `shape` with many duplicates and dead rows; with
+    sort=True each row group-sorted (K2a's input)."""
+    rng = np.random.default_rng(seed)
+    planes = [torch.from_numpy(rng.integers(0, hi, shape)) for _ in range(W)]
+    gone = torch.from_numpy(rng.random(shape) < dead)
+    planes = [torch.where(gone, sk.SENTINEL, p) for p in planes]
+    if sort:
+        planes = gk.sort_groups(planes)
+    return [p.to(cuda) for p in planes]
+
+
+@pytest.mark.parametrize("G,m,W", [(4480, 256, 1), (64, 128, 2), (5, 300, 4),
+                                   (1, 2, 1), (3, 1, 2), (2, 1000, 3),
+                                   (1, 4096, 1)])
+def test_run_lengths_kernel_equals_plain(cuda, G, m, W):
+    planes = _rows(cuda, G * m + W, (G, m), W, sort=True)
+    before = gk.run_lengths_launches
+    got = gk.run_lengths_grouped(planes)
+    want = gk.run_lengths_grouped_ref(planes)
+    torch.cuda.synchronize()
+    assert gk.run_lengths_launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("G,m,W", [(4480, 256, 1), (64, 128, 2), (7, 2, 4),
+                                   (1, 16384, 1), (3, 4096, 4), (2, 8192, 3),
+                                   (1, 1, 1)])
+def test_grouped_kernels_equal_plain(cuda, G, m, W):
+    """K2b on (G, m) rows and K2c on the (m, G) columns, bit for bit."""
+    for fn, ref, counter, shape in (
+            (gk.grouped_count, gk.grouped_count_ref, "grouped_launches",
+             (G, m)),
+            (gk.grouped_count_strided, gk.grouped_count_strided_ref,
+             "strided_launches", (m, G))):
+        planes = _rows(cuda, G * m + W, shape, W)
+        before = getattr(gk, counter)
+        got_s, got_c = fn(planes)
+        want_s, want_c = ref(planes)
+        torch.cuda.synchronize()
+        assert getattr(gk, counter) == before + 1
+        assert torch.equal(got_c, want_c)
+        for g, w in zip(got_s, want_s):
+            assert torch.equal(g, w)
+
+
+def test_grouped_kernel_edges(cuda):
+    """All sentinels, one run filling a group, the strided route at
+    m = 16 over K7-sized input."""
+    dead = torch.full((8, 256), sk.SENTINEL, device=cuda)
+    assert int(gk.run_lengths_grouped([dead]).abs().sum()) == 0
+    assert int(gk.grouped_count([dead, dead])[1].abs().sum()) == 0
+    one = torch.full((4, 4096), 3, dtype=torch.int64, device=cuda)
+    for counts in (gk.run_lengths_grouped([one]), gk.grouped_count([one])[1]):
+        assert counts[:, 0].tolist() == [4096] * 4
+        assert int(counts[:, 1:].abs().sum()) == 0
+    planes = _rows(cuda, 9, (16, 71680), 1, hi=1 << 40, dead=0.1)
+    got = gk.grouped_count_strided(planes)
+    want = gk.grouped_count_strided_ref(planes)
+    assert torch.equal(got[0][0], want[0][0]) and torch.equal(got[1],
+                                                              want[1])
+
+
+@pytest.mark.parametrize("n", [1_146_880, 4097, 20])
+def test_compact_kernel_int32_counts(cuda, n):
+    rng = np.random.default_rng(n)
+    keys = torch.from_numpy(rng.integers(0, 1 << 42, n)).to(cuda)
+    counts = torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(
+        cuda)
+    launched, t = _compact_both((keys,), counts)
+    assert launched == 1 and t == int((counts > 0).sum())
+
+
+@pytest.mark.parametrize("env,extra", [
+    (dict(KMER_TPU_STEP="legacy"), {}),
+    (dict(KMER_TPU_STEP="legacy", KMER_TPU_GROUPED="pallas"), {}),
+    (dict(KMER_TPU_STEP="t"), {}),
+    ({}, dict(sort_group_keys=0)),
+    (dict(KMER_TPU_STEP="legacy"), dict(compact=True)),
+    (dict(KMER_TPU_STEP="legacy"), dict(device_merge="on"))])
+def test_unfused_count_cuda_equals_cpu(cuda, tmp_path, monkeypatch, env,
+                                       extra):
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    path = tmp_path / "g.fasta"
+    path.write_text(genome_reads_fasta(300, 150, genome_len=3000, seed=6,
+                                       error_rate=0.01))
+    kw = dict(k=21, canonical=True, batch_reads=64, max_read_len=96, **extra)
+    want = kmer_tpu_torch.count_fasta(str(path), device="cpu", **kw)
+    ek.launches = 0
+    got = kmer_tpu_torch.count_fasta(str(path), device="cuda", **kw)
+    assert got == want and got.total == 300 * 130
+    assert ek.launches == -(-300 * 2 // 64)
