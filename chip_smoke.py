@@ -91,9 +91,35 @@ few) to stdout:
      (K2c), sort_group_keys=0 (K7 + K6 + run lengths), compact=True (K7,
      K2a, K4 on int32 counts) and device_merge="on" (K7, K2a, K6) under
      KMER_TPU_STEP=legacy; each run's kernels must launch;
- 20. one JSON line with every kernel of the paths (with its bound and,
+ 20. kernels K1 and K7 on keys of 32 to 63 bases (the (hi, lo) int64
+     pair) and on spaced seeds against their plain versions, lane for
+     lane, at B=8192, L=160: k = 32, 45, 48, 55, 63 and the masks
+     1110111...0111 of span 31 (24 selected) and 55 (42 selected),
+     canonical and not, packed rows and u8 rows with ambiguous codes
+     and short rows; each variant timed at k = 55 (or the span-55 mask),
+     canonical, packed; phases 7 and 8 also hold K4 on K1's pairs (k =
+     55, and k = 63 whose lo carries a flipped top bit) and K5's
+     HyperLogLog classes on k = 55 pairs;
+ 21. k = 55 canonical on phase 4's corpus (96 M k-mers): the default
+     (host merge), compact=True (K1 -> K4), device_merge="on" (K1 -> K6
+     at two key words) and KMER_TPU_STEP=legacy with the grouped sort
+     (K7 -> torch.sort -> K2a): equal tables, the total sum(len - k +
+     1), the table on the first 50,000 reads equal to a numpy oracle of
+     (hi, lo) rows; walls and stage breakdowns;
+ 22. the span-55 mask, canonical, on the same corpus: the default,
+     device_merge="on" and sort_group_keys=0 (K7 -> K6): equal tables,
+     equal to the oracle on 50,000 reads;
+ 23. `card -k 55 --canonical` and `card --seed-mask <span-55 mask>
+     --canonical`: each estimate within 15% of the exact distinct count
+     of phases 21 and 22;
+ 24. one JSON line with every kernel of the paths (with its bound and,
      where one PyTorch call computes the same function, that call's
-     time), then the result line {"ok": true, "device": {...}} last.
+     time; K1 and K7 with a row for each of their two-word and spaced
+     variants), then the result line {"ok": true, "device": {...}} last.
+
+Every device-merge run prints the card's peak memory
+(torch.cuda.max_memory_allocated) beside the state's own bytes:
+KMER_TPU_DEVMERGE_MAX_MB bounds the state alone.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  Without a CUDA device it fails at once.
@@ -130,6 +156,12 @@ ORACLE_READS = 50_000
 GAP = dict(l_len=27, r_len=27, c_min=80, c_max=140)
 GAP_B, GAP_L, GAP_LEN = 256, 416, 400
 GAP_RECORDS, GAP_ORACLE_RECORDS = 4000, 300
+# keys of 32 to 63 bases and spaced seeds: k = 55, and two palindromic
+# masks, span 31 with 24 selected (one key word) and span 55 with 42
+# selected (a (hi, lo) pair)
+WIDE_K = 55
+SHORT_MASK = "1110111011101110111011101110111"
+WIDE_MASK = "1110111011101110111011101110111011101110111011101110111"
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
@@ -297,6 +329,79 @@ def table_values(table) -> np.ndarray:
     if table.keys.shape[1] == 2:
         v = (v << np.uint64(32)) | table.keys[:, 1].astype(np.uint64)
     return v
+
+
+def exact_err(got, want) -> int:
+    """The largest |got - want| over the lanes of one key layout (an
+    int64 plane or a (hi, lo) pair of them), in exact integers; 0 when
+    every lane is equal."""
+    from kmer_tpu_torch.ops.encode import key_planes
+    err = 0
+    for g, w in zip(key_planes(got), key_planes(want)):
+        g, w = g.reshape(-1).to(torch.int64), w.reshape(-1).to(torch.int64)
+        if g.shape != w.shape:
+            return 1 << 64
+        bad = (g != w).nonzero().reshape(-1)[:1000]
+        if bad.numel():
+            err = max(err, max(abs(a - b) for a, b in zip(
+                g[bad].tolist(), w[bad].tolist())))
+    return err
+
+
+def oracle_keys(path: str, positions, canonical: bool):
+    """The keys of the bases at window offsets `positions` (contiguous
+    k-mers: range(k)) of every window of an equal-length-read FASTA, by
+    numpy shift-or over the selected columns, strand-min when canonical,
+    counted by lexsort: (sorted unique (M, 2) int64 rows in the port's
+    pair layout -- hi the first 31 bases, lo the rest with its top bit
+    flipped at 32 bases; lo 0 for keys of at most 31 bases -- counts)."""
+    lut = np.full(256, 255, np.uint8)
+    for i, b in enumerate(b"ACGT"):
+        lut[b] = i
+    with open(path, "rb") as f:
+        seqs = [ln for ln in f.read().split(b"\n")
+                if ln and not ln.startswith(b">")]
+    codes = lut[np.frombuffer(b"".join(seqs), np.uint8)].reshape(
+        len(seqs), -1)
+    if codes.max() > 3:
+        raise ValueError(f"{path}: oracle takes A/C/G/T reads only")
+    P = codes.shape[1] - positions[-1]
+
+    def pack(cols):
+        hi = np.zeros((len(seqs), P), np.uint64)
+        lo = np.zeros((len(seqs), P), np.uint64)
+        for i, c in enumerate(cols):
+            if i < 31:
+                hi = (hi << np.uint64(2)) | c
+            else:
+                lo = (lo << np.uint64(2)) | c
+        if len(cols) - 31 == 32:
+            lo ^= np.uint64(1 << 63)
+        return hi.view(np.int64).reshape(-1), lo.view(np.int64).reshape(-1)
+
+    c64 = codes.astype(np.uint64)
+    hi, lo = pack([c64[:, j:j + P] for j in positions])
+    if canonical:
+        rhi, rlo = pack([np.uint64(3) - c64[:, j:j + P]
+                         for j in reversed(positions)])
+        take = (rhi < hi) | ((rhi == hi) & (rlo < lo))
+        hi, lo = np.where(take, rhi, hi), np.where(take, rlo, lo)
+    order = np.lexsort((lo, hi))
+    hi, lo = hi[order], lo[order]
+    start = np.ones(len(hi), bool)
+    start[1:] = (hi[1:] != hi[:-1]) | (lo[1:] != lo[:-1])
+    idx = np.flatnonzero(start)
+    counts = np.diff(np.append(idx, len(hi)))
+    return np.stack([hi[idx], lo[idx]], 1), counts
+
+
+def table_pairs(table) -> np.ndarray:
+    """KmerTable -> its keys as (M, 2) int64 rows of oracle_keys' layout."""
+    from kmer_tpu_torch.ops.encode import keys_u32_to_i64, u32_to_pairs
+    if table.k <= 31:
+        return np.stack([keys_u32_to_i64(table.keys, table.k),
+                         np.zeros(table.num_distinct, np.int64)], 1)
+    return np.stack(u32_to_pairs(table.keys, 31, table.k - 31), 1)
 
 
 def phase_end_to_end(dev, seed: int, tmp: str, n_reads: int = N_READS,
@@ -671,42 +776,57 @@ def phase_sort_kernel(dev, seed: int) -> dict:
     return rec
 
 
+class _merge_probe:
+    """For a block: counts ops/devmerge.merge_batch's calls and records
+    the state's bytes at each (8 (W + 1) bytes a row), after resetting
+    the card's peak-memory counter.  KMER_TPU_DEVMERGE_MAX_MB bounds the
+    state alone; line() puts the measured peak beside it."""
+
+    def __enter__(self):
+        from kmer_tpu_torch.ops import devmerge
+        self.mod, self.orig, self.states = devmerge, devmerge.merge_batch, []
+
+        def counted(state_words, state_counts, *rest):
+            self.states.append(state_counts.numel() * 8
+                               * (len(state_words) + 1))
+            return self.orig(state_words, state_counts, *rest)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        devmerge.merge_batch = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.merge_batch = self.orig
+
+    def line(self) -> str:
+        peak, state = torch.cuda.max_memory_allocated(), max(self.states)
+        return (f"merges={len(self.states)} peak_device_GB={peak / 1e9} "
+                f"state_GB={state / 1e9} peak_over_state={peak / state}")
+
+
 def phase_devmerge(dev, path: str, cfg, want_table, host_wall: float,
                    label: str) -> int:
     """The run of `cfg` with device_merge="on" against its host-merge
     table and wall from the same run of this script; returns K6's
     launches, one a merge."""
     from kmer_tpu_torch import count_fasta
-    from kmer_tpu_torch.ops import devmerge
     from kmer_tpu_torch.ops.kernels import sort as sk
     from kmer_tpu_torch.utils import stagetime
-    merges = []
-    orig = devmerge.merge_batch
-
-    def counted(*args):
-        merges.append(1)
-        return orig(*args)
     times: dict[str, float] = {}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    devmerge.merge_batch = counted
-    sk.launches = 0
-    try:
+    with _merge_probe() as probe:
+        sk.launches = 0
         with stagetime.collect(times):
             table = count_fasta(path, cfg.replace(device_merge="on"),
                                 device=dev)
-    finally:
-        devmerge.merge_batch = orig
     launches = sk.launches
-    if not (table == want_table and launches == len(merges) > 0):
+    if not (table == want_table and launches == len(probe.states) > 0):
         raise AssertionError(f"{label} device-merge table != the host-merge "
                              f"table, or K6 launches {launches} != merges "
-                             f"{len(merges)}")
+                             f"{len(probe.states)}")
     wall = times["total"]
-    _say(f"{label}_devmerge equal_to_host_merge=True merges={len(merges)} "
-         f"k6_launches={launches} distinct={table.num_distinct} "
-         f"wall_s={wall} host_merge_wall_s={host_wall} "
-         f"peak_device_GB={torch.cuda.max_memory_allocated() / 1e9}")
+    _say(f"{label}_devmerge equal_to_host_merge=True k6_launches={launches} "
+         f"distinct={table.num_distinct} wall_s={wall} "
+         f"host_merge_wall_s={host_wall} {probe.line()}")
     _say(f"{label}_devmerge_stages_s " + json.dumps(times, sort_keys=True))
     return launches
 
@@ -808,6 +928,12 @@ def phase_compact_kernel(dev, seed: int) -> dict:
                                       device=dev),
                          torch.ones(70_000, dtype=torch.int8, device=dev),
                          {})
+    # K1's (hi, lo) pairs: k = 55 (two uint64 halves) and k = 63 (r_len =
+    # 32: lo's flip taken off)
+    for k in (WIDE_K, 63):
+        keys, counts = k1_out(MAIN_B, MAIN_L, k)
+        cases[f"k1_pair_k{k}"] = (*keys, counts, dict(r_len=k - 31,
+                                                      n_bases=k))
     max_err = 0
     for name, case in cases.items():
         *planes, counts, kw = case
@@ -919,6 +1045,28 @@ def phase_histogram_kernel(dev, seed: int) -> dict:
             raise AssertionError(f"K5 HLL != plain version (b={b})")
         if b == 10:
             rec.update(hll_ms=ms, hll_plain_ms=plain_ms)
+    # HLL classes of (hi, lo) pairs: K1's k = 55 output
+    main = [t.to(dev) for t in kernel_batch(rng, MAIN_B, MAIN_L, WIDE_K,
+                                            packed=True, amb=False,
+                                            short=False)]
+    keys, counts = fe.fused_extract_count(*main, WIDE_K, canonical=True,
+                                          seg=SEG, packed_width=MAIN_L)
+    got = hk.hll_class_histogram(keys, counts, k=WIDE_K, b=10)
+    want = hk.hll_class_histogram_ref(keys, counts, k=WIDE_K, b=10)
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max())
+    ms, plain_ms = time_pair(
+        functools.partial(hk.hll_class_histogram, keys, counts, k=WIDE_K,
+                          b=10),
+        functools.partial(hk.hll_class_histogram_ref, keys, counts,
+                          k=WIDE_K, b=10))
+    _say(f"hll_histogram_check k={WIDE_K} (hi, lo) pairs b=10 "
+         f"lanes={counts.numel()} sum={int(got.sum())} max_abs_err={err} "
+         f"kernel_ms={ms} plain_ms={plain_ms} speedup={plain_ms / ms} "
+         f"(tolerance: exact)")
+    if err != 0 or int(got.sum()) != int(counts.sum()):
+        raise AssertionError("K5 HLL on (hi, lo) pairs != plain version")
+    rec.update(hll_pair_ms=ms, hll_pair_plain_ms=plain_ms)
     empty = torch.zeros(0, dtype=torch.int64, device=dev)
     before = hk.launches
     got = hk.index_histogram(empty, empty.to(torch.int8), 8)
@@ -1315,8 +1463,7 @@ def phase_unfused_small(dev, small: str) -> tuple[int, int]:
                 "k4": (ck, "launches")}
     seen = {}
     for label, env, run_cfg, want in runs:
-        with _env(**env):
-            torch.cuda.synchronize()
+        with _env(**env), _merge_probe() as probe:
             for mod, attr in counters.values():
                 setattr(mod, attr, 0)
             t0 = time.perf_counter()
@@ -1328,7 +1475,8 @@ def phase_unfused_small(dev, small: str) -> tuple[int, int]:
                  and np.array_equal(table.counts, want_c))
         _say(f"unfused_small run={label} reads={ORACLE_READS} "
              f"equal_to_oracle={equal} launches="
-             f"{json.dumps(got, sort_keys=True)} wall_s={wall}")
+             f"{json.dumps(got, sort_keys=True)} wall_s={wall}"
+             + (f" {probe.line()}" if probe.states else ""))
         if not equal:
             raise AssertionError(f"unfused {label}: table != numpy oracle")
         for name, n in want.items():
@@ -1341,6 +1489,217 @@ def phase_unfused_small(dev, small: str) -> tuple[int, int]:
             raise AssertionError("unfused device merge: K6 never launched")
         seen[label] = got
     return seen["grouped=pallas"]["k2b"], seen["step=t"]["k2c"]
+
+
+def phase_wide_kernels(dev, seed: int) -> list[dict]:
+    """K1 and K7 on keys of 32 to 63 bases and on spaced seeds == their
+    plain versions, lane for lane, at B=8192, L=160: k = 32, 45, 48, 55
+    and 63 and the two masks, canonical and not, packed rows and u8 rows
+    with 1% ambiguous codes and short rows; then each variant timed at
+    k = 55 (or the 55-span mask), canonical, packed.  Returns the JSON
+    records of the four variants (without the main-path launch counts)."""
+    from kmer_tpu_torch.ops.encode import key_planes
+    from kmer_tpu_torch.ops.extract import parse_seed_mask
+    from kmer_tpu_torch.ops.kernels import extract as ek
+    from kmer_tpu_torch.ops.kernels import fused_extract as fe
+    rng = np.random.default_rng(seed + 7)
+    variants = {
+        "two_word": [(k, None) for k in (32, 45, 48, WIDE_K, 63)],
+        "spaced": [(m.count("1"), parse_seed_mask(m))
+                   for m in (SHORT_MASK, WIDE_MASK)]}
+    max_err = {}
+    for variant, shapes in variants.items():
+        e1 = e7 = 0
+        for k, pos in shapes:
+            for canon in (False, True):
+                for packed, amb, short in ((True, False, False),
+                                           (False, True, True)):
+                    host = gapped_batch(rng, MAIN_B, MAIN_L, packed=packed,
+                                        amb=amb, short=short,
+                                        full_len=READ_LEN)
+                    on_dev = [t.to(dev) for t in host]
+                    kw = dict(canonical=canon, mask_ambiguous=amb,
+                              packed_width=MAIN_L if packed else 0,
+                              positions=pos)
+                    b1, b7 = fe.launches, ek.launches
+                    keys, counts = fe.fused_extract_count(*on_dev, k,
+                                                          seg=SEG, **kw)
+                    want_keys, want_counts = fe.fused_extract_count_ref(
+                        *on_dev, k, seg=SEG, **kw)
+                    got7 = ek.extract_keys(*on_dev, k, **kw)
+                    want7 = ek.extract_keys_ref(*on_dev, k, **kw)
+                    torch.cuda.synchronize()
+                    err1 = max(exact_err(keys, want_keys),
+                               exact_err(counts, want_counts))
+                    err7 = exact_err(got7, want7)
+                    live = int((counts > 0).sum())
+                    launched = (fe.launches - b1, ek.launches - b7)
+                    span = k if pos is None else pos[-1] + 1
+                    _say(f"wide_kernel_check variant={variant} B={MAIN_B} "
+                         f"L={MAIN_L} n_bases={k} span={span} "
+                         f"canonical={canon} packed={packed} ambiguous={amb} "
+                         f"short={short} planes={len(key_planes(keys))} "
+                         f"live_lanes={live} launches={launched} "
+                         f"max_abs_err_k1={err1} max_abs_err_k7={err7}")
+                    if err1 or err7 or live == 0 or launched != (1, 1):
+                        raise AssertionError(
+                            f"K1/K7 {variant} != plain version (k={k}, "
+                            f"errors {err1}, {err7}, live {live})")
+                    e1, e7 = max(e1, err1), max(e7, err7)
+        max_err[variant] = (e1, e7)
+
+    recs = []
+    for variant, k, pos in (("two_word", WIDE_K, None),
+                            ("spaced", WIDE_MASK.count("1"),
+                             parse_seed_mask(WIDE_MASK))):
+        span = k if pos is None else pos[-1] + 1
+        main = [t.to(dev) for t in kernel_batch(rng, MAIN_B, MAIN_L, span,
+                                                packed=True, amb=False,
+                                                short=False)]
+        kw = dict(canonical=True, packed_width=MAIN_L, positions=pos)
+        P = MAIN_L - span + 1
+        P_pad = -(-P // SEG) * SEG
+        lanes = P * MAIN_B
+        in_bytes = main[0].numel() * 4 + MAIN_B * 8
+        # integer operations a lane that the function needs: a contiguous
+        # window rolls two 128-bit values (~16), compares, splits and
+        # collapses (~8); a spaced window can roll its span the same way
+        # and cut each run of consecutive selected bases out of the value
+        # and its reverse complement (a shift, a mask and an or each, ~6
+        # a run; 14 runs for the span-55 mask)
+        runs = 0 if pos is None else 1 + sum(
+            b != a + 1 for a, b in zip(pos, pos[1:]))
+        ops = lanes * (24 + 6 * runs)
+        for name, mod, fn, ref, out_bytes, extra in (
+                ("fused_extract_count", fe, fe.fused_extract_count,
+                 fe.fused_extract_count_ref, P_pad * MAIN_B * 17,
+                 dict(seg=SEG)),
+                ("extract_keys", ek, ek.extract_keys, ek.extract_keys_ref,
+                 lanes * 16, {})):
+            ms, plain_ms = time_pair(
+                functools.partial(fn, *main, k, **kw, **extra),
+                functools.partial(ref, *main, k, **kw, **extra))
+            b = bound(in_bytes + out_bytes, ops)
+            _say(f"wide_kernel_time kernel={name} variant={variant} "
+                 f"B={MAIN_B} L={MAIN_L} n_bases={k} span={span} "
+                 f"canonical=True packed=True kernel_ms={ms} "
+                 f"plain_ms={plain_ms} speedup={plain_ms / ms} "
+                 f"out_GB_per_s={out_bytes / (ms * 1e-3) / 1e9} "
+                 f"bound_ms={b['bound_ms']} bound_by={b['bound_by']} "
+                 f"library_ms=None (no single PyTorch call extracts k-mers) "
+                 f"(tolerance: exact, max_abs_err must be 0)")
+            err = max_err[variant][0 if mod is fe else 1]
+            recs.append({"name": f"{name}[{variant}]", "route": "cuda",
+                         "source": mod.SOURCE, "replaces": mod.REPLACES,
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         **b, "library_ms": None})
+    return recs
+
+
+def _counters():
+    """The launch counters of every kernel module, by short name."""
+    from kmer_tpu_torch.ops.kernels import compact as ck
+    from kmer_tpu_torch.ops.kernels import extract as ek
+    from kmer_tpu_torch.ops.kernels import fused_extract as fe
+    from kmer_tpu_torch.ops.kernels import grouped_count as gk
+    from kmer_tpu_torch.ops.kernels import histogram as hk
+    from kmer_tpu_torch.ops.kernels import sort as sk
+    return {"k1": (fe, "launches"), "k1_wide": (fe, "wide_launches"),
+            "k1_spaced": (fe, "spaced_launches"),
+            "k7": (ek, "launches"), "k7_wide": (ek, "wide_launches"),
+            "k7_spaced": (ek, "spaced_launches"),
+            "k2a": (gk, "run_lengths_launches"), "k4": (ck, "launches"),
+            "k5": (hk, "launches"), "k6": (sk, "launches")}
+
+
+def _run_counted(fn):
+    """fn() with every kernel's count set to 0 just before and read just
+    after: (result, {short name: launches})."""
+    counters = _counters()
+    torch.cuda.synchronize()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: getattr(mod, attr)
+                 for name, (mod, attr) in counters.items()}
+
+
+def phase_wide_end_to_end(dev, path: str, small: str, label: str, cfg,
+                          runs) -> tuple[dict, object]:
+    """`cfg` (k = 55 or the 55-span seed mask, canonical) on phase 4's
+    corpus in each of `runs` -- (name, environment, config changes,
+    {counter: launches wanted, -1 for "at least one"}) -- the first the
+    reference: every table equal, the total sum(len - span + 1), the
+    table on the first 50,000 reads equal to oracle_keys; each wall and
+    stage breakdown, and the device merge's peak memory beside its state.
+    Returns ({run: launches}, the reference table)."""
+    from kmer_tpu_torch import count_fasta
+    from kmer_tpu_torch.utils import stagetime
+    span = cfg.window_span
+    positions = cfg.seed_positions or tuple(range(cfg.k))
+    want_keys, want_counts = oracle_keys(small, positions, cfg.canonical)
+    small_table = count_fasta(small, cfg, device=dev)
+    if not (np.array_equal(table_pairs(small_table), want_keys)
+            and np.array_equal(small_table.counts, want_counts)):
+        raise AssertionError(f"{label} count_fasta != numpy oracle on the "
+                             f"first {ORACLE_READS} reads")
+    _say(f"{label}_oracle_check reads={ORACLE_READS} "
+         f"distinct={small_table.num_distinct} total={small_table.total} "
+         "equal=True")
+    batches = -(-N_READS // cfg.batch_reads)
+    total = N_READS * (READ_LEN - span + 1)
+    ref, seen = None, {}
+    for name, env, change, want in runs:
+        times: dict[str, float] = {}
+        run_cfg = cfg.replace(**change)
+        with _env(**env), _merge_probe() as probe:
+            with stagetime.collect(times):
+                table, got = _run_counted(
+                    lambda: count_fasta(path, run_cfg, device=dev))
+        ref = table if ref is None else ref
+        bad = {c: got[c] for c, n in want.items()
+               if (got[c] == 0 if n < 0 else got[c] != n)}
+        if probe.states and got["k6"] != len(probe.states):
+            bad["k6_per_merge"] = got["k6"]
+        if table != ref or table.total != total or bad:
+            raise AssertionError(f"{label} {name}: table differs from the "
+                                 f"first run, total {table.total} != "
+                                 f"{total}, or launches {bad} wrong")
+        seen[name] = got
+        wall = times["total"]
+        _say(f"{label}_end_to_end run={name} reads={N_READS} kmers={total} "
+             f"distinct={table.num_distinct} batches={batches} "
+             f"equal_to_first=True launches="
+             f"{json.dumps({c: n for c, n in got.items() if n})} "
+             f"wall_s={wall} kmers_per_s={total / wall}"
+             + (f" {probe.line()}" if probe.states else ""))
+        _say(f"{label}_{name}_stages_s " + json.dumps(times, sort_keys=True))
+    return seen, ref
+
+
+def phase_wide_card(dev, path: str, label: str, cfg, exact_distinct: int,
+                    variant_counter: str) -> None:
+    """`card` at cfg's key (k = 55 or the 55-span mask, canonical): the
+    estimate within 15% of the exact distinct count of the same corpus."""
+    from kmer_tpu_torch.pipeline.sketch import estimate_distinct_multi_k
+    cfg = cfg.replace(batch_reads=2048)
+    t0 = time.perf_counter()
+    [(est, total)], got = _run_counted(
+        lambda: estimate_distinct_multi_k(path, [cfg.n_bases], cfg,
+                                          device=dev))
+    wall = time.perf_counter() - t0
+    rel = est / exact_distinct - 1
+    batches = -(-N_READS // cfg.batch_reads)
+    want_total = N_READS * (READ_LEN - cfg.window_span + 1)
+    _say(f"card {label} canonical={cfg.canonical} b=10 estimate={est} "
+         f"exact_distinct={exact_distinct} rel_err={rel} total={total} "
+         f"k5_launches={got['k5']} {variant_counter}_launches="
+         f"{got[variant_counter]} wall_s={wall} kmers_per_s={total / wall}")
+    if (abs(rel) > 0.15 or total != want_total or got["k5"] != batches
+            or got[variant_counter] != batches):
+        raise AssertionError(f"card {label}: estimate {est} not within 15% "
+                             f"of {exact_distinct}, or total/launches wrong")
 
 
 def build_all() -> None:
@@ -1390,7 +1749,8 @@ def main(argv=None) -> int:
     _say(f"d2h_link_probe_GBps={d2h_gbps(dev)} (device_merge=\"auto\" is on "
          "below 0.5, mode=\"auto\" dense below 5)")
 
-    # phases 2-3, 7-8, 13 and 16-17: each kernel against its plain version
+    # phases 2-3, 7-8, 13, 16-17 and 20: each kernel against its plain
+    # version
     k1 = phase_kernel(dev, args.seed)
     k3 = phase_gapped_kernel(dev, args.seed)
     k4 = phase_compact_kernel(dev, args.seed)
@@ -1398,6 +1758,7 @@ def main(argv=None) -> int:
     k6 = phase_sort_kernel(dev, args.seed)
     k7 = phase_extract_kernel(dev, args.seed)
     k2a, k2b, k2c = phase_grouped_kernels(dev, args.seed)
+    wide = phase_wide_kernels(dev, args.seed)
 
     # phases 4-6, 9-12, 14-15 and 18-19: the paths end to end, each
     # kernel's count set to 0 just before its path and read just after
@@ -1421,7 +1782,38 @@ def main(argv=None) -> int:
         phase_card(dev, path, small, table.num_distinct)
         k2b["launches"], k2c["launches"] = phase_unfused_small(dev, small)
 
-    _say(json.dumps({"kernels": [k1, k2a, k2b, k2c, k3, k4, k5, k6, k7]}))
+        # phases 21-23: keys of 32 to 63 bases and spaced seeds end to end
+        batches = -(-N_READS // KmerConfig().batch_reads)
+        wide_cfg = KmerConfig(k=WIDE_K, canonical=True)
+        k55, k55_table = phase_wide_end_to_end(dev, path, small, "k55",
+                                               wide_cfg, [
+            ("sort", {}, {}, {"k1_wide": batches}),
+            ("compact", {}, dict(compact=True),
+             {"k1_wide": batches, "k4": batches}),
+            ("device_merge", {}, dict(device_merge="on"),
+             {"k1_wide": batches, "k6": -1}),
+            ("legacy", dict(KMER_TPU_STEP="legacy", KMER_TPU_GROUPED="hybrid"),
+             {}, {"k7_wide": batches, "k2a": batches, "k1": 0})])
+        spaced_cfg = KmerConfig(seed_mask=WIDE_MASK, canonical=True)
+        sp, sp_table = phase_wide_end_to_end(dev, path, small, "spaced",
+                                             spaced_cfg, [
+            ("sort", {}, {}, {"k1_spaced": batches}),
+            ("device_merge", {}, dict(device_merge="on"),
+             {"k1_spaced": batches, "k6": -1}),
+            ("sort_group_keys=0", {}, dict(sort_group_keys=0),
+             {"k7_spaced": batches, "k6": batches, "k1": 0})])
+        phase_wide_card(dev, path, f"k={WIDE_K}", wide_cfg,
+                        k55_table.num_distinct, "k1_wide")
+        phase_wide_card(dev, path, f"seed_mask={WIDE_MASK}", spaced_cfg,
+                        sp_table.num_distinct, "k1_spaced")
+    k1w, k7w, k1s, k7s = wide
+    k1w["launches"], k7w["launches"] = (k55["sort"]["k1_wide"],
+                                        k55["legacy"]["k7_wide"])
+    k1s["launches"], k7s["launches"] = (sp["sort"]["k1_spaced"],
+                                        sp["sort_group_keys=0"]["k7_spaced"])
+
+    _say(json.dumps({"kernels": [k1, k1w, k1s, k2a, k2b, k2c, k3, k4, k5, k6,
+                                 k7, k7w, k7s]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

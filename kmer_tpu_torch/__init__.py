@@ -2,18 +2,22 @@
 
 A port of kmer_tpu to an NVIDIA H100, one slice at a time; kmer_tpu stays
 beside it as the reference.  Ported so far: sort-mode counting of
-contiguous k-mers, k <= 31, canonical or not, and of the reference's
-gapped L+R chunks, with its byte-exact parity dump; on-device compaction
-(compact=True); the device-resident table (device_merge="on"); dense mode
-(k <= 12); and the HyperLogLog distinct-k-mer estimate.  Native ingest to
-2-bit codes, hand-written Hopper kernels (ops/kernels: fused_extract,
-fused_gapped, compact, histogram, sort), and host aggregation into a
-KmerTable whose keys, TSV and .npz match kmer_tpu's bit for bit.
+contiguous k-mers, k <= 63, and of spaced seeds (seed_mask), canonical or
+not, and of the reference's gapped L+R chunks, with its byte-exact
+parity dump; on-device compaction (compact=True); the device-resident
+table (device_merge="on"); the unfused count step (KMER_TPU_STEP); dense
+mode (k <= 12); and the HyperLogLog distinct-k-mer estimate.  Native
+ingest to 2-bit codes, hand-written Hopper kernels (ops/kernels:
+fused_extract, extract, grouped_count, fused_gapped, compact, histogram,
+sort), and host aggregation into a KmerTable whose keys, TSV and .npz
+match kmer_tpu's bit for bit.
 
     from kmer_tpu_torch import KmerConfig, count_fasta, parity_md5
     table = count_fasta("reads.fasta", k=21, canonical=True, device="cuda")
     same = count_fasta("reads.fasta", k=21, canonical=True,
                        device_merge="on")
+    wide = count_fasta("reads.fasta", k=45, canonical=True)
+    spaced = count_fasta("reads.fasta", seed_mask="1101011")
     chunks = count_fasta("reads.fasta", KmerConfig(gapped=True))
     assert parity_md5("tests/data/sample.fasta") == SAMPLE_FASTA_MD5
     [(estimate, total)] = estimate_distinct_multi_k("reads.fasta", [21],

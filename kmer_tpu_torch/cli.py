@@ -58,6 +58,11 @@ def main(argv: list[str] | None = None) -> int:
                     help="gapped minimum chunk span")
     pc.add_argument("--c-max", type=int, default=140,
                     help="gapped maximum chunk span")
+    pc.add_argument("--seed-mask", default=None,
+                    help="spaced seed: 0/1 match mask (e.g. 1101011); the "
+                         "key is the bases at the '1' offsets per window "
+                         "(-k is then ignored; canonical needs a "
+                         "palindromic mask)")
     pc.add_argument("--compact", action="store_true",
                     help="on-device compaction: device->host transfer "
                          "scales with distinct k-mers (sort mode)")
@@ -130,6 +135,8 @@ def _add_device(p) -> None:
 def _count(args) -> int:
     from .config import KmerConfig
     from .pipeline.count import count_files
+    if args.gapped and args.seed_mask:
+        raise ValueError("--seed-mask and --gapped are exclusive")
     if args.gapped and args.canonical:
         raise ValueError("--canonical applies to contiguous k-mers (gapped "
                          "chunks have no reverse-complement contract)")
@@ -143,8 +150,10 @@ def _count(args) -> int:
                          max_read_len=max(args.max_read_len, args.c_max),
                          **kw)
     else:
+        span = len(args.seed_mask) if args.seed_mask else args.k
         cfg = KmerConfig(k=args.k, canonical=args.canonical, mode=args.mode,
-                         max_read_len=max(args.max_read_len, args.k), **kw)
+                         max_read_len=max(args.max_read_len, span),
+                         seed_mask=args.seed_mask, **kw)
     table = count_files(args.fasta, cfg, device=args.device)
     if args.min_count > 1 or args.max_count is not None:
         table = table.filter_count_range(args.min_count, args.max_count)

@@ -2,8 +2,9 @@
 
 Same field names and defaults as kmer_tpu.config.KmerConfig, so a config
 written for one package reads the same in the other.  The options this
-port does not carry yet raise NotImplementedError naming the ROADMAP
-item that ports them.
+port does not carry yet (keys over 63 bases, gapped windows over 31
+bases) raise NotImplementedError naming the ROADMAP item that ports
+them.
 """
 
 from __future__ import annotations
@@ -11,7 +12,8 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
-from .ops.encode import MAX_K, words_per_key
+from .ops.encode import HI_BASES, MAX_K, words_per_key
+from .ops.extract import check_window, parse_seed_mask
 from .utils.linkspeed import dense_auto_ok
 
 
@@ -53,6 +55,10 @@ class KmerConfig:
     # FASTQ: mask bases below this Phred+33 quality to the ambiguous
     # code (requires skip_invalid)
     min_qual: int = 0
+    # spaced seed: a 0/1 match mask ("1101011"); the key of each window
+    # of span len(mask) is the bases at the '1' offsets (k is ignored).
+    # Sort mode, not compact, not gapped; canonical needs a palindromic
+    # mask
     seed_mask: str | None = None
     stats: bool = False                     # per-batch JSONL stats to stderr
 
@@ -91,23 +97,46 @@ class KmerConfig:
                              f"(<= 111 bases; got {self.n_bases})")
         if self.compact and self.mode == "dense":
             raise ValueError("compact applies to sort mode")
-        if self.gapped and max(self.l_len, self.r_len) > MAX_K:
-            raise _not_ported(f"gapped l_len/r_len > {MAX_K}",
+        if self.gapped and max(self.l_len, self.r_len) > HI_BASES:
+            raise _not_ported(f"gapped l_len/r_len > {HI_BASES}",
                               "15 (gapped windows over 31 bases)")
         if self.seed_mask is not None:
-            raise _not_ported("seed_mask", "8 (spaced seeds)")
-        if not self.gapped and self.k > MAX_K:
+            self._check_seed_mask()
+        elif not self.gapped and self.k > MAX_K:
             raise _not_ported(f"k={self.k} > {MAX_K}",
-                              "5 (two-word int64 keys, 32 <= k <= 63)")
+                              "18 (keys over 63 bases)")
+
+    def _check_seed_mask(self) -> None:
+        """kmer_tpu's spaced-seed checks (kmer_tpu/config.py:127-146)."""
+        pos = parse_seed_mask(self.seed_mask)        # raises on a bad mask
+        check_window(len(pos), pos, self.canonical)
+        if self.gapped:
+            raise ValueError("seed_mask and gapped are exclusive")
+        if self.effective_mode != "sort":
+            raise ValueError("seed_mask requires sort mode")
+        if self.compact:
+            raise ValueError("seed_mask does not support compact")
 
     @property
     def n_bases(self) -> int:
-        """Bases per key (the key width): l_len + r_len gapped, else k."""
+        """Bases per key (the key width): the seed mask's popcount,
+        l_len + r_len gapped, else k."""
+        if self.seed_mask is not None:
+            return self.seed_mask.count("1")
         return (self.l_len + self.r_len) if self.gapped else self.k
+
+    @property
+    def seed_positions(self) -> tuple[int, ...] | None:
+        """The seed mask's match offsets, or None for contiguous keys."""
+        if self.seed_mask is None:
+            return None
+        return parse_seed_mask(self.seed_mask)
 
     @property
     def window_span(self) -> int:
         """Longest window the extractor needs in one batch row."""
+        if self.seed_mask is not None:
+            return len(self.seed_mask)
         return self.c_max if self.gapped else self.k
 
     @property
@@ -124,7 +153,8 @@ class KmerConfig:
         else sort.  The two modes give the same table."""
         if self.mode != "auto":
             return self.mode
-        if self.compact or self.gapped or self.k > 8:
+        if (self.compact or self.gapped or self.seed_mask is not None
+                or self.k > 8):
             return "sort"
         return "dense" if dense_auto_ok() else "sort"
 

@@ -27,9 +27,10 @@
 // pass a thread owns ITEMS = 16 consecutive lanes, so its counts arrive
 // in one 16-byte load.  Records are written in the layout the host
 // aggregation takes (pipeline/table.reduce_fused): a k <= 31 key as it
-// is; a gapped pair (hi, lo) as its value hi * 4^r_len + lo, one uint64
-// when it fits 63 bits, else the two uint64 halves [vhi, vlo].  Counts
-// widen to int64.
+// is; a pair (hi, lo) -- gapped, or a key of 32 to 63 bases -- as its
+// value hi * 4^r_len + lo, one uint64 when it fits 63 bits, else the two
+// uint64 halves [vhi, vlo]; at r_len = 32 (s = 64) those are hi and lo
+// with its stored top-bit flip taken off.  Counts widen to int64.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -91,7 +92,8 @@ compact_count_kernel(const C* __restrict__ counts, int64_t n,
 
 // mode 0: one int64 key plane, written as it is;
 // mode 1: gapped (hi, lo) written as the one-word value (hi << s) | lo;
-// mode 2: gapped (hi, lo) written as [hi >> (64 - s), (hi << s) | lo]
+// mode 2: gapped (hi, lo) written as [hi >> (64 - s), (hi << s) | lo],
+//         or [hi, lo ^ 2^63] at s = 64
 template <typename C>
 __global__ void __launch_bounds__(THREADS)
 compact_scatter_kernel(const int64_t* __restrict__ key0,
@@ -135,12 +137,14 @@ compact_scatter_kernel(const int64_t* __restrict__ key0,
         out_keys[r] = k0;
       } else {
         const uint64_t hi = (uint64_t)k0, lo = (uint64_t)__ldg(key1 + i);
-        const uint64_t vlo = (hi << s) | lo;
-        if (mode == 1) {
-          out_keys[r] = (int64_t)vlo;
+        if (s == 64) {
+          out_keys[2 * r] = (int64_t)hi;
+          out_keys[2 * r + 1] = (int64_t)(lo ^ (1ull << 63));
+        } else if (mode == 1) {
+          out_keys[r] = (int64_t)((hi << s) | lo);
         } else {
           out_keys[2 * r] = (int64_t)(hi >> (64 - s));
-          out_keys[2 * r + 1] = (int64_t)vlo;
+          out_keys[2 * r + 1] = (int64_t)((hi << s) | lo);
         }
       }
       out_counts[r] = c;
@@ -172,7 +176,8 @@ int compact_rows(const int64_t* key0, const int64_t* key1, const C* counts,
 // (count_bytes 1) or int32 (count_bytes 4), 16-byte aligned; block_live:
 // ceil(n / 4096) int32 scratch; out_keys: n (modes 0, 1) or 2n (mode 2)
 // int64; out_counts: n int64; total: one int64.  s = 2 * r_len in [2, 62]
-// for modes 1, 2.  Returns the first failing launch's cudaError_t, or 0.
+// for mode 1, [2, 64] for mode 2.  Returns the first failing launch's
+// cudaError_t, or 0.
 extern "C" int compact_launch(const int64_t* key0, const int64_t* key1,
                               const void* counts, int count_bytes, int64_t n,
                               int32_t* block_live, int mode, int s,
@@ -182,7 +187,7 @@ extern "C" int compact_launch(const int64_t* key0, const int64_t* key1,
   const int64_t tiles = (n + TILE - 1) / TILE;
   if (n < 1 || tiles > 0x7FFFFFFF || mode < 0 || mode > 2 ||
       (count_bytes != 1 && count_bytes != 4) ||
-      (mode != 0 && (s < 2 || s > 62 || key1 == nullptr)) ||
+      (mode != 0 && (s < 2 || s > (mode == 2 ? 64 : 62) || key1 == nullptr)) ||
       (reinterpret_cast<uintptr_t>(counts) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -3,103 +3,112 @@
 //
 // Replaces the TPU kernel kmer_tpu/ops/pallas/fused_extract.py `_kernel`
 // (entry fused_extract_count_T) and the collapse it inlines,
-// kmer_tpu/ops/pallas/fused_count.py `_dedup_runlen`.
+// kmer_tpu/ops/pallas/fused_count.py `_dedup_runlen`: contiguous keys of 1
+// to 63 bases (the TPU kernel's doubling and banded-matmul extractions
+// `_mxu_extract` and `_mxu_extract_shared`) and spaced seeds
+// (`positions`).
 //
-// What bounds it: memory.  Each output lane costs an 8-byte key and a
-// 1-byte count store; the input is L/4 bytes of packed codes per row
-// (L bytes for u8 rows); the arithmetic is a few integer ops per base.
+// What bounds it: memory.  Each output lane costs an 8-byte key (16 for a
+// (hi, lo) pair) and a 1-byte count store; the input is L/4 bytes of
+// packed codes per row (L bytes for u8 rows); the arithmetic is a few
+// integer ops per base.
 //
 // Design: one thread walks CHUNK consecutive window starts of one row.
-// It keeps a rolling forward value and a rolling reverse complement in
-// 64-bit registers, each updated in O(1) per base, where the TPU kernel
+// A contiguous window keeps a rolling forward value and a rolling reverse
+// complement (kmer_window.cuh Roll; 64-bit registers up to 31 bases,
+// 128-bit beyond), each updated in O(1) per base, where the TPU kernel
 // builds every window at once with O(log k) doubling tables or banded
-// matmuls because its vector lanes carry no state along a sequence.
-// Neighbouring threads take neighbouring rows, so a warp's store of
-// keys[o, b .. b+31] is one contiguous 256-byte run: the output is
-// position-major (P_pad, B), the TPU kernel's layout.  The collapse runs
-// over the SEG keys of a segment held in registers; SEG is a template
-// parameter, so the loops unroll and the register array is indexed
-// statically.  Splitting each row into CHUNK-sized pieces (each primed
-// with the k-1 bases before it) gives ceil(P_pad / CHUNK) times more
-// threads than one thread per row.
+// matmuls because its vector lanes carry no state along a sequence.  A
+// spaced window gathers its n selected bases, O(n) loads a window from L1,
+// the offsets broadcast from shared memory; don't-care bases are never
+// read, so they poison no window.  Neighbouring threads take neighbouring
+// rows, so a warp's store of keys[o, b .. b+31] is one contiguous 256-byte
+// run: the output is position-major (P_pad, B), the TPU kernel's layout.
+// The collapse runs over the SEG keys of a segment held in registers,
+// comparing both words of a pair; SEG is a template parameter, so the
+// loops unroll and the register array is indexed statically.  Splitting
+// each row into CHUNK-sized pieces (each primed with the n - 1 bases
+// before it) gives ceil(P_pad / CHUNK) times more threads than one thread
+// per row.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "kmer_window.cuh"
 
 namespace {
 
 constexpr int CHUNK = 32;      // window starts per thread; every SEG divides it
 constexpr int THREADS = 128;
-constexpr int64_t SENTINEL = 0x7FFFFFFFFFFFFFFFLL;
 
-template <int SEG, bool PACKED, bool CANON>
+template <typename KEY, int SEG, bool PACKED, bool CANON, bool SPACED>
 __global__ void __launch_bounds__(THREADS)
 fused_extract_kernel(const void* __restrict__ codes, int row_stride,
                      const int32_t* __restrict__ lengths,
                      const int32_t* __restrict__ limits,
-                     int64_t* __restrict__ keys, int8_t* __restrict__ counts,
-                     int B, int L, int k, int P, int P_pad, int mask_amb) {
+                     int64_t* __restrict__ keys_hi,
+                     int64_t* __restrict__ keys_lo,
+                     int8_t* __restrict__ counts, int B, int L, int n,
+                     int span, int P, int P_pad, int mask_amb,
+                     kmer::Offsets off) {
+  constexpr bool TWO = kmer::TWO_WORDS<KEY>;
+  __shared__ int16_t pos[SPACED ? kmer::MAX_BASES : 1];
+  if constexpr (SPACED) {
+    if (threadIdx.x < n) pos[threadIdx.x] = off.at[threadIdx.x];
+    __syncthreads();
+  }
   const int b = blockIdx.x * THREADS + threadIdx.x;
   if (b >= B) return;
   const int o0 = blockIdx.y * CHUNK;
   const int o_end = min(o0 + CHUNK, P_pad);
-  // window o is valid iff o < P, o <= len - k, o < limit, no ambiguous base
-  const int o_hi = min(min(P, lengths[b] - k + 1), limits[b]);
+  // window o is valid iff o < P, o <= len - span, o < limit, no ambiguous
+  // base among its key's bases
+  const int o_hi = min(min(P, lengths[b] - span + 1), limits[b]);
+  const void* row = static_cast<const char*>(codes) +
+                    (size_t)b * row_stride * (PACKED ? 4 : 1);
+  kmer::RowReader<PACKED> reader(row, L, mask_amb);
+  kmer::Roll<KEY> roll(n);
 
-  const uint64_t mask = (1ull << (2 * k)) - 1;
-  const int rc_shift = 2 * k - 2;
-  uint64_t fw = 0, rc = 0;
-  int last_amb = -1;
-  uint32_t word = 0;
-  const uint32_t* prow =
-      static_cast<const uint32_t*>(codes) + (size_t)b * row_stride;
-  const uint8_t* urow =
-      static_cast<const uint8_t*>(codes) + (size_t)b * row_stride;
-
-  // append base q (q runs up from o0, a multiple of 16); bases past the
-  // row width read as 0 -- only windows o >= P, all invalid, see them
-  auto push = [&](int q) {
-    uint32_t c = 0;
-    if (q < L) {
-      if constexpr (PACKED) {
-        if ((q & 15) == 0) word = __ldg(prow + (q >> 4));
-        c = (word >> (30 - 2 * (q & 15))) & 3u;
-      } else {
-        c = __ldg(urow + q);
-        if (c >= 4u) {
-          if (mask_amb) last_amb = q;
-          c &= 3u;
-        }
-      }
-    }
-    fw = ((fw << 2) | c) & mask;
-    if constexpr (CANON) rc = (rc >> 2) | ((uint64_t)(3u - c) << rc_shift);
-  };
-
-  for (int q = o0; q < o0 + k - 1; ++q) push(q);
+  if constexpr (!SPACED)
+    for (int q = o0; q < o0 + n - 1; ++q)
+      roll.template push<CANON>(reader.next(q));
   for (int s = o0; s < o_end; s += SEG) {
-    int64_t kk[SEG];
+    int64_t kh[SEG], kl[SEG];
 #pragma unroll
     for (int j = 0; j < SEG; ++j) {
       const int o = s + j;
-      push(o + k - 1);
-      uint64_t v = fw;
-      if constexpr (CANON) v = rc < v ? rc : v;
-      kk[j] = (o < o_hi && last_amb < o) ? (int64_t)v : SENTINEL;
-      keys[(size_t)o * B + b] = kk[j];
+      bool ok = o < o_hi;
+      KEY v;
+      if constexpr (SPACED) {
+        bool amb;
+        v = kmer::gather_key<KEY, PACKED, CANON>(row, o, pos, n, L, amb);
+        ok = ok && !(mask_amb && amb);
+      } else {
+        roll.template push<CANON>(reader.next(o + n - 1));
+        v = roll.template key<CANON>();
+        ok = ok && reader.last_amb < o;
+      }
+      if (ok) {
+        kmer::split_key(v, n, kh[j], kl[j]);
+      } else {
+        kh[j] = kl[j] = kmer::SENTINEL;
+      }
+      keys_hi[(size_t)o * B + b] = kh[j];
+      if constexpr (TWO) keys_lo[(size_t)o * B + b] = kl[j];
     }
     // count on the first occurrence: itself + equal keys later in the
     // segment; later duplicates and sentinels get 0
 #pragma unroll
     for (int i = 0; i < SEG; ++i) {
       int cnt = 0;
-      if (kk[i] != SENTINEL) {
+      if (kh[i] != kmer::SENTINEL) {
         bool dup = false;
         cnt = 1;
 #pragma unroll
         for (int j = 0; j < SEG; ++j) {
-          if (j < i) dup |= kk[j] == kk[i];
-          if (j > i) cnt += kk[j] == kk[i];
+          const bool eq = kh[j] == kh[i] && (!TWO || kl[j] == kl[i]);
+          if (j < i) dup |= eq;
+          if (j > i) cnt += eq;
         }
         if (dup) cnt = 0;
       }
@@ -108,50 +117,64 @@ fused_extract_kernel(const void* __restrict__ codes, int row_stride,
   }
 }
 
-template <int SEG>
-void launch_seg(dim3 grid, cudaStream_t st, bool packed, bool canon,
-                const void* codes, int row_stride, const int32_t* lengths,
-                const int32_t* limits, int64_t* keys, int8_t* counts, int B,
-                int L, int k, int P, int P_pad, int mask_amb) {
-#define KMER_LAUNCH(PK, CN)                                                \
-  fused_extract_kernel<SEG, PK, CN><<<grid, THREADS, 0, st>>>(             \
-      codes, row_stride, lengths, limits, keys, counts, B, L, k, P, P_pad, \
-      mask_amb)
-  if (packed && canon) KMER_LAUNCH(true, true);
-  else if (packed) KMER_LAUNCH(true, false);
-  else if (canon) KMER_LAUNCH(false, true);
-  else KMER_LAUNCH(false, false);
-#undef KMER_LAUNCH
-}
+// one batch's launch arguments; kmer::dispatch picks the template
+// arguments of run, and run the segment width
+struct Launch {
+  dim3 grid;
+  cudaStream_t st;
+  const void* codes;
+  int row_stride;
+  const int32_t *lengths, *limits;
+  int64_t *keys_hi, *keys_lo;
+  int8_t* counts;
+  int B, L, n, span, P, P_pad, mask_amb, seg;
+  kmer::Offsets off;
+
+  template <typename KEY, int SEG, bool PACKED, bool CANON, bool SPACED>
+  void go() const {
+    fused_extract_kernel<KEY, SEG, PACKED, CANON, SPACED>
+        <<<grid, THREADS, 0, st>>>(codes, row_stride, lengths, limits,
+                                   keys_hi, keys_lo, counts, B, L, n, span,
+                                   P, P_pad, mask_amb, off);
+  }
+  template <typename KEY, bool PACKED, bool CANON, bool SPACED>
+  void run() const {
+    switch (seg) {
+      case 2: go<KEY, 2, PACKED, CANON, SPACED>(); break;
+      case 4: go<KEY, 4, PACKED, CANON, SPACED>(); break;
+      case 8: go<KEY, 8, PACKED, CANON, SPACED>(); break;
+      case 16: go<KEY, 16, PACKED, CANON, SPACED>(); break;
+    }
+  }
+};
 
 }  // namespace
 
 // codes: (B, row_stride) int32 words of 16 packed bases (packed != 0) or
-// (B, row_stride) uint8 codes; lengths/limits: (B,) int32; keys: (P_pad,
-// B) int64; counts: (P_pad, B) int8.  Returns the launch's cudaError_t.
+// (B, row_stride) uint8 codes (code >= 4 ambiguous); lengths/limits: (B,)
+// int32.  A key of n bases: contiguous (positions == nullptr, span = n) or
+// a spaced seed's bases at window offsets positions[0 .. n) (host memory,
+// checked by the caller: ascending, positions[0] = 0, span = positions[n -
+// 1] + 1).  keys_hi: (P_pad, B) int64, the key for n <= 31, else the hi
+// word of the pair whose lo word is keys_lo, (P_pad, B) int64 (unused for
+// n <= 31); counts: (P_pad, B) int8; seg 2, 4, 8 or 16 divides P_pad.
+// Returns the launch's cudaError_t.
 extern "C" int fused_extract_count_launch(
     const void* codes, int packed, int row_stride, const int32_t* lengths,
-    const int32_t* limits, int64_t* keys, int8_t* counts, int B, int L, int k,
-    int P, int P_pad, int canonical, int mask_amb, int seg, void* stream) {
-  if (k < 1 || k > 31 || B < 1 || P < 1 || P_pad % seg != 0 ||
-      (P_pad + CHUNK - 1) / CHUNK > 65535)
+    const int32_t* limits, int64_t* keys_hi, int64_t* keys_lo, int8_t* counts,
+    int B, int L, int n, int span, int P, int P_pad, int canonical,
+    int mask_amb, int seg, const int32_t* positions, void* stream) {
+  if (n < 1 || n > kmer::MAX_BASES || B < 1 || P < 1 || P != L - span + 1 ||
+      (seg != 2 && seg != 4 && seg != 8 && seg != 16) || P_pad % seg != 0 ||
+      (P_pad + CHUNK - 1) / CHUNK > 65535 ||
+      (positions == nullptr && span != n) ||
+      (n > kmer::HI_BASES && keys_lo == nullptr))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((B + THREADS - 1) / THREADS, (P_pad + CHUNK - 1) / CHUNK);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (seg) {
-    case 2: launch_seg<2>(grid, st, packed, canonical, codes, row_stride,
-                          lengths, limits, keys, counts, B, L, k, P, P_pad,
-                          mask_amb); break;
-    case 4: launch_seg<4>(grid, st, packed, canonical, codes, row_stride,
-                          lengths, limits, keys, counts, B, L, k, P, P_pad,
-                          mask_amb); break;
-    case 8: launch_seg<8>(grid, st, packed, canonical, codes, row_stride,
-                          lengths, limits, keys, counts, B, L, k, P, P_pad,
-                          mask_amb); break;
-    case 16: launch_seg<16>(grid, st, packed, canonical, codes, row_stride,
-                            lengths, limits, keys, counts, B, L, k, P, P_pad,
-                            mask_amb); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const Launch l = {
+      dim3((B + THREADS - 1) / THREADS, (P_pad + CHUNK - 1) / CHUNK),
+      static_cast<cudaStream_t>(stream), codes, row_stride, lengths, limits,
+      keys_hi, keys_lo, counts, B, L, n, span, P, P_pad, mask_amb, seg,
+      kmer::offsets_of(positions, n)};
+  kmer::dispatch(l, n, packed, canonical, positions != nullptr);
   return (int)cudaGetLastError();
 }

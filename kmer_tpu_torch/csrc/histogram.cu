@@ -28,7 +28,10 @@
 // murmur3 finaliser, bucket = the top b hash bits, rho = the leading-zero
 // run of the other 32 - b bits plus one, capped at 31; the bin is
 // bucket * 32 + rho.  On native uint32_t this is the TPU's wrap-around
-// arithmetic bit for bit.
+// arithmetic bit for bit.  MODE 2 is MODE 1 for keys of 32 to 63 bases:
+// each is loaded as its (hi, lo) pair (kmer_tpu_torch/ops/encode.py) and
+// becomes its 2k-bit value hi * 4^(k - 31) + lo in a 128-bit register,
+// whose 3 or 4 words are hashed.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -47,11 +50,12 @@ __device__ __forceinline__ uint32_t mix32(uint32_t h) {
   return h ^ (h >> 16);
 }
 
-__device__ __forceinline__ int64_t hll_class(uint64_t v, int two_words,
-                                             int b) {
-  uint32_t h = 0x9E3779B9u;
-  if (two_words) h = mix32((h ^ (uint32_t)(v >> 32)) * 0x01000193u + 0x811C9DC5u);
-  h = mix32((h ^ (uint32_t)v) * 0x01000193u + 0x811C9DC5u);
+__device__ __forceinline__ uint32_t combine(uint32_t h, uint32_t word) {
+  return mix32((h ^ word) * 0x01000193u + 0x811C9DC5u);
+}
+
+// the bin of a key's hash h
+__device__ __forceinline__ int64_t hll_bin(uint32_t h, int b) {
   const int width = 32 - b;                       // 21 <= width <= 31
   const uint32_t tail = h & ((1u << width) - 1u);
   const int rho = min(width - (32 - __clz(tail)) + 1, 31);
@@ -61,8 +65,9 @@ __device__ __forceinline__ int64_t hll_class(uint64_t v, int two_words,
 template <int MODE>
 __global__ void __launch_bounds__(THREADS)
 histogram_kernel(const int64_t* __restrict__ keys,
+                 const int64_t* __restrict__ keys_lo,
                  const int8_t* __restrict__ weights, int64_t n, int bits,
-                 int two_words, int b,
+                 int n_words, int lo_bits, int b,
                  unsigned long long* __restrict__ hist) {
   extern __shared__ int32_t bins[];
   const int64_t lo = (int64_t)blockIdx.y * SLICE;
@@ -80,8 +85,19 @@ histogram_kernel(const int64_t* __restrict__ keys,
     int64_t idx;
     if constexpr (MODE == 0) {
       idx = key;                                  // out of range: dropped
-    } else {
-      idx = hll_class((uint64_t)key, two_words, b);
+    } else if constexpr (MODE == 1) {
+      uint32_t h = 0x9E3779B9u;
+      if (n_words == 2) h = combine(h, (uint32_t)((uint64_t)key >> 32));
+      idx = hll_bin(combine(h, (uint32_t)key), b);
+    } else {                               // (hi, lo): the 2k-bit value
+      uint64_t lo = (uint64_t)__ldg(keys_lo + i);
+      if (lo_bits == 64) lo ^= 1ull << 63;     // the stored flip
+      const unsigned __int128 v =
+          ((unsigned __int128)(uint64_t)key << lo_bits) | lo;
+      uint32_t h = 0x9E3779B9u;
+      for (int j = n_words - 1; j >= 0; --j)
+        h = combine(h, (uint32_t)(v >> (32 * j)));
+      idx = hll_bin(h, b);
     }
     idx -= lo;
     if (idx >= 0 && idx < nb) atomicAdd(&bins[idx], w);
@@ -96,8 +112,9 @@ histogram_kernel(const int64_t* __restrict__ keys,
 }
 
 template <int MODE>
-int launch(const int64_t* keys, const int8_t* weights, int64_t n, int bits,
-           int two_words, int b, unsigned long long* hist, cudaStream_t st) {
+int launch(const int64_t* keys, const int64_t* keys_lo, const int8_t* weights,
+           int64_t n, int bits, int n_words, int lo_bits, int b,
+           unsigned long long* hist, cudaStream_t st) {
   const int64_t n_bins = 1LL << bits;
   const int slices = (int)((n_bins + SLICE - 1) / SLICE);
   const int nb = (int)(n_bins < SLICE ? n_bins : SLICE);
@@ -112,7 +129,8 @@ int launch(const int64_t* keys, const int8_t* weights, int64_t n, int bits,
       (int)(SLICE * sizeof(int32_t)));
   if (err != cudaSuccess) return (int)err;
   histogram_kernel<MODE><<<dim3((unsigned)blocks, slices), THREADS, smem,
-                           st>>>(keys, weights, n, bits, two_words, b, hist);
+                           st>>>(keys, keys_lo, weights, n, bits, n_words,
+                                 lo_bits, b, hist);
   return (int)cudaGetLastError();
 }
 
@@ -121,16 +139,22 @@ int launch(const int64_t* keys, const int8_t* weights, int64_t n, int bits,
 // keys: n int64 (indices, or k-mer keys when hll != 0); weights: n int8;
 // hist: 2^bits int64, accumulated into.  hll != 0: bits = b + 5 with
 // 1 <= b <= 11, and the bin of a key is its HLL class for a k-mer of k
-// bases (1 <= k <= 31).  Returns the launch's cudaError_t.
-extern "C" int histogram_launch(const int64_t* keys, const int8_t* weights,
-                                int64_t n, int bits, int hll, int k, int b,
-                                int64_t* hist, void* stream) {
+// bases: 1 <= k <= 31 keys, or 32 <= k <= 63 (hi, lo) pairs with the lo
+// plane in keys_lo.  Returns the launch's cudaError_t.
+extern "C" int histogram_launch(const int64_t* keys, const int64_t* keys_lo,
+                                const int8_t* weights, int64_t n, int bits,
+                                int hll, int k, int b, int64_t* hist,
+                                void* stream) {
   if (n < 1 || bits < 1 || bits > 16 ||
-      (hll && (b < 1 || b > 11 || bits != b + 5 || k < 1 || k > 31)))
+      (hll && (b < 1 || b > 11 || bits != b + 5 || k < 1 || k > 63 ||
+               (k > 31) != (keys_lo != nullptr))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   unsigned long long* h = reinterpret_cast<unsigned long long*>(hist);
-  const int two_words = (2 * k + 1 + 31) / 32 == 2;
-  return hll ? launch<1>(keys, weights, n, bits, two_words, b, h, st)
-             : launch<0>(keys, weights, n, bits, 0, 0, h, st);
+  const int n_words = (2 * k + 1 + 31) / 32;
+  const int lo_bits = k > 31 ? 2 * (k - 31) : 0;
+  if (!hll) return launch<0>(keys, nullptr, weights, n, bits, 0, 0, 0, h, st);
+  if (k <= 31) return launch<1>(keys, nullptr, weights, n, bits, n_words, 0, b,
+                                h, st);
+  return launch<2>(keys, keys_lo, weights, n, bits, n_words, lo_bits, b, h, st);
 }

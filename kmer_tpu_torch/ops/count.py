@@ -1,7 +1,8 @@
 """Device-side counting primitives shared by the counting pipelines.
 
 Counterpart of kmer_tpu/ops/count.py on int64 word planes: W <= 4 planes
-of equal length (one key of up to 31 bases, or a gapped (hi, lo) pair),
+of equal length (one key of up to 31 bases, or a (hi, lo) pair: gapped,
+or a key of 32 to 63 bases),
 SENTINEL_KEY in every word of a dead lane.  kmer_tpu repacks its uint32
 key words into a sort layout first (repack_words); an int64 key is
 already in sort order, so nothing here repacks.

@@ -2,7 +2,8 @@
 
 Counterpart of kmer_tpu/ops/devmerge.py.  The sort-mode table stays on
 the device between batches as W int64 key words (one key of up to 31
-bases, or a gapped (hi, lo) pair) plus int64 counts, sorted and unique,
+bases, or a (hi, lo) pair: gapped, or a key of 32 to 63 bases) plus
+int64 counts, sorted and unique,
 padded with SENTINEL rows (count 0) that sort after every real key.
 Each group of batches merges into it with one lexicographic sort of
 [key words..., counts] (kernel K6 on a GPU, through ops/count.sort_words),
@@ -22,8 +23,8 @@ needed for the counts' sake (kmer_tpu's int32 counts needed one before
 The drain (fetch_state_wire) reads the table in narrow tiers, as
 kmer_tpu's: key deltas in three u8 planes (u24) or one u32 plane, with u8
 counts and a fixed-size escape patch, for keys whose value fits one int64
-(at most 31 bases); the raw key words and u8 counts for wider gapped
-keys.  It returns exactly what fetch_state returns.
+(at most 31 bases); the raw key words and u8 counts for wider pairs.  It
+returns exactly what fetch_state returns.
 """
 
 from __future__ import annotations
@@ -116,7 +117,12 @@ def grow_state(state_words, state_counts, new_rows: int):
 def max_rows(n_words: int) -> int:
     """Growth budget in rows, a power of two >= 2**16: the state may
     take KMER_TPU_DEVMERGE_MAX_MB (default 1024) of device memory at
-    8 * (W + 1) bytes a row; past it DeviceMerge drains and resets."""
+    8 * (W + 1) bytes a row; past it DeviceMerge drains and resets.
+
+    The budget bounds the state alone.  A merge also holds the pending
+    group (up to C / 2 lanes of step output), the concatenation of state
+    and group and the sort's buffers, so the card's peak is several times
+    the state (chip_smoke.py prints both for every device-merge run)."""
     try:
         mb = float(os.environ.get("KMER_TPU_DEVMERGE_MAX_MB", "1024"))
     except ValueError:
@@ -239,9 +245,9 @@ def fetch_state_wire(state_words, state_counts, distinct: int, *,
                      l_len: int = 0, r_len: int = 0):
     """fetch_state through the narrowest wire tier that fits, or None
     when every tier's escape patch overflows (the caller then takes
-    fetch_state).  A two-word state is a gapped (hi, lo) pair of l_len +
-    r_len bases: deltas of its value when that is at most 31 bases, else
-    the raw words."""
+    fetch_state).  A two-word state is a (hi, lo) pair of l_len + r_len
+    bases (a key of 32 to 63 bases is the pair at l_len = 31): deltas of
+    its value when that is at most 31 bases, else the raw words."""
     d = int(distinct)
     W = len(state_words)
     if d == 0:

@@ -11,16 +11,25 @@ and invalid lanes hold SENTINEL_KEY (INT64_MAX), which sorts after every
 real key (at most 62 bits).  torch has no shifts, compares or `where` on
 uint32/uint64, and int64 has all of them.
 
-A gapped L+R key (l_len + r_len <= 62 bases) is the int64 PAIR (hi, lo):
-hi the l-mer value, lo the r-mer value, SENTINEL_KEY in both on invalid
-lanes.  Lexicographic order on (hi, lo) equals numeric order on the key
-value hi * 4**r_len + lo, so a pair sorts as it stands.
+A wider key is the int64 PAIR (hi, lo), SENTINEL_KEY in both on invalid
+lanes:
+- a gapped L+R key (l_len, r_len <= 31): hi the l-mer value, lo the
+  r-mer value;
+- a contiguous or spaced key of 32 <= n <= 63 bases: hi the value of its
+  first HI_BASES = 31 bases, lo the value of the last r_len = n - 31, so
+  it is the gapped pair at l_len = 31.
+Lexicographic order on (hi, lo) equals numeric order on the key value
+hi * 4**r_len + lo, and a real hi (at most 62 bits) never equals the
+sentinel.  At r_len = 32 lo holds 64 value bits; it is stored with its
+top bit flipped (lo ^ LO_FLIP), so that signed int64 order on lo is the
+unsigned order of its bits.  pairs_to_value and value_to_pair take the
+flip off and put it back.
 
 The table layer keeps the (M, W) uint32 most-significant-first word
 layout, W = words_per_key(n_bases) (one spare bit above the value bits),
 so tables, TSV and .npz files are the same in every package that uses
 it.  keys_i64_to_u32 / keys_u32_to_i64 (one int64) and
-pairs_to_u32 / u32_to_pairs (gapped pairs) convert exactly.
+pairs_to_u32 / u32_to_pairs (pairs) convert exactly.
 """
 
 from __future__ import annotations
@@ -32,8 +41,11 @@ BASE_ORDER = "ACGT"
 AMBIG_CODE = np.uint8(4)          # N / IUPAC codes in skip-invalid mode
 SENTINEL_KEY = np.iinfo(np.int64).max
 SENTINEL_WORD = np.uint32(0xFFFFFFFF)
-MAX_K = 31                        # one int64 key word (kernel K1)
+MAX_K = 63                        # contiguous and spaced keys (K1, K7)
+HI_BASES = 31                     # bases of one int64 key word; a pair's hi
 MAX_KEY_BASES = 63                # the table layer: W <= 4 uint32 words
+LO_FLIP = -(1 << 63)              # lo's top bit, flipped when r_len == 32
+_FLIP_U64 = np.uint64(1 << 63)
 
 _LUT = np.full(256, 255, dtype=np.uint8)
 for _i, _b in enumerate(BASE_ORDER):
@@ -63,12 +75,33 @@ def check_key_width(n_bases: int) -> None:
 
 
 def check_k(k: int) -> None:
-    """Contiguous keys wider than one int64 word are not ported yet."""
+    """Contiguous (and spaced) keys take 1 to 63 bases: one int64 up to
+    31, an int64 (hi, lo) pair up to 63."""
     if not 1 <= k <= MAX_K:
         raise NotImplementedError(
-            f"k={k}: only 1 <= k <= {MAX_K} (one int64 key word) is "
-            "ported; two-word keys are ROADMAP Queue 1 item 5 (two-word "
-            "int64 keys, 32 <= k <= 63)")
+            f"k={k}: only 1 <= k <= {MAX_K} (an int64 key or (hi, lo) "
+            "pair) is ported; keys over 63 bases are ROADMAP Queue 1 item "
+            "18 (keys over 63 bases)")
+
+
+def check_one_word(k: int) -> None:
+    """Keys of at most HI_BASES bases: one int64 value."""
+    check_k(k)
+    if k > HI_BASES:
+        raise ValueError(f"k={k}: keys over {HI_BASES} bases are (hi, lo) "
+                         "pairs (pairs_to_u32 / u32_to_pairs)")
+
+
+def key_planes(keys) -> tuple:
+    """Keys of one layout as a tuple of int64 planes: (keys,) or (hi, lo)."""
+    return keys if isinstance(keys, tuple) else (keys,)
+
+
+def pair_r_len(n_bases: int) -> int:
+    """lo's bases in the (hi, lo) pair of a contiguous or spaced key of
+    32 <= n_bases <= 63; 0 for a key of one int64."""
+    check_k(n_bases)
+    return max(n_bases - HI_BASES, 0)
 
 
 def encode_seq(seq: str | bytes, allow_ambiguous: bool = False) -> np.ndarray:
@@ -167,7 +200,7 @@ def keys_i64_to_u32(keys: np.ndarray, k: int) -> np.ndarray:
     """(M,) int64 keys -> (M, W) uint32 most-significant-first words.
     SENTINEL_KEY maps to all-0xFFFFFFFF words.  For k = 16 the top word
     is empty (W = 2 because of the spare sentinel bit)."""
-    check_k(k)
+    check_one_word(k)
     keys = np.ascontiguousarray(keys, dtype=np.int64).reshape(-1)
     u = keys.view(np.uint64)
     sent = keys == SENTINEL_KEY
@@ -184,7 +217,7 @@ def keys_i64_to_u32(keys: np.ndarray, k: int) -> np.ndarray:
 def keys_u32_to_i64(words: np.ndarray, k: int) -> np.ndarray:
     """(M, W) uint32 most-significant-first words -> (M,) int64 keys;
     all-0xFFFFFFFF (sentinel) rows map to SENTINEL_KEY."""
-    check_k(k)
+    check_one_word(k)
     words = np.asarray(words, dtype=np.uint32)
     W = words_per_key(k)
     if words.ndim != 2 or words.shape[1] != W:
@@ -197,14 +230,33 @@ def keys_u32_to_i64(words: np.ndarray, k: int) -> np.ndarray:
     return np.where(sent, SENTINEL_KEY, v.view(np.int64))
 
 
-def words_from_tpu_repacked(rwords, n_bases: int) -> np.ndarray:
-    """kmer_tpu's repacked uint32 sort-layout words of keys of n_bases
-    <= 31 bases (kmer_tpu/ops/count.py repack_words) -> int64 keys of the
-    same shape, SENTINEL_KEY on invalid lanes.  The layout: W = 1, the
-    key word as it is; else s = 2 * n_bases - 32 bits, and for s > 0 the
-    top 32 key bits in word 0 and the s low bits in word 1, for s = 0
-    (16 bases) the low 32 key bits in word 0 and a 0 flag in word 1;
-    word W - 1 is SENTINEL_WORD on invalid lanes."""
+def _shl128(vhi, vlo, n: int):
+    """(vhi, vlo) uint64 halves of a 128-bit value shifted left by 0 < n <
+    64."""
+    n = np.uint64(n)
+    return (vhi << n) | (vlo >> (np.uint64(64) - n)), vlo << n
+
+
+def _bits32(vhi, vlo, p: int):
+    """Bits [p, p + 32) of 128-bit values as uint32, 0 <= p <= 96."""
+    if p >= 64:
+        return (vhi >> np.uint64(p - 64)).astype(np.uint32)
+    if p == 0:
+        return vlo.astype(np.uint32)
+    return ((vlo >> np.uint64(p))
+            | (vhi << np.uint64(64 - p))).astype(np.uint32)
+
+
+def words_from_tpu_repacked(rwords, n_bases: int):
+    """kmer_tpu's repacked uint32 sort-layout words (kmer_tpu/ops/count.py
+    repack_words; fused_extract.py _chunks_to_repacked) -> this port's
+    keys of the same shape: int64 keys for n_bases <= 31, the (hi, lo)
+    int64 pair beyond; SENTINEL_KEY on invalid lanes.  The layout: W = 1,
+    the key word as it is; else s = 2 * n_bases - 32 (W - 1) bits, words
+    0 .. W - 2 hold the key's top 32 (W - 1) bits and word W - 1 its s
+    low bits, or, for s = 0 (16, 32 and 48 bases), words 0 .. W - 2 hold
+    the whole key and word W - 1 is a 0 flag; word W - 1 is SENTINEL_WORD
+    on invalid lanes."""
     check_k(n_bases)
     W = words_per_key(n_bases)
     rw = [np.asarray(w, dtype=np.uint32) for w in rwords]
@@ -212,25 +264,49 @@ def words_from_tpu_repacked(rwords, n_bases: int) -> np.ndarray:
         raise ValueError(f"{len(rw)} repacked words for {n_bases} bases "
                          f"(W = {W})")
     dead = rw[-1] == SENTINEL_WORD
-    v = rw[0].astype(np.int64)
-    s = 2 * n_bases - 32
-    if W == 2 and s > 0:
-        v = (v << s) | rw[1].astype(np.int64)
-    return np.where(dead, SENTINEL_KEY, v)
+    s = 2 * n_bases - 32 * (W - 1)
+    if n_bases <= HI_BASES:
+        v = rw[0].astype(np.int64)
+        if W == 2 and s > 0:
+            v = (v << s) | rw[1].astype(np.int64)
+        return np.where(dead, SENTINEL_KEY, v)
+    shape = rw[0].shape
+    vhi = np.zeros(rw[0].size, np.uint64)
+    vlo = np.zeros(rw[0].size, np.uint64)
+    for w in rw[:-1]:
+        vhi, vlo = _shl128(vhi, vlo, 32)
+        vlo |= w.reshape(-1).astype(np.uint64)
+    if s:
+        vhi, vlo = _shl128(vhi, vlo, s)
+        vlo |= rw[-1].reshape(-1).astype(np.uint64)
+    hi, lo = value_to_pair(vhi, vlo, pair_r_len(n_bases))
+    dead = dead.reshape(-1)
+    return (np.where(dead, SENTINEL_KEY, hi).reshape(shape),
+            np.where(dead, SENTINEL_KEY, lo).reshape(shape))
 
 
-def words_to_tpu_repacked(keys: np.ndarray, n_bases: int
-                          ) -> list[np.ndarray]:
-    """Inverse of words_from_tpu_repacked: int64 keys (SENTINEL_KEY on
-    invalid lanes) -> kmer_tpu's W repacked uint32 words, all
-    SENTINEL_WORD on invalid lanes (as kmer_tpu's extract_repacked
-    writes them)."""
+def words_to_tpu_repacked(keys, n_bases: int) -> list[np.ndarray]:
+    """Inverse of words_from_tpu_repacked: int64 keys, or (hi, lo) pairs
+    beyond 31 bases (SENTINEL_KEY on invalid lanes) -> kmer_tpu's W
+    repacked uint32 words, all SENTINEL_WORD on invalid lanes (as
+    kmer_tpu's kernels write them)."""
     check_k(n_bases)
+    W = words_per_key(n_bases)
+    s = 2 * n_bases - 32 * (W - 1)
+    if n_bases > HI_BASES:
+        hi, lo = (np.asarray(x, dtype=np.int64) for x in keys)
+        dead = hi == SENTINEL_KEY
+        vhi, vlo = pairs_to_value(hi, lo, pair_r_len(n_bases))
+        words = [_bits32(vhi, vlo, 2 * n_bases - 32 * (j + 1))
+                 for j in range(W - 1)]
+        words.append(_bits32(vhi, vlo, 0) & np.uint32((1 << s) - 1) if s
+                     else np.zeros(vlo.shape, np.uint32))
+        return [np.where(dead, SENTINEL_WORD, w.reshape(dead.shape))
+                for w in words]
     keys = np.asarray(keys, dtype=np.int64)
     dead = keys == SENTINEL_KEY
     u = np.where(dead, 0, keys).view(np.uint64)
-    s = 2 * n_bases - 32
-    if words_per_key(n_bases) == 1:
+    if W == 1:
         words = [u.astype(np.uint32)]
     elif s == 0:
         words = [u.astype(np.uint32), np.zeros(keys.shape, np.uint32)]
@@ -242,13 +318,27 @@ def words_to_tpu_repacked(keys: np.ndarray, n_bases: int
 
 def pairs_to_value(hi: np.ndarray, lo: np.ndarray, r_len: int
                    ) -> tuple[np.ndarray, np.ndarray]:
-    """Gapped (hi, lo) int64 pairs -> the key value hi * 4**r_len + lo as
-    128 bits: (vhi, vlo) uint64.  Sentinel pairs give garbage; callers
-    mask them."""
+    """(hi, lo) int64 pairs -> the key value hi * 4**r_len + lo as 128
+    bits: (vhi, vlo) uint64; at r_len = 32 the stored lo's flipped top
+    bit is taken off.  Sentinel pairs give garbage; callers mask them."""
     hi = np.asarray(hi, dtype=np.int64).reshape(-1).view(np.uint64)
     lo = np.asarray(lo, dtype=np.int64).reshape(-1).view(np.uint64)
+    if r_len == 32:
+        return hi, lo ^ _FLIP_U64
     s = 2 * r_len                                    # 2 <= s <= 62
     return hi >> np.uint64(64 - s), (hi << np.uint64(s)) | lo
+
+
+def value_to_pair(vhi: np.ndarray, vlo: np.ndarray, r_len: int
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """Inverse of pairs_to_value: 128-bit values (vhi, vlo) uint64 ->
+    (hi, lo) int64, lo's top bit flipped at r_len = 32."""
+    if r_len == 32:
+        return vhi.view(np.int64), (vlo ^ _FLIP_U64).view(np.int64)
+    s = np.uint64(2 * r_len)
+    lo = (vlo & ((np.uint64(1) << s) - np.uint64(1))).view(np.int64)
+    hi = ((vlo >> s) | (vhi << (np.uint64(64) - s))).view(np.int64)
+    return hi, lo
 
 
 def value_to_words(vhi: np.ndarray, vlo: np.ndarray, W: int) -> np.ndarray:
@@ -263,9 +353,10 @@ def value_to_words(vhi: np.ndarray, vlo: np.ndarray, W: int) -> np.ndarray:
 
 def pairs_to_u32(hi: np.ndarray, lo: np.ndarray, l_len: int, r_len: int
                  ) -> np.ndarray:
-    """(M,) gapped int64 pairs -> (M, W) uint32 most-significant-first
-    words, W = words_per_key(l_len + r_len); sentinel pairs (hi ==
-    SENTINEL_KEY) map to all-0xFFFFFFFF words."""
+    """(M,) int64 pairs -> (M, W) uint32 most-significant-first words, W
+    = words_per_key(l_len + r_len); sentinel pairs (hi == SENTINEL_KEY)
+    map to all-0xFFFFFFFF words.  A contiguous key of 32..63 bases is
+    the pair at l_len = 31."""
     n_bases = l_len + r_len
     check_key_width(n_bases)
     out = value_to_words(*pairs_to_value(hi, lo, r_len),
@@ -292,10 +383,7 @@ def u32_to_pairs(words: np.ndarray, l_len: int, r_len: int
         i = W - 1 - j                            # 32-bit chunk index
         u64[1 - i // 2] |= (words[:, j].astype(np.uint64)
                             << np.uint64(32 * (i % 2)))
-    vhi, vlo = u64
-    s = np.uint64(2 * r_len)
-    lo = (vlo & ((np.uint64(1) << s) - np.uint64(1))).view(np.int64)
-    hi = ((vlo >> s) | (vhi << (np.uint64(64) - s))).view(np.int64)
+    hi, lo = value_to_pair(*u64, r_len)
     sent = (words == SENTINEL_WORD).all(axis=1)
     return (np.where(sent, SENTINEL_KEY, hi),
             np.where(sent, SENTINEL_KEY, lo))

@@ -1,24 +1,27 @@
 """Plain torch k-mer extraction: the reference semantics that the
-Hopper kernels (ops/kernels/fused_extract, ops/kernels/fused_gapped) are
-held against.
+Hopper kernels (ops/kernels/fused_extract, ops/kernels/extract,
+ops/kernels/fused_gapped) are held against.
 
 A batch is a (B, L) uint8 code matrix plus per-row lengths and start
-limits.  The key of window p of row b is built from k shifted slices of
-the code matrix, one int64 per lane (ops/encode key layout).  Lane p of
-row b is valid when
+limits.  The key of window p of row b is built from shifted slices of
+the code matrix (ops/encode key layout): one int64 a lane for keys of up
+to 31 bases, the (hi, lo) int64 pair for 32 to 63.  Lane p of row b is
+valid when
 
-    p <= lengths[b] - k,  p < limits[b],  and (mask_ambiguous) no code
-    >= 4 inside the window;
+    p <= lengths[b] - span,  p < limits[b],  and (mask_ambiguous) no
+    code >= 4 at a base of the key;
 
-invalid lanes carry SENTINEL_KEY.  gapped_lanes gives the gapped L+R
-chunk keys as (hi, lo) int64 pairs (ops/encode).
+invalid lanes carry SENTINEL_KEY (in both words of a pair).  The span is
+k for contiguous k-mers and the mask's length for spaced seeds, whose
+key is the bases at the mask's '1' offsets (spaced_lanes).  gapped_lanes
+gives the gapped L+R chunk keys as (hi, lo) int64 pairs.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .encode import SENTINEL_KEY, check_k
+from .encode import HI_BASES, LO_FLIP, MAX_K, SENTINEL_KEY, check_k
 
 
 def valid_mask(B: int, P: int, lengths: torch.Tensor, span: int,
@@ -31,33 +34,152 @@ def valid_mask(B: int, P: int, lengths: torch.Tensor, span: int,
     return valid
 
 
+def _pack_key(slices):
+    """The key of a list of (B, P) int64 code planes (values 0..3), most
+    significant base first: one int64 for at most 31 planes, else the
+    pair (hi, lo) of ops/encode (lo's top bit flipped at 32 lo bases)."""
+    def value(planes):
+        v = torch.zeros_like(planes[0])
+        for p in planes:
+            v = (v << 2) | p
+        return v
+    if len(slices) <= HI_BASES:
+        return value(slices)
+    hi, rest = value(slices[:HI_BASES]), slices[HI_BASES:]
+    if len(rest) < 32:
+        return hi, value(rest)
+    # 32 lo bases: the first one's high bit is bit 63, stored flipped
+    top = rest[0] ^ 2
+    lo = value(rest[1:]) | ((top & 1) << 62)
+    return hi, torch.where(top >= 2, lo | LO_FLIP, lo)
+
+
+def _key_min(a, b):
+    """Lane-wise min of two keys of one layout (int64 or (hi, lo))."""
+    if not isinstance(a, tuple):
+        return torch.minimum(a, b)
+    take_b = (b[0] < a[0]) | ((b[0] == a[0]) & (b[1] < a[1]))
+    return tuple(torch.where(take_b, y, x) for x, y in zip(a, b))
+
+
+def _with_sentinel(keys, valid):
+    """SENTINEL_KEY in every word of the invalid lanes."""
+    if isinstance(keys, tuple):
+        return tuple(torch.where(valid, w, SENTINEL_KEY) for w in keys)
+    return torch.where(valid, keys, SENTINEL_KEY)
+
+
+def window_keys(codes: torch.Tensor, lengths: torch.Tensor,
+                positions, *, limits: torch.Tensor | None = None,
+                sentinel: bool = True, mask_ambiguous: bool = False,
+                canonical: bool = False):
+    """The key of the bases at window offsets `positions` (ascending,
+    positions[0] = 0) of every window start: (keys, valid), keys an
+    int64 (B, P) tensor or a (hi, lo) pair of them, P = L - span + 1,
+    span = positions[-1] + 1.  canonical: the min of the key and the
+    reverse complement of its bases (base i complemented to position
+    n - 1 - i), which is the strand-min for contiguous windows and
+    palindromic masks."""
+    B, L = codes.shape
+    span = positions[-1] + 1
+    assert L >= span, f"batch width {L} < window span {span}"
+    P = L - span + 1
+    c = codes.to(torch.int64)
+    amb = None
+    if mask_ambiguous:
+        amb = torch.zeros((B, P), dtype=torch.bool, device=codes.device)
+        for j in positions:
+            amb |= c[:, j:j + P] >= 4
+    c = c & 3
+    keys = _pack_key([c[:, j:j + P] for j in positions])
+    if canonical:
+        c3 = 3 - c
+        keys = _key_min(keys, _pack_key([c3[:, j:j + P]
+                                         for j in reversed(positions)]))
+    valid = valid_mask(B, P, lengths, span, limits, codes.device)
+    if mask_ambiguous:
+        valid &= ~amb
+    if sentinel:
+        keys = _with_sentinel(keys, valid)
+    return keys, valid
+
+
 def kmer_lanes(codes: torch.Tensor, lengths: torch.Tensor, k: int, *,
                limits: torch.Tensor | None = None, sentinel: bool = True,
                mask_ambiguous: bool = False):
     """All k-mer keys of every read in a batch.
 
-    Returns (keys, valid): keys (B, P) int64 with P = L - k + 1 (invalid
-    lanes = SENTINEL_KEY unless sentinel=False), valid (B, P) bool.
+    Returns (keys, valid): keys (B, P) int64 with P = L - k + 1 for k <=
+    31, the pair (hi, lo) of (B, P) int64 planes for 32 <= k <= 63
+    (invalid lanes = SENTINEL_KEY unless sentinel=False), valid (B, P)
+    bool.
     """
     check_k(k)
-    B, L = codes.shape
-    assert L >= k, f"batch width {L} < k={k}"
-    P = L - k + 1
-    c = codes.to(torch.int64)
-    keys = torch.zeros((B, P), dtype=torch.int64, device=codes.device)
-    amb = (torch.zeros((B, P), dtype=torch.bool, device=codes.device)
-           if mask_ambiguous else None)
-    for j in range(k):
-        sl = c[:, j:j + P]
-        if mask_ambiguous:
-            amb |= sl >= 4
-        keys = (keys << 2) | (sl & 3)
-    valid = valid_mask(B, P, lengths, k, limits, codes.device)
-    if mask_ambiguous:
-        valid &= ~amb
-    if sentinel:
-        keys = torch.where(valid, keys, SENTINEL_KEY)
-    return keys, valid
+    return window_keys(codes, lengths, range(k), limits=limits,
+                       sentinel=sentinel, mask_ambiguous=mask_ambiguous)
+
+
+def parse_seed_mask(mask: str) -> tuple[int, ...]:
+    """A spaced-seed mask ('1' = match, '0' = don't-care) -> the tuple of
+    match offsets.  It must start and end with '1' (leading or trailing
+    don't-cares would only shift the windows)."""
+    if not mask or set(mask) - {"0", "1"}:
+        raise ValueError(f"seed mask must be nonempty 0/1, got {mask!r}")
+    if mask[0] != "1" or mask[-1] != "1":
+        raise ValueError("seed mask must start and end with '1'")
+    return tuple(i for i, ch in enumerate(mask) if ch == "1")
+
+
+def mask_from_positions(positions) -> str:
+    """Inverse of parse_seed_mask (span = positions[-1] + 1)."""
+    sel = set(positions)
+    return "".join("1" if j in sel else "0" for j in range(positions[-1] + 1))
+
+
+def seed_mask_palindromic(mask: str) -> bool:
+    """Canonical (strand-min) spaced keys are defined only when the mask
+    equals its reverse: the reverse complement of a window then selects
+    the same offsets."""
+    return mask == mask[::-1]
+
+
+def check_window(n_bases: int, positions=None,
+                 canonical: bool = False) -> int:
+    """Check a key of n_bases bases and return its window span: contiguous
+    (positions None, 1 <= n_bases <= 63) or a spaced seed's n_bases window
+    offsets -- ascending from 0, at most MAX_K of them, a palindromic mask
+    when canonical.  The one check of a seed: KmerConfig, spaced_lanes and
+    the K1 and K7 wrappers call it, and the kernels take what it passed."""
+    if positions is None:
+        check_k(n_bases)
+        return n_bases
+    positions = tuple(positions)
+    if (len(positions) != n_bases or not positions or positions[0] != 0
+            or any(b <= a for a, b in zip(positions, positions[1:]))):
+        raise ValueError(f"positions {positions} are not {n_bases} "
+                         "ascending window offsets from 0")
+    if n_bases > MAX_K:
+        raise ValueError(f"seed mask selects more than {MAX_K} bases")
+    mask = mask_from_positions(positions)
+    if canonical and not seed_mask_palindromic(mask):
+        raise ValueError("canonical spaced seeds need a palindromic mask, "
+                         f"got {mask!r}")
+    return positions[-1] + 1
+
+
+def spaced_lanes(codes: torch.Tensor, lengths: torch.Tensor, mask: str, *,
+                 limits: torch.Tensor | None = None, sentinel: bool = True,
+                 mask_ambiguous: bool = False, canonical: bool = False):
+    """All spaced-seed keys of every read: per window of span len(mask),
+    the bases at the mask's '1' offsets (n_bases = the popcount, at most
+    63), in the key layout of n_bases.  Don't-care bases are ignored,
+    also for ambiguity.  Same contract as kmer_lanes with P = L - span +
+    1; canonical needs a palindromic mask."""
+    positions = parse_seed_mask(mask)
+    check_window(len(positions), positions, canonical)
+    return window_keys(codes, lengths, positions, limits=limits,
+                       sentinel=sentinel, mask_ambiguous=mask_ambiguous,
+                       canonical=canonical)
 
 
 def gapped_lane_count(L: int, c_min: int, c_max: int) -> int:

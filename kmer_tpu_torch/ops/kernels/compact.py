@@ -11,9 +11,11 @@ the host aggregation (pipeline/table.reduce_fused) takes as it stands:
 
 - from K1's (keys, int8 counts) or the unfused step's (keys, int32
   counts) (ops/count.grouped_count): the int64 key, read as uint64;
-- from K3's (hi, lo, counts): the key value hi * 4**r_len + lo, one
+- from K3's (hi, lo, counts), and from K1's or the unfused step's pairs
+  of keys of 32 to 63 bases: the key value hi * 4**r_len + lo, one
   uint64 when the key has at most 31 bases, else the two uint64 halves
-  [vhi, vlo] (ops/encode.pairs_to_value);
+  [vhi, vlo] (ops/encode.pairs_to_value; at r_len = 32 the halves are hi
+  and lo with its flipped top bit put back);
 
 and the count, widened to int64.  Output contract: keys (n,) or (n, 2)
 int64, counts (n,) int64 and total (1,) int64 on the input's device,
@@ -34,7 +36,7 @@ import os
 import numpy as np
 import torch
 
-from ..encode import words_per_key
+from ..encode import LO_FLIP, words_per_key
 
 SOURCE = "kmer_tpu_torch/csrc/compact.cu"
 REPLACES = "kmer_tpu/ops/pallas/compact.py:96"
@@ -64,9 +66,9 @@ def _mode(planes, r_len: int, n_bases: int) -> int:
     2: a gapped pair to two uint64 halves."""
     if len(planes) == 1:
         return 0
-    if len(planes) != 2 or not 1 <= r_len <= 31:
+    if len(planes) != 2 or not 1 <= r_len <= 32:
         raise ValueError("compact takes (keys,) or (hi, lo) with "
-                         f"1 <= r_len <= 31, got {len(planes)} planes, "
+                         f"1 <= r_len <= 32, got {len(planes)} planes, "
                          f"r_len={r_len}")
     return 1 if words_per_key(n_bases) <= 2 else 2
 
@@ -75,7 +77,8 @@ def compact_ref(planes, counts: torch.Tensor, *, r_len: int = 0,
                 n_bases: int = 0):
     """Plain torch version: a boolean mask over the flat lanes, then the
     pair -> value shifts on int64 (hi is below 2**62 on live lanes, so
-    the arithmetic shift is the logical one)."""
+    the arithmetic shift is the logical one; r_len = 32 takes lo's flip
+    off instead)."""
     mode = _mode(planes, r_len, n_bases)
     n = counts.numel()
     live = counts.reshape(-1) > 0
@@ -85,6 +88,9 @@ def compact_ref(planes, counts: torch.Tensor, *, r_len: int = 0,
                        device=counts.device)
     if mode == 0:
         keys[:total] = key0
+    elif r_len == 32:
+        keys[:total, 0] = key0
+        keys[:total, 1] = planes[1].reshape(-1)[live] ^ LO_FLIP
     else:
         s = 2 * r_len
         vlo = (key0 << s) | planes[1].reshape(-1)[live]

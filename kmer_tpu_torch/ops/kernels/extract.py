@@ -4,12 +4,15 @@ plain torch version.
 
 Counterpart of kmer_tpu/ops/pallas/extract.py `extract_repacked` (kernel
 K7).  kmer_tpu's kernel returns each key as the (top, bot) uint32 words
-of its sort layout and takes only 17 <= k <= 31 without ambiguous codes;
-here a key is one int64 (ops/encode), so the kernel takes every k <= 31,
-canonical or not, and the ambiguity mask of skip-invalid mode.  Output:
-keys (B, P) int64, P = L - k + 1, row-major, SENTINEL_KEY on invalid
-lanes (ops/extract validity); ops/encode.words_to_tpu_repacked gives
-kmer_tpu's (top, bot).
+of its sort layout and takes only 17 <= k <= 31 without ambiguous codes
+(its unfused route extracts every other key outside a kernel); here a
+key is one int64 or an int64 (hi, lo) pair (ops/encode), so the kernel
+takes every k <= 63, spaced seeds (`positions`), canonical or not, and
+the ambiguity mask of skip-invalid mode.  Output: keys (B, P) int64, P =
+L - span + 1, row-major, SENTINEL_KEY on invalid lanes (ops/extract
+validity), or the (hi, lo) pair of two such planes for keys of 32 to 63
+bases; ops/encode.words_to_tpu_repacked gives kmer_tpu's repacked
+words.
 
 extract_keys dispatches on where its inputs lie: CPU tensors run the
 plain version, CUDA tensors launch the kernel (or raise).
@@ -22,15 +25,17 @@ import os
 
 import torch
 
-from ..canonical import canonical_kmer_lanes
-from ..encode import check_k, unpack_codes_i32
-from ..extract import kmer_lanes
+from ..encode import HI_BASES, unpack_codes_i32
+from ..extract import check_window, window_keys
 
 SOURCE = "kmer_tpu_torch/csrc/extract.cu"
 REPLACES = "kmer_tpu/ops/pallas/extract.py:88"
 # calls of extract_keys that launched the kernel (the plain version on CPU
-# tensors does not count)
+# tensors does not count): all of them, and those of the two-word
+# (contiguous 32 <= k <= 63) and spaced variants
 launches = 0
+wide_launches = 0
+spaced_launches = 0
 _lib = None
 
 
@@ -42,15 +47,14 @@ def load():
                          "kmer_extract", cuda=True)
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.extract_launch.restype = i
-        lib.extract_launch.argtypes = [vp, i, i, vp, vp, vp, i, i, i, i, i,
-                                       vp]
+        lib.extract_launch.argtypes = [vp, i, i, vp, vp, vp, vp, i, i, i, i,
+                                       i, i, vp, vp]
         _lib = lib
     return _lib
 
 
-def _shape(codes: torch.Tensor, k: int, packed_width: int):
+def _shape(codes: torch.Tensor, span: int, packed_width: int):
     """(B, L, P) of a batch; packed rows hold ceil(L/16) words."""
-    check_k(k)
     if codes.dim() != 2:
         raise ValueError(f"codes must be 2-D, got {tuple(codes.shape)}")
     B = codes.shape[0]
@@ -58,45 +62,50 @@ def _shape(codes: torch.Tensor, k: int, packed_width: int):
     if packed_width and codes.shape[1] != (L + 15) // 16:
         raise ValueError(f"packed rows of width {L} hold {(L + 15) // 16} "
                          f"words, got {codes.shape[1]}")
-    P = L - k + 1
+    P = L - span + 1
     if P < 1:
-        raise ValueError(f"row width {L} < k={k}")
+        raise ValueError(f"row width {L} < window span {span}")
     return B, L, P
 
 
 def extract_keys_ref(codes: torch.Tensor, lengths: torch.Tensor,
                      limits: torch.Tensor, k: int, *, canonical: bool = False,
-                     mask_ambiguous: bool = False,
-                     packed_width: int = 0) -> torch.Tensor:
-    """Plain torch version: ops/extract.kmer_lanes or
-    ops/canonical.canonical_kmer_lanes."""
-    _shape(codes, k, packed_width)
+                     mask_ambiguous: bool = False, packed_width: int = 0,
+                     positions=None):
+    """Plain torch version: ops/extract.window_keys (kmer_lanes,
+    canonical_kmer_lanes and spaced_lanes in one)."""
+    span = check_window(k, positions, canonical)
+    _shape(codes, span, packed_width)
     if packed_width:
         codes = unpack_codes_i32(codes, packed_width)
-    fn = canonical_kmer_lanes if canonical else kmer_lanes
-    keys, _ = fn(codes, lengths, k, limits=limits,
-                 mask_ambiguous=mask_ambiguous)
+    keys, _ = window_keys(codes, lengths, positions or range(k),
+                          limits=limits, mask_ambiguous=mask_ambiguous,
+                          canonical=canonical)
     return keys
 
 
 def extract_keys(codes: torch.Tensor, lengths: torch.Tensor,
                  limits: torch.Tensor, k: int, *, canonical: bool = False,
-                 mask_ambiguous: bool = False,
-                 packed_width: int = 0) -> torch.Tensor:
-    """One batch -> keys (B, P) int64, SENTINEL_KEY on invalid lanes.
+                 mask_ambiguous: bool = False, packed_width: int = 0,
+                 positions=None):
+    """One batch -> keys (B, P) int64, SENTINEL_KEY on invalid lanes, or
+    the (hi, lo) pair of them for keys of 32 to 63 bases.
 
     codes: (B, L) uint8 codes (code 4 = ambiguous base), or with
     packed_width = L the (B, ceil(L/16)) int32 view of the 2-bit packed
-    rows.  lengths, limits: (B,) int32.
+    rows.  lengths, limits: (B,) int32.  positions: a spaced seed's k
+    window offsets, or None for contiguous k-mers.
     """
     if codes.device.type == "cpu":
         return extract_keys_ref(codes, lengths, limits, k,
                                 canonical=canonical,
                                 mask_ambiguous=mask_ambiguous,
-                                packed_width=packed_width)
+                                packed_width=packed_width,
+                                positions=positions)
     if codes.device.type != "cuda":
         raise ValueError(f"no extract_keys on {codes.device}")
-    B, L, P = _shape(codes, k, packed_width)
+    span = check_window(k, positions, canonical)
+    B, L, P = _shape(codes, span, packed_width)
     want = torch.int32 if packed_width else torch.uint8
     if codes.dtype != want or not codes.is_contiguous():
         raise ValueError(f"codes must be a contiguous 2-D {want} tensor, "
@@ -107,17 +116,26 @@ def extract_keys(codes: torch.Tensor, lengths: torch.Tensor,
             raise ValueError(f"{name} must be a contiguous ({B},) int32 "
                              f"tensor on {codes.device}")
     keys = torch.empty((B, P), dtype=torch.int64, device=codes.device)
+    lo = (torch.empty((B, P), dtype=torch.int64, device=codes.device)
+          if k > HI_BASES else None)
+    out = (keys, lo) if lo is not None else keys
     if B == 0:
-        return keys
+        return out
     lib = load()
     with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        offs = None if positions is None else (ctypes.c_int32 * k)(*positions)
         rc = lib.extract_launch(
             codes.data_ptr(), int(bool(packed_width)), codes.shape[1],
-            lengths.data_ptr(), limits.data_ptr(), keys.data_ptr(), B, L, k,
-            int(canonical), int(mask_ambiguous),
-            torch.cuda.current_stream().cuda_stream)
+            lengths.data_ptr(), limits.data_ptr(), keys.data_ptr(),
+            None if lo is None else lo.data_ptr(), B, L, k, span,
+            int(canonical), int(mask_ambiguous), offs, stream)
     if rc != 0:
         raise RuntimeError(f"extract kernel launch failed: cudaError {rc}")
-    global launches
+    global launches, wide_launches, spaced_launches
     launches += 1
-    return keys
+    if positions is not None:
+        spaced_launches += 1
+    elif lo is not None:
+        wide_launches += 1
+    return out

@@ -3,9 +3,12 @@ in-segment collapse, as one hand-written Hopper kernel
 (csrc/fused_extract.cu) and its plain torch version.
 
 Counterpart of kmer_tpu/ops/pallas/fused_extract.py
-`fused_extract_count_T`.  Output contract (the same partial-aggregation
-contract): keys (P_pad, B) int64, position-major, SENTINEL_KEY on
-invalid lanes, and counts (P_pad, B) int8; positions are cut into
+`fused_extract_count_T`, for every key it takes: contiguous k-mers of 1
+to 63 bases and spaced seeds (`positions`, the offsets of a mask's '1's,
+at most 63 of them).  Output contract (the same partial-aggregation
+contract): keys (P_pad, B) int64, position-major, SENTINEL_KEY on invalid
+lanes -- for keys of 32 to 63 bases the (hi, lo) pair of two such planes
+(ops/encode) -- and counts (P_pad, B) int8; positions are cut into
 seg-sized segments and each key's in-segment count sits on its first
 occurrence (ops/kernels/fused_count).  Equal keys may recur across
 segments and rows; the host aggregation merges them.
@@ -22,16 +25,18 @@ import os
 
 import torch
 
-from ..canonical import canonical_kmer_lanes
-from ..encode import SENTINEL_KEY, check_k, unpack_codes_i32
-from ..extract import kmer_lanes
+from ..encode import HI_BASES, SENTINEL_KEY, unpack_codes_i32
+from ..extract import check_window, window_keys
 from .fused_count import dedup_runlen
 
 SOURCE = "kmer_tpu_torch/csrc/fused_extract.cu"
 REPLACES = "kmer_tpu/ops/pallas/fused_extract.py:789"
 # kernel launches made by fused_extract_count (the plain version on CPU
-# tensors does not count)
+# tensors does not count): all of them, and those of the two-word
+# (contiguous 32 <= k <= 63) and spaced variants
 launches = 0
+wide_launches = 0
+spaced_launches = 0
 _lib = None
 
 
@@ -44,14 +49,13 @@ def load():
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.fused_extract_count_launch.restype = i
         lib.fused_extract_count_launch.argtypes = [
-            vp, i, i, vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp]
+            vp, i, i, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, vp, vp]
         _lib = lib
     return _lib
 
 
-def _shape(codes: torch.Tensor, k: int, seg: int, packed_width: int):
+def _shape(codes: torch.Tensor, span: int, seg: int, packed_width: int):
     """(B, L, P, P_pad) of a batch; packed rows hold ceil(L/16) words."""
-    check_k(k)
     if seg not in (2, 4, 8, 16):
         raise ValueError(f"seg must be 2, 4, 8 or 16, got {seg}")
     if codes.dim() != 2:
@@ -61,9 +65,9 @@ def _shape(codes: torch.Tensor, k: int, seg: int, packed_width: int):
     if packed_width and codes.shape[1] != (L + 15) // 16:
         raise ValueError(f"packed rows of width {L} hold {(L + 15) // 16} "
                          f"words, got {codes.shape[1]}")
-    P = L - k + 1
+    P = L - span + 1
     if P < 1:
-        raise ValueError(f"row width {L} < k={k}")
+        raise ValueError(f"row width {L} < window span {span}")
     return B, L, P, -(-P // seg) * seg
 
 
@@ -71,39 +75,50 @@ def fused_extract_count_ref(codes: torch.Tensor, lengths: torch.Tensor,
                             limits: torch.Tensor, k: int, *,
                             canonical: bool = False,
                             mask_ambiguous: bool = False, seg: int = 2,
-                            packed_width: int = 0):
+                            packed_width: int = 0, positions=None):
     """Plain torch version: extraction (+ canonical) and the collapse,
-    composed from ops/extract, ops/canonical and ops/kernels/fused_count."""
-    B, L, P, P_pad = _shape(codes, k, seg, packed_width)
+    composed from ops/extract.window_keys (kmer_lanes, canonical_kmer_lanes
+    and spaced_lanes in one) and ops/kernels/fused_count."""
+    span = check_window(k, positions, canonical)
+    B, L, P, P_pad = _shape(codes, span, seg, packed_width)
     if packed_width:
         codes = unpack_codes_i32(codes, L)
-    fn = canonical_kmer_lanes if canonical else kmer_lanes
-    keys, _ = fn(codes, lengths, k, limits=limits,
-                 mask_ambiguous=mask_ambiguous)
-    out = torch.full((P_pad, B), SENTINEL_KEY, dtype=torch.int64,
-                     device=codes.device)
-    out[:P] = keys.T
-    return out, dedup_runlen(out, seg)
+    keys, _ = window_keys(codes, lengths, positions or range(k),
+                          limits=limits, mask_ambiguous=mask_ambiguous,
+                          canonical=canonical)
+    planes = keys if isinstance(keys, tuple) else (keys,)
+    out = []
+    for w in planes:
+        o = torch.full((P_pad, B), SENTINEL_KEY, dtype=torch.int64,
+                       device=codes.device)
+        o[:P] = w.T
+        out.append(o)
+    counts = dedup_runlen(out[0], seg, lo=out[1] if len(out) == 2 else None)
+    return (tuple(out) if len(out) == 2 else out[0]), counts
 
 
 def fused_extract_count(codes: torch.Tensor, lengths: torch.Tensor,
                         limits: torch.Tensor, k: int, *,
                         canonical: bool = False, mask_ambiguous: bool = False,
-                        seg: int = 2, packed_width: int = 0):
-    """One batch -> (keys (P_pad, B) int64, counts (P_pad, B) int8).
+                        seg: int = 2, packed_width: int = 0, positions=None):
+    """One batch -> (keys, counts (P_pad, B) int8): keys (P_pad, B) int64
+    for keys of at most 31 bases, else the (hi, lo) pair of them.
 
     codes: (B, L) uint8 codes (code 4 = ambiguous base), or with
     packed_width = L the (B, ceil(L/16)) int32 view of the 2-bit packed
     rows.  lengths, limits: (B,) int32.  seg: power of two <= 16.
+    positions: a spaced seed's k window offsets (ascending from 0; span
+    positions[-1] + 1), or None for contiguous k-mers.
     """
     if codes.device.type == "cpu":
         return fused_extract_count_ref(
             codes, lengths, limits, k, canonical=canonical,
             mask_ambiguous=mask_ambiguous, seg=seg,
-            packed_width=packed_width)
+            packed_width=packed_width, positions=positions)
     if codes.device.type != "cuda":
         raise ValueError(f"no fused_extract_count on {codes.device}")
-    B, L, P, P_pad = _shape(codes, k, seg, packed_width)
+    span = check_window(k, positions, canonical)
+    B, L, P, P_pad = _shape(codes, span, seg, packed_width)
     want = torch.int32 if packed_width else torch.uint8
     if codes.dtype != want or not codes.is_contiguous():
         raise ValueError(f"codes must be a contiguous 2-D {want} tensor, "
@@ -114,17 +129,27 @@ def fused_extract_count(codes: torch.Tensor, lengths: torch.Tensor,
             raise ValueError(f"{name} must be a contiguous ({B},) int32 "
                              f"tensor on {codes.device}")
     lib = load()
-    keys = torch.empty((P_pad, B), dtype=torch.int64, device=codes.device)
-    counts = torch.empty((P_pad, B), dtype=torch.int8, device=codes.device)
-    with torch.cuda.device(codes.device):
+    dev = codes.device
+    keys = torch.empty((P_pad, B), dtype=torch.int64, device=dev)
+    lo = (torch.empty((P_pad, B), dtype=torch.int64, device=dev)
+          if k > HI_BASES else None)
+    counts = torch.empty((P_pad, B), dtype=torch.int8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        offs = None if positions is None else (ctypes.c_int32 * k)(*positions)
         rc = lib.fused_extract_count_launch(
             codes.data_ptr(), int(bool(packed_width)), codes.shape[1],
             lengths.data_ptr(), limits.data_ptr(), keys.data_ptr(),
-            counts.data_ptr(), B, L, k, P, P_pad, int(canonical),
-            int(mask_ambiguous), seg, torch.cuda.current_stream().cuda_stream)
+            None if lo is None else lo.data_ptr(), counts.data_ptr(), B, L, k,
+            span, P, P_pad, int(canonical), int(mask_ambiguous), seg, offs,
+            stream)
     if rc != 0:
         raise RuntimeError(f"fused_extract_count kernel launch failed: "
                            f"cudaError {rc}")
-    global launches
+    global launches, wide_launches, spaced_launches
     launches += 1
-    return keys, counts
+    if positions is not None:
+        spaced_launches += 1
+    elif lo is not None:
+        wide_launches += 1
+    return ((keys, lo) if lo is not None else keys), counts

@@ -25,7 +25,7 @@ import os
 
 import torch
 
-from ..encode import MAX_K, SENTINEL_KEY, unpack_codes_i32
+from ..encode import HI_BASES, SENTINEL_KEY, unpack_codes_i32
 from ..extract import gapped_lane_count, gapped_lanes
 from .fused_count import dedup_runlen
 
@@ -60,9 +60,9 @@ def _shape(codes: torch.Tensor, l_len: int, r_len: int, c_min: int,
            c_max: int, seg: int, packed_width: int):
     """(B, L, T, T_pad) of a batch; packed rows hold ceil(L/16) words.
     Each window is one int64 sub-key (l_len, r_len <= 31)."""
-    if not (1 <= l_len <= MAX_K and 1 <= r_len <= MAX_K):
+    if not (1 <= l_len <= HI_BASES and 1 <= r_len <= HI_BASES):
         raise NotImplementedError(
-            f"l_len={l_len}, r_len={r_len}: gapped windows of 1 to {MAX_K} "
+            f"l_len={l_len}, r_len={r_len}: gapped windows of 1 to {HI_BASES} "
             "bases (one int64 each) are ported; longer ones are ROADMAP "
             "Queue 1 item 15 (gapped windows over 31 bases)")
     if c_min < l_len + r_len:

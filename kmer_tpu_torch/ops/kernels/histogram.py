@@ -12,7 +12,8 @@ kmer_tpu's histogram of every valid lane gives.  Indices outside
 [0, 2**bits) are dropped, as kmer_tpu's scatter drops them.
 
 hll_class_histogram is the same kernel with the HyperLogLog class of
-ops/sketch.hll_classes computed from each int64 key as it is loaded.
+ops/sketch.hll_classes computed from each key as it is loaded: an int64
+key of up to 31 bases, or the (hi, lo) pair of a key of 32 to 63.
 
 Both accumulate into `out` ((2**bits,) int64, made zero when not given)
 and dispatch on where their inputs lie: CPU tensors run the plain
@@ -27,6 +28,8 @@ import os
 
 import numpy as np
 import torch
+
+from ..encode import key_planes
 
 SOURCE = "kmer_tpu_torch/csrc/histogram.cu"
 REPLACES = "kmer_tpu/ops/pallas/histogram.py:110"
@@ -45,7 +48,7 @@ def load():
                          "kmer_histogram", cuda=True)
         vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.histogram_launch.restype = i
-        lib.histogram_launch.argtypes = [vp, vp, i64, i, i, i, i, vp, vp]
+        lib.histogram_launch.argtypes = [vp, vp, vp, i64, i, i, i, i, vp, vp]
         _lib = lib
     return _lib
 
@@ -72,31 +75,37 @@ def index_histogram_ref(idx: torch.Tensor, weight: torch.Tensor, bits: int,
     return out.index_add_(0, idx[keep], w[keep])
 
 
-def hll_class_histogram_ref(keys: torch.Tensor, weight: torch.Tensor, *,
-                            k: int, b: int,
+def hll_class_histogram_ref(keys, weight: torch.Tensor, *, k: int, b: int,
                             out: torch.Tensor | None = None) -> torch.Tensor:
     """Plain torch version: ops/sketch.hll_classes, then
     index_histogram_ref over the 2**(b + 5) classes."""
     from ..sketch import hll_classes
-    keys, w = keys.reshape(-1), weight.reshape(-1)
+    w = weight.reshape(-1)
     live = w != 0
-    return index_histogram_ref(hll_classes(keys[live], k, b), w[live], b + 5,
-                               out)
+    if isinstance(keys, tuple):
+        keys = tuple(p.reshape(-1)[live] for p in keys)
+    else:
+        keys = keys.reshape(-1)[live]
+    return index_histogram_ref(hll_classes(keys, k, b), w[live], b + 5, out)
 
 
 def _launch(keys, weight, bits, out, hll_k: int, b: int) -> torch.Tensor:
-    out = _out(out, bits, keys.device)
-    if (keys.dtype != torch.int64 or weight.dtype != torch.int8
-            or keys.shape != weight.shape or weight.device != keys.device
-            or not keys.is_contiguous() or not weight.is_contiguous()):
+    planes = key_planes(keys)
+    out = _out(out, bits, planes[0].device)
+    if (any(p.dtype != torch.int64 or p.shape != weight.shape
+            or p.device != weight.device or not p.is_contiguous()
+            for p in planes)
+            or weight.dtype != torch.int8 or not weight.is_contiguous()):
         raise ValueError("keys and weight must be contiguous int64 and int8 "
                          "tensors of one shape on one device")
-    n = keys.numel()
+    n = weight.numel()
     if n == 0:
         return out
     lib = load()
-    with torch.cuda.device(keys.device):
-        rc = lib.histogram_launch(keys.data_ptr(), weight.data_ptr(), n, bits,
+    with torch.cuda.device(weight.device):
+        rc = lib.histogram_launch(planes[0].data_ptr(),
+                                  planes[1].data_ptr() if len(planes) == 2
+                                  else None, weight.data_ptr(), n, bits,
                                   int(hll_k > 0), hll_k, b, out.data_ptr(),
                                   torch.cuda.current_stream().cuda_stream)
     if rc != 0:
@@ -117,18 +126,19 @@ def index_histogram(idx: torch.Tensor, weight: torch.Tensor, bits: int,
     return _launch(idx, weight, bits, out, 0, 0)
 
 
-def hll_class_histogram(keys: torch.Tensor, weight: torch.Tensor, *, k: int,
-                        b: int,
+def hll_class_histogram(keys, weight: torch.Tensor, *, k: int, b: int,
                         out: torch.Tensor | None = None) -> torch.Tensor:
-    """out[hll_class(key)] += weight over int64 k-mer keys (1 <= k <= 31)
-    and int8 weights; returns out ((2**(b + 5),) int64), 1 <= b <= 11."""
-    if not (1 <= b <= 11 and 1 <= k <= 31):
-        raise ValueError(f"HLL classes need 1 <= b <= 11 and 1 <= k <= 31, "
-                         f"got b={b}, k={k}")
-    if keys.device.type == "cpu":
+    """out[hll_class(key)] += weight over k-mer keys (int64 for 1 <= k <=
+    31, the (hi, lo) pair for 32 <= k <= 63) and int8 weights; returns out
+    ((2**(b + 5),) int64), 1 <= b <= 11."""
+    if not (1 <= b <= 11 and 1 <= k <= 63
+            and isinstance(keys, tuple) == (k > 31)):
+        raise ValueError(f"HLL classes need 1 <= b <= 11 and 1 <= k <= 63 "
+                         f"(a (hi, lo) pair past 31), got b={b}, k={k}")
+    if weight.device.type == "cpu":
         return hll_class_histogram_ref(keys, weight, k=k, b=b, out=out)
-    if keys.device.type != "cuda":
-        raise ValueError(f"no hll_class_histogram on {keys.device}")
+    if weight.device.type != "cuda":
+        raise ValueError(f"no hll_class_histogram on {weight.device}")
     return _launch(keys, weight, b + 5, out, k, b)
 
 

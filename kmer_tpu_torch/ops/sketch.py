@@ -14,8 +14,10 @@ below 2**32, products are split so none passes 2**63, and each step
 masks back to 32 bits.
 
 The hash runs over kmer_tpu's uint32 key words, most significant first
-(words_per_key(k) of them: one for k <= 15, two for 16 <= k <= 31); they
-are formed from the int64 key value here.
+(words_per_key(k) of them: one for k <= 15, two for 16 <= k <= 31, three
+or four for the (hi, lo) pairs of 32 <= k <= 63); they are formed from
+the int64 key value, or from the pair's value hi * 4**(k - 31) + lo,
+here.  A spaced seed's key hashes as a k-mer of its popcount.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .encode import check_k, words_per_key
+from .encode import HI_BASES, LO_FLIP, check_k, words_per_key
 from .kernels.fused_extract import fused_extract_count
 from .kernels.histogram import hll_class_histogram
 
@@ -70,18 +72,33 @@ def _rho32(tail: torch.Tensor, width: int) -> torch.Tensor:
     return width - x + 1
 
 
-def key_words(keys: torch.Tensor, k: int) -> list[torch.Tensor]:
-    """int64 k-mer keys -> kmer_tpu's uint32 key words as int64 tensors,
-    most significant first."""
+def key_words(keys, k: int) -> list[torch.Tensor]:
+    """k-mer keys (int64, or the (hi, lo) pair for k > 31) -> kmer_tpu's
+    uint32 key words as int64 tensors, most significant first."""
     check_k(k)
-    if words_per_key(k) == 1:
-        return [keys & _M32]
-    return [keys >> 32, keys & _M32]
+    W = words_per_key(k)
+    if k <= HI_BASES:
+        return [keys & _M32] if W == 1 else [keys >> 32, keys & _M32]
+    hi, lo = keys
+    s = 2 * (k - HI_BASES)                      # lo's value bits
+    raw = lo ^ LO_FLIP if s == 64 else lo
+
+    def bits(p: int) -> torch.Tensor:
+        """Bits [p, p + 32) of hi * 2**s + raw."""
+        out = (raw >> p) & _M32 if p < s else torch.zeros_like(hi)
+        if p >= s:
+            out = out | ((hi >> (p - s)) & _M32)
+        elif p + 32 > s:                         # hi's low bits reach in
+            sh = s - p
+            out = out | ((hi & ((1 << (32 - sh)) - 1)) << sh)
+        return out
+    return [bits(32 * (W - 1 - j)) for j in range(W)]
 
 
-def hll_classes(keys: torch.Tensor, k: int, b: int) -> torch.Tensor:
-    """int64 class index bucket * 32 + min(rho, 31) of each int64 key:
-    bucket = the top b hash bits, rho over the other 32 - b."""
+def hll_classes(keys, k: int, b: int) -> torch.Tensor:
+    """int64 class index bucket * 32 + min(rho, 31) of each key (int64,
+    or the (hi, lo) pair for k > 31): bucket = the top b hash bits, rho
+    over the other 32 - b."""
     h = hash_words(key_words(keys, k))
     tail = h & ((1 << (32 - b)) - 1)
     rho = torch.clamp(_rho32(tail, 32 - b), max=_RHO_SLOTS - 1)
@@ -91,14 +108,17 @@ def hll_classes(keys: torch.Tensor, k: int, b: int) -> torch.Tensor:
 def hll_step(codes: torch.Tensor, lengths: torch.Tensor,
              limits: torch.Tensor, hist: torch.Tensor, *, k: int,
              canonical: bool, b: int = 10, mask_ambiguous: bool = False,
-             packed_width: int = 0, seg: int = 2) -> torch.Tensor:
+             packed_width: int = 0, seg: int = 2,
+             positions=None) -> torch.Tensor:
     """One device batch of the estimator: the fused count step (kernel
     K1), then the class histogram (kernel K5) accumulated in place into
-    `hist` ((2**(b + 5),) int64 on the batch's device); returns hist."""
+    `hist` ((2**(b + 5),) int64 on the batch's device); returns hist.
+    positions: a spaced seed's k window offsets (k its popcount)."""
     keys, counts = fused_extract_count(codes, lengths, limits, k,
                                        canonical=canonical,
                                        mask_ambiguous=mask_ambiguous, seg=seg,
-                                       packed_width=packed_width)
+                                       packed_width=packed_width,
+                                       positions=positions)
     return hll_class_histogram(keys, counts, k=k, b=b, out=hist)
 
 

@@ -4,9 +4,9 @@ Single-device pipeline.  Each batch goes to the device 2-bit packed and
 runs one count step:
 
 - the fused step (the default, KMER_TPU_STEP=auto or fused): contiguous
-  k-mers through ops/kernels/fused_extract (extraction, canonical key,
-  validity and the in-segment collapse in kernel K1), gapped L+R chunks
-  through ops/kernels/fused_gapped (K3);
+  k-mers and spaced seeds through ops/kernels/fused_extract (extraction,
+  canonical key, validity and the in-segment collapse in kernel K1),
+  gapped L+R chunks through ops/kernels/fused_gapped (K3);
 - the unfused step (KMER_TPU_STEP=legacy, any other value, or t), and
   the uncompacted contiguous step whenever cfg.sort_group_keys is 0:
   contiguous k-mers extracted without collapse (ops/kernels/extract,
@@ -14,7 +14,13 @@ runs one count step:
   sort_group_keys keys (K2a, K2b or K2c by KMER_TPU_GROUPED; K2c in
   strided groups of KMER_TPU_T_M keys under t), or, for sort_group_keys
   = 0, by one exact flat sort (ops/count.sort_count, K6).  kmer_tpu's
-  step selection (kmer_tpu/pipeline/count.py:57-138, 205-238).
+  step selection (kmer_tpu/pipeline/count.py:57-138, 144-188, 205-238).
+
+A key of 32 to 63 bases (contiguous, or a seed mask's selected bases)
+travels as the (hi, lo) int64 pair of ops/encode, hi the first 31 bases:
+the gapped pair at l_len = 31, so the pair paths of the table
+(gapped_run_pairs), compaction (K4), the device merge (two words) and
+the grouped counts take it as they stand.
 
 Then:
 
@@ -48,6 +54,7 @@ from ..config import KmerConfig
 from ..io.fasta import iter_batches, iter_parse_chunks, parse_seqs
 from ..ops import count as count_ops
 from ..ops import devmerge
+from ..ops.encode import HI_BASES, key_planes, pair_r_len
 from ..ops.kernels import compact as compact_kernel
 from ..ops.kernels import fused_gapped
 from ..ops.kernels.extract import extract_keys
@@ -89,15 +96,18 @@ def resolve_device(device) -> torch.device:
 
 def fused_step(codes: torch.Tensor, lengths: torch.Tensor,
                limits: torch.Tensor, *, k: int, canonical: bool,
-               mask_ambiguous: bool = False, packed_width: int = 0):
-    """The fused count step (kernel K1 on a GPU): (keys (P_pad, B) int64,
-    counts (P_pad, B) int8) under the partial-aggregation contract (equal
-    keys may recur; the host sums them).  Dense mode calls it directly,
-    whatever KMER_TPU_STEP says."""
+               mask_ambiguous: bool = False, packed_width: int = 0,
+               positions=None):
+    """The fused count step (kernel K1 on a GPU): (keys (P_pad, B) int64
+    -- the (hi, lo) pair of them for keys of 32 to 63 bases -- and counts
+    (P_pad, B) int8) under the partial-aggregation contract (equal keys
+    may recur; the host sums them).  positions: a spaced seed's k window
+    offsets.  Dense mode calls it directly, whatever KMER_TPU_STEP
+    says."""
     return fused_extract_count(codes, lengths, limits, k,
                                canonical=canonical,
                                mask_ambiguous=mask_ambiguous, seg=SEG,
-                               packed_width=packed_width)
+                               packed_width=packed_width, positions=positions)
 
 
 def _fused_selected() -> bool:
@@ -116,9 +126,12 @@ def _t_group_keys() -> int:
 def count_step_sort(codes: torch.Tensor, lengths: torch.Tensor,
                     limits: torch.Tensor, *, k: int, canonical: bool,
                     mask_ambiguous: bool = False, group_keys: int = 0,
-                    packed_width: int = 0):
+                    packed_width: int = 0, positions=None):
     """One device batch, sort mode: (keys, counts) under the
-    partial-aggregation contract, on the device the tensors lie on.
+    partial-aggregation contract, on the device the tensors lie on; keys
+    of 32 to 63 bases are (hi, lo) pairs of planes.  positions: a spaced
+    seed's k window offsets (k the mask's popcount), or None; with them
+    this is kmer_tpu's spaced_step_sort (kmer_tpu/pipeline/count.py:144).
 
     group_keys > 0 with KMER_TPU_STEP auto or fused: the fused step,
     (P_pad, B) int64 keys and int8 counts.  Otherwise the unfused step:
@@ -130,18 +143,19 @@ def count_step_sort(codes: torch.Tensor, lengths: torch.Tensor,
     if group_keys > 0 and _fused_selected():
         return fused_step(codes, lengths, limits, k=k, canonical=canonical,
                           mask_ambiguous=mask_ambiguous,
-                          packed_width=packed_width)
-    keys = extract_keys(codes, lengths, limits, k, canonical=canonical,
-                        mask_ambiguous=mask_ambiguous,
-                        packed_width=packed_width).reshape(-1)
+                          packed_width=packed_width, positions=positions)
+    planes = [p.reshape(-1) for p in key_planes(extract_keys(
+        codes, lengths, limits, k, canonical=canonical,
+        mask_ambiguous=mask_ambiguous, packed_width=packed_width,
+        positions=positions))]
     if group_keys == 0:
-        words, counts = count_ops.sort_count([keys])
+        words, counts = count_ops.sort_count(planes)
     elif os.environ.get("KMER_TPU_STEP") == "t":
-        words, counts = count_ops.grouped_count([keys], _t_group_keys(),
+        words, counts = count_ops.grouped_count(planes, _t_group_keys(),
                                                 backend="pallas_t")
     else:
-        words, counts = count_ops.grouped_count([keys], group_keys)
-    return words[0], counts
+        words, counts = count_ops.grouped_count(planes, group_keys)
+    return (tuple(words) if len(words) == 2 else words[0]), counts
 
 
 def gapped_step_sort(codes: torch.Tensor, lengths: torch.Tensor,
@@ -164,20 +178,24 @@ def count_step_compact(codes: torch.Tensor, lengths: torch.Tensor,
                        mask_ambiguous: bool = False, group_keys: int = 256,
                        packed_width: int = 0):
     """One sort-mode batch with on-device compaction: (keys (n,) int64,
-    counts (n,) int64, total (1,) int64), rows [0, total) the batch's
-    live (key, count) records (ops/kernels/compact).  The fused step
-    under KMER_TPU_STEP auto or fused, whatever group_keys is; else K7,
-    then grouped_count at m = group_keys (at least 1)."""
+    or (n, 2) [vhi, vlo] for keys of 32 to 63 bases, counts (n,) int64,
+    total (1,) int64), rows [0, total) the batch's live (key, count)
+    records (ops/kernels/compact).  The fused step under KMER_TPU_STEP
+    auto or fused, whatever group_keys is; else K7, then grouped_count at
+    m = group_keys (at least 1)."""
+    r_len = pair_r_len(k)
     if _fused_selected():
         keys, counts = fused_step(codes, lengths, limits, k=k,
                                   canonical=canonical,
                                   mask_ambiguous=mask_ambiguous,
                                   packed_width=packed_width)
-        return compact_kernel.compact((keys,), counts)
+        return compact_kernel.compact(key_planes(keys), counts, r_len=r_len,
+                                      n_bases=k)
     keys = extract_keys(codes, lengths, limits, k, canonical=canonical,
                         mask_ambiguous=mask_ambiguous,
                         packed_width=packed_width)
-    return count_ops.grouped_count_compact([keys], group_keys)
+    return count_ops.grouped_count_compact(key_planes(keys), group_keys,
+                                           r_len=r_len, n_bases=k)
 
 
 def gapped_step_compact(codes: torch.Tensor, lengths: torch.Tensor,
@@ -505,6 +523,9 @@ def count_codes(codes: np.ndarray, offsets: np.ndarray, cfg: KmerConfig,
 def _count_sort(codes, offsets, cfg: KmerConfig, dev: torch.device,
                 log: StatsLogger) -> tuple[KmerTable, int]:
     k = cfg.n_bases
+    # lo's bases of a (hi, lo) key (gapped, or 32 to 63 bases); 0 for one
+    # int64
+    r_len = cfg.r_len if cfg.gapped else pair_r_len(k)
     win = dict(c_min=cfg.c_min, c_max=cfg.c_max, l_len=cfg.l_len,
                r_len=cfg.r_len)
     copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
@@ -528,17 +549,19 @@ def _count_sort(codes, offsets, cfg: KmerConfig, dev: torch.device,
                 copy_stream)
     else:
         def step(codes_d, lengths_d, limits_d, pw):
-            return _Readback(count_step_sort(
+            keys, counts = count_step_sort(
                 codes_d, lengths_d, limits_d, k=k, canonical=cfg.canonical,
                 mask_ambiguous=cfg.skip_invalid,
-                group_keys=cfg.sort_group_keys, packed_width=pw))
+                group_keys=cfg.sort_group_keys, packed_width=pw,
+                positions=cfg.seed_positions)
+            return _Readback((*key_planes(keys), counts))
 
     if cfg.compact:
         def batch_pairs(rb):
             return rb.pairs()                  # records as they came
-    elif cfg.gapped:
+    elif r_len:
         def batch_pairs(rb):
-            return gapped_run_pairs(*rb.host(), cfg.r_len, k)
+            return gapped_run_pairs(*rb.host(), r_len, k)
     else:
         def batch_pairs(rb):
             return device_run_pairs(*rb.host())
@@ -633,16 +656,26 @@ def _count_devmerge(codes, offsets, cfg: KmerConfig, dev: torch.device,
                                     cfg.r_len, k)
         dm = DeviceMerge(2, dev, to_part, l_len=cfg.l_len, r_len=cfg.r_len)
     else:
+        r_len = pair_r_len(k)
+
         def step(codes_d, lengths_d, limits_d, pw):
             keys, counts = count_step_sort(
                 codes_d, lengths_d, limits_d, k=k, canonical=cfg.canonical,
                 mask_ambiguous=cfg.skip_invalid,
-                group_keys=cfg.sort_group_keys, packed_width=pw)
-            return (keys,), counts
+                group_keys=cfg.sort_group_keys, packed_width=pw,
+                positions=cfg.seed_positions)
+            return key_planes(keys), counts
 
-        def to_part(keys, counts):
-            return np.ascontiguousarray(keys[:, 0]).view(np.uint64), counts
-        dm = DeviceMerge(1, dev, to_part)
+        if r_len:
+            def to_part(keys, counts):
+                return gapped_run_pairs(keys[:, 0], keys[:, 1], counts,
+                                        r_len, k)
+            dm = DeviceMerge(2, dev, to_part, l_len=HI_BASES, r_len=r_len)
+        else:
+            def to_part(keys, counts):
+                return (np.ascontiguousarray(keys[:, 0]).view(np.uint64),
+                        counts)
+            dm = DeviceMerge(1, dev, to_part)
 
     n_batches = 0
     for _, (words, counts) in dispatch_batches(codes, offsets, cfg, dev,

@@ -34,16 +34,21 @@ def sketch_histograms(paths, ks, cfg: KmerConfig, *, b: int = 10,
                       device="cuda"):
     """The class histogram of every k in one ingest pass:
     ({k: (2**(b + 5),) int64 numpy histogram}, {k: windows extracted})
-    with ks deduplicated.  cfg.max_read_len must take max(ks)."""
+    with ks deduplicated.  cfg.max_read_len must take max(ks).  With
+    cfg.seed_mask the one key width is the mask's popcount (ks is
+    ignored) and the window spans the mask, as kmer_tpu's estimator."""
     if cfg.gapped:
         raise ValueError("estimation applies to contiguous k-mers")
     if not 1 <= b <= 11:
         raise ValueError(f"buckets_log2 must be in [1, 11] (class width "
                          f"b+5 <= 16 bits), got {b}")
+    positions = cfg.seed_positions
+    if positions is not None:
+        ks = [len(positions)]
     ks = list(dict.fromkeys(ks))      # a repeated k would double-count
     if not ks or any(kk < 1 for kk in ks):
         raise ValueError(f"bad k list {ks}")
-    span = max(ks)
+    span = cfg.window_span if positions is not None else max(ks)
     if cfg.max_read_len < span:
         raise ValueError(f"max_read_len={cfg.max_read_len} < window "
                          f"span {span}")
@@ -58,7 +63,8 @@ def sketch_histograms(paths, ks, cfg: KmerConfig, *, b: int = 10,
         for kk in ks:
             hll_step(codes_d, lengths_d, limits_d, hists[kk], k=kk,
                      canonical=cfg.canonical, b=b,
-                     mask_ambiguous=cfg.skip_invalid, packed_width=pw)
+                     mask_ambiguous=cfg.skip_invalid, packed_width=pw,
+                     positions=positions)
 
     log = StatsLogger(enabled=cfg.stats)
     # batches overlap by the LARGEST span - 1, so every k's windows are
@@ -68,8 +74,9 @@ def sketch_histograms(paths, ks, cfg: KmerConfig, *, b: int = 10,
                                          span=span):
             for kk in ks:
                 # windows of a row: start below its limit, end in its read
-                ends = np.minimum(batch.lengths, batch.start_limits + kk - 1)
-                totals[kk] += int(np.maximum(ends - kk + 1, 0).sum())
+                w = span if positions is not None else kk
+                ends = np.minimum(batch.lengths, batch.start_limits + w - 1)
+                totals[kk] += int(np.maximum(ends - w + 1, 0).sum())
     return {kk: h.cpu().numpy() for kk, h in hists.items()}, totals
 
 
@@ -77,7 +84,8 @@ def estimate_distinct_multi_k(paths, ks, cfg: KmerConfig | None = None,
                               *, b: int = 10, device="cuda", **cfg_kw):
     """ntCard-style multi-k estimation in one ingest pass: every batch
     crosses once and is sketched at every k.  Returns [(estimate,
-    total_kmers)] aligned with the deduplicated `ks`.
+    total_kmers)] aligned with the deduplicated `ks` (one entry, the
+    spaced keys', under cfg.seed_mask).
 
     The histograms are int64, so no cell saturates and the strict-mode
     check always holds: without skip_invalid every extractable window is

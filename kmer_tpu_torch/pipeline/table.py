@@ -7,8 +7,8 @@ packages.  Aggregation works on keys FUSED into uint64: one (M,) column
 for W <= 2 (up to 31 bases), an (M, 2) most-significant-first matrix for
 W = 3, 4 (up to 63 bases; kmer_tpu's two fused columns).  A fused key is
 the key value itself, so the k <= 31 device output (one int64) needs no
-conversion, and a gapped pair (hi, lo) converts with two shifts
-(ops/encode.pairs_to_value).
+conversion, and a pair (hi, lo) -- gapped, or a key of 32 to 63 bases --
+converts with two shifts (ops/encode.pairs_to_value).
 """
 
 from __future__ import annotations
@@ -224,8 +224,9 @@ def device_run_pairs(keys, counts) -> tuple[np.ndarray, np.ndarray]:
 
 def gapped_run_pairs(hi, lo, counts, r_len: int, n_bases: int
                      ) -> tuple[np.ndarray, np.ndarray]:
-    """device_run_pairs for the gapped step's (hi, lo) int64 pairs: the
-    live lanes as fused key values (fuse_words' layout for n_bases)."""
+    """device_run_pairs for (hi, lo) int64 pairs -- the gapped step's, or
+    keys of 32 to 63 bases (r_len = n_bases - 31) -- : the live lanes as
+    fused key values (fuse_words' layout for n_bases)."""
     counts = np.asarray(counts).reshape(-1)
     live = counts > 0
     vhi, vlo = pairs_to_value(np.asarray(hi).reshape(-1)[live],

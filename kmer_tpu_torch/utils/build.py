@@ -4,7 +4,8 @@ Host C++ (the ingest parser and the pair aggregator) is compiled with
 g++ from kmer_tpu's own sources, by path; the Hopper kernels under
 kmer_tpu_torch/csrc are compiled with nvcc for sm_90a.  Every library is
 a plain C interface loaded with ctypes, built at first use into the
-git-ignored kmer_tpu_torch/_build/, and rebuilt when its source is newer.
+git-ignored kmer_tpu_torch/_build/, and rebuilt when its source (or, for
+a kernel, a header under csrc/) is newer.
 Builds go to a process-unique temp name and are os.rename()d into place
 (atomic on POSIX), so concurrent first uses (test workers) never dlopen
 a half-written file.
@@ -13,6 +14,7 @@ a half-written file.
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -47,8 +49,10 @@ def build_cdll(src: str, name: str, *, cuda: bool = False,
     dlopen it.  Raises RuntimeError with the compiler's output when the
     build fails."""
     so_path = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if (not os.path.exists(so_path)
-            or os.path.getmtime(so_path) < os.path.getmtime(src)):
+    deps = [src] + (glob.glob(os.path.join(CSRC_DIR, "*.cuh")) if cuda
+                    else [])
+    if (not os.path.exists(so_path) or os.path.getmtime(so_path)
+            < max(os.path.getmtime(d) for d in deps)):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so_path}.tmp.{os.getpid()}"
         cmd = ([nvcc(), *NVCCFLAGS] if cuda else ["g++", *CXXFLAGS])

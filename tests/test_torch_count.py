@@ -100,7 +100,7 @@ def test_cli_errors(tmp_path, capsys):
     bad.write_text(">r\nACGTN\n")
     assert main(["count", str(bad), "--device", "cpu"]) == 1
     assert "invalid base" in capsys.readouterr().err
-    assert main(["count", str(bad), "-k", "40", "--device", "cpu"]) == 1
+    assert main(["count", str(bad), "-k", "64", "--device", "cpu"]) == 1
     assert "ROADMAP" in capsys.readouterr().err
 
 

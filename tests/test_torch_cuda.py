@@ -1,6 +1,8 @@
 """The CUDA kernels K1, K2a-c, K3, K4, K5, K6 and K7 against their plain
-torch versions, and the whole count (sort, the unfused steps, compact,
-device merge and dense), the parity dump and the HyperLogLog estimate on
+torch versions (K1 and K7 also for keys of 32 to 63 bases and for spaced
+seeds, K4 and K5 also on (hi, lo) pairs), and the whole count (sort, the
+unfused steps, compact, device merge and dense, at k <= 31, at 32 <= k <=
+63 and with seed masks), the parity dump and the HyperLogLog estimate on
 the card against the CPU.  Every test
 here needs a GPU and skips without one.  This file imports neither jax nor kmer_tpu,
 so it also runs on a machine that has only the port:
@@ -225,7 +227,8 @@ def test_histogram_kernel_equals_plain(cuda, bits):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("k,b", [(21, 10), (11, 11), (16, 4)])
+@pytest.mark.parametrize("k,b", [(21, 10), (11, 11), (16, 4), (45, 10),
+                                 (63, 11)])
 def test_hll_histogram_kernel_equals_plain(cuda, k, b):
     keys, counts = _k1_stream(cuda, k, 2048, 150, k)
     got = hk.hll_class_histogram(keys, counts, k=k, b=b)
@@ -445,3 +448,146 @@ def test_unfused_count_cuda_equals_cpu(cuda, tmp_path, monkeypatch, env,
     got = kmer_tpu_torch.count_fasta(str(path), device="cuda", **kw)
     assert got == want and got.total == 300 * 130
     assert ek.launches == -(-300 * 2 // 64)
+
+
+# chip_smoke.py's spaced masks: span 31 with 24 selected (one word), span 55
+# with 42 selected (a pair)
+MASK24 = "1110111011101110111011101110111"
+MASK42 = "1110111011101110111011101110111011101110111011101110111"
+# (k, mask, canonical, ambiguous, seg, packed)
+WIDE_CASES = [(32, None, True, False, 2, True),
+              (45, None, False, True, 4, False),
+              (48, None, True, True, 2, False),
+              (55, None, True, False, 2, True),
+              (63, None, False, False, 16, True),
+              (63, None, True, True, 8, False),
+              (24, MASK24, True, True, 2, False),
+              (42, MASK42, True, False, 2, True),
+              (42, MASK42, False, True, 4, False),
+              (5, "1101011", False, False, 2, True)]
+
+
+def _wide_batch(seed, B, L, amb, packed):
+    """Random rows with poly-T rows, short lengths and limits; u8 rows
+    carry 2% ambiguous codes when amb."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, (B, L), dtype=np.uint8)
+    if amb:
+        codes[rng.random((B, L)) < 0.02] = 4
+    codes[0] = 3
+    codes[1, 40:] = 3
+    lengths = rng.integers(0, L + 1, B).astype(np.int32)
+    limits = rng.integers(1, L + 1, B).astype(np.int32)
+    lengths[:2] = limits[:2] = L
+    c = pack_batch_codes(codes).view(np.int32) if packed else codes
+    return [torch.from_numpy(np.ascontiguousarray(c)),
+            torch.from_numpy(lengths), torch.from_numpy(limits)]
+
+
+def _positions(mask):
+    return tuple(i for i, c in enumerate(mask) if c == "1") if mask else None
+
+
+def _same_keys(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return len(got) == len(want) and all(torch.equal(g.cpu(), w.cpu())
+                                         for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("k,mask,canon,amb,seg,packed", WIDE_CASES)
+def test_wide_kernel_equals_plain(cuda, k, mask, canon, amb, seg, packed):
+    """K1 on keys of 32 to 63 bases and on spaced seeds, bit for bit."""
+    B, L = 300, 110
+    host = _wide_batch(k + seg, B, L, amb, packed)
+    kw = dict(canonical=canon, mask_ambiguous=amb, seg=seg,
+              packed_width=L if packed else 0, positions=_positions(mask))
+    want_keys, want_counts = fe.fused_extract_count(*host, k, **kw)
+    before = fe.launches
+    keys, counts = fe.fused_extract_count(*(t.to(cuda) for t in host), k,
+                                          **kw)
+    torch.cuda.synchronize()
+    assert fe.launches == before + 1
+    assert _same_keys(keys, want_keys)
+    assert torch.equal(counts.cpu(), want_counts)
+    assert int((want_counts > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("k,mask,canon,amb,seg,packed", WIDE_CASES)
+def test_wide_extract_kernel_equals_plain(cuda, k, mask, canon, amb, seg,
+                                          packed):
+    """K7 on keys of 32 to 63 bases and on spaced seeds, bit for bit."""
+    B, L = 300 + seg, 110
+    host = _wide_batch(k + 2 * seg, B, L, amb, packed)
+    kw = dict(canonical=canon, mask_ambiguous=amb,
+              packed_width=L if packed else 0, positions=_positions(mask))
+    want = ek.extract_keys(*host, k, **kw)
+    before = ek.launches
+    got = ek.extract_keys(*(t.to(cuda) for t in host), k, **kw)
+    torch.cuda.synchronize()
+    assert ek.launches == before + 1
+    assert _same_keys(got, want)
+
+
+@pytest.mark.parametrize("k", [33, 63])
+def test_compact_kernel_pairs(cuda, k):
+    """K4 on K1's (hi, lo) output; k = 63 takes lo's flip off."""
+    keys, counts = _k1_stream(cuda, k, 999, 160, k)
+    launched, t = _compact_both(keys, counts, r_len=k - 31, n_bases=k)
+    assert launched == 1 and t == int((counts > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("kw,env", [
+    (dict(k=45, canonical=True), {}), (dict(k=63), {}),
+    (dict(k=45, canonical=True, compact=True), {}),
+    (dict(k=63, canonical=True, device_merge="on"), {}),
+    (dict(k=45), dict(KMER_TPU_STEP="legacy")),
+    (dict(k=33, sort_group_keys=0), {}),
+    (dict(seed_mask=MASK42, canonical=True), {}),
+    (dict(seed_mask=MASK42, device_merge="on"), {}),
+    (dict(seed_mask=MASK24, sort_group_keys=0), {}),
+    (dict(seed_mask=MASK42, canonical=True), dict(KMER_TPU_STEP="legacy"))])
+def test_wide_and_spaced_count_cuda_equal_cpu(cuda, tmp_path, monkeypatch,
+                                              kw, env):
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    path = tmp_path / "g.fasta"
+    path.write_text(genome_reads_fasta(300, 150, genome_len=3000, seed=7,
+                                       error_rate=0.01))
+    cfg = kmer_tpu_torch.KmerConfig(batch_reads=64, max_read_len=96, **kw)
+    want = kmer_tpu_torch.count_fasta(str(path), cfg, device="cpu")
+    fe.launches = ek.launches = 0
+    got = kmer_tpu_torch.count_fasta(str(path), cfg, device="cuda")
+    span = cfg.window_span
+    assert got == want and got.total == 300 * (150 - span + 1)
+    # 150-base reads in 96-base rows overlapping by span - 1 bases
+    rows = 1 + -(-(150 - 96) // (96 - (span - 1)))
+    assert fe.launches + ek.launches == -(-300 * rows // 64)
+
+
+def test_k63_sentinel_trap_cuda(cuda, tmp_path, monkeypatch):
+    """A poly-T key and a key ending in 32 T's at k = 63 are counted on
+    the card in every mode."""
+    head = "ACGTTGCAACGTTGCAACGTTGCAACGTTGC"
+    path = tmp_path / "t.fasta"
+    path.write_text(f">a\n{'T' * 70}\n>b\n{head}{'T' * 32}\n")
+    want = {"T" * 63: 8, head + "T" * 32: 1}
+    for extra in (dict(), dict(compact=True), dict(device_merge="on"),
+                  dict(sort_group_keys=0)):
+        got = kmer_tpu_torch.count_fasta(str(path), k=63, device="cuda",
+                                         **extra)
+        assert got.to_dict() == want, extra
+    monkeypatch.setenv("KMER_TPU_STEP", "legacy")
+    assert kmer_tpu_torch.count_fasta(str(path), k=63,
+                                      device="cuda").to_dict() == want
+
+
+def test_wide_and_spaced_card_cuda_equal_cpu(cuda, tmp_path):
+    path = tmp_path / "g.fasta"
+    path.write_text(genome_reads_fasta(300, 150, genome_len=3000, seed=8))
+    for kw in (dict(k=45, canonical=True), dict(seed_mask=MASK42)):
+        cfg = kmer_tpu_torch.KmerConfig(batch_reads=64, max_read_len=96, **kw)
+        assert (kmer_tpu_torch.estimate_distinct_multi_k(str(path), [45], cfg,
+                                                         device="cuda")
+                == kmer_tpu_torch.estimate_distinct_multi_k(
+                    str(path), [45], cfg, device="cpu"))

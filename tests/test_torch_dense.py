@@ -252,9 +252,9 @@ def test_card_cli_bytes(genome, sample_fasta_path, capsys):
         assert res.returncode == 0, res.stderr
         assert res.stdout == want and "distinct_estimate" in want
     from kmer_tpu_torch.cli import main
-    assert main(["card", genome, "--seed-mask", "11011", "--device",
-                 "cpu"]) == 1
-    assert "ROADMAP" in capsys.readouterr().err
+    assert main(["card", genome, "--seed-mask", "11011", "-k", "21",
+                 "--device", "cpu"]) == 1
+    assert "--seed-mask" in capsys.readouterr().err
 
 
 def test_cli_count_mode_dense_bytes(genome, capsys):

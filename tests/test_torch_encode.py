@@ -72,19 +72,29 @@ def test_encode_and_decode_match_reference():
             jenc.decode_key_words_to_bytes(words, k))
 
 
-@pytest.mark.parametrize("kw", [dict(k=32), dict(k=63),
-                                dict(gapped=True, l_len=32, c_min=80),
-                                dict(seed_mask="11011"),
-                                dict(k=33, compact=True),
-                                dict(gapped=True, r_len=32, c_min=80),
-                                dict(k=45)])
-def test_options_not_ported_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("kw,item", [
+    (dict(gapped=True, l_len=32, c_min=80), "item 15"),
+    (dict(gapped=True, r_len=32, c_min=80), "item 15"),
+    (dict(k=64), "item 18"), (dict(k=101, canonical=True), "item 18")])
+def test_options_not_ported_raise(kw, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         KmerConfig(**kw)
 
 
+@pytest.mark.parametrize("kw", [dict(k=32), dict(k=63),
+                                dict(seed_mask="11011"),
+                                dict(k=33, compact=True), dict(k=45)])
+def test_options_now_accepted(kw):
+    """Two-word keys and spaced seeds count (ROADMAP items 5 and 8)."""
+    cfg = KmerConfig(**kw)
+    assert cfg.effective_mode == "sort"
+    assert cfg.n_bases == (4 if "seed_mask" in kw else kw["k"])
+
+
 def test_wide_keys_rejected_by_converters():
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="pairs"):
         tenc.keys_i64_to_u32(np.zeros(1, np.int64), 32)
+    with pytest.raises(NotImplementedError, match="item 18"):
+        tenc.check_k(64)
     assert KmerConfig().effective_mode == "sort"
     assert KmerConfig(mode="auto", k=5).effective_mode == "sort"
