@@ -56,13 +56,19 @@ few) to stdout:
  12. `card -k 21 --canonical` on phase 4's corpus: the class histogram
      equals the plain version's on the first 50,000 reads, and the
      estimate falls within 15% of phase 4's exact distinct count;
- 13. kernel K6 (kmer_tpu_torch/csrc/sort.cu) against its plain version,
-     bit for bit: at the device merge's shape (2 words, a 2**24-row
-     state plus 2**23 lanes of K1 output with counts), at the parity
-     shape (K3's live (hi, lo, counts) at B=256, L=416, 3 words) and at
-     edge cases (N = 1, N around the 4096-row tile, a non-power-of-two
-     N, all sentinels, all equal rows, W = 4); timed beside the plain
-     version and torch.sort of one word at the same N;
+ 13. kernel K6 (kmer_tpu_torch/csrc/sort.cu, the stable radix sort)
+     against its plain version, bit for bit, payload order included: the
+     k = 21 device merge as merge_batch calls it (a 2**24-row state plus
+     2**23 lanes of K1 output: one 42-bit key word, counts as payload),
+     the same rows with the counts keyed at 32 bits and with every word
+     a 64-bit key (the parent's work), the k = 55 merge (hi, lo at 62
+     and 48 bits, counts), k = 63 lo words (64 bits: negatives, a real
+     INT64_MAX), the span-55 mask's sort_group_keys=0 lanes, the parity
+     shape (K3's live (hi, lo, counts) at B=256, L=416) with and without
+     bits, and edge cases (N = 1, N around the 4096-row tile, an odd
+     pass count, a non-power-of-two N, all sentinels, all equal rows,
+     W = 4); each caller's shape timed beside the plain version and
+     torch.sort of one word at the same N;
  14. phase 4's run with device_merge="on" (the table on the card, merged
      by K6): its table equals phase 4's, K6 launches once a merge, the
      stage breakdown and wall beside phase 4's host-merge wall; then the
@@ -669,67 +675,126 @@ def phase_gapped_end_to_end(dev, seed: int, tmp: str):
 
 
 def phase_sort_kernel(dev, seed: int) -> dict:
-    """K6 == plain version on `dev`, bit for bit, at the device merge's
-    and the parity path's shapes and at edge cases; returns K6's JSON
-    record (without the main-path launch count)."""
+    """K6 == plain version on `dev`, bit for bit (payload order within
+    equal keys included), at the shapes its callers give it and at edge
+    cases; returns K6's JSON record (without the main-path launch
+    count), timed at the k = 21 device merge as merge_batch calls it."""
+    from kmer_tpu_torch.ops.encode import plane_bits
+    from kmer_tpu_torch.ops.extract import parse_seed_mask
+    from kmer_tpu_torch.ops.kernels import extract as ek
     from kmer_tpu_torch.ops.kernels import fused_extract as fe
     from kmer_tpu_torch.ops.kernels import fused_gapped as fg
     from kmer_tpu_torch.ops.kernels import sort as sk
     rng = np.random.default_rng(seed + 4)
     gen = torch.Generator(device=dev).manual_seed(seed)
     sent = sk.SENTINEL
+    main = [t.to(dev) for t in kernel_batch(rng, MAIN_B, MAIN_L, K,
+                                            packed=True, amb=False,
+                                            short=False)]
 
     def rand(n, hi):
         return torch.randint(0, hi, (n,), generator=gen, device=dev)
 
-    # the device merge: a 2**24-row state (sorted unique keys, counts)
-    # and 2**23 lanes of K1 output, dead lanes made sentinel rows
-    state = torch.unique(rand(1 << 24, 4 ** K))
-    main = [t.to(dev) for t in kernel_batch(rng, MAIN_B, MAIN_L, K,
-                                            packed=True, amb=False,
-                                            short=False)]
+    def merge_rows(state, batch, counts):
+        # a device merge: a 2**24-row state, sorted unique and padded
+        # with sentinel rows, and 2**23 lanes of step output, dead lanes
+        # made sentinel rows
+        reps = -(-(1 << 23) // counts.numel())
+        bc = counts.reshape(-1).to(torch.int64).repeat(reps)[:1 << 23]
+        rows = []
+        for s_w, b_w in zip(state, batch):
+            pad = torch.full(((1 << 24) - s_w.numel(),), sent, device=dev)
+            b_w = b_w.reshape(-1).repeat(reps)[:1 << 23]
+            rows.append(torch.cat([s_w, pad, torch.where(bc > 0, b_w, sent)]))
+        live = state[0].numel()
+        return rows + [torch.cat([rand(live, 50) + 1,
+                                  torch.zeros((1 << 24) - live,
+                                              dtype=torch.int64, device=dev),
+                                  bc])]
+
+    # k = 21: K1's keys and counts into a state of unique 42-bit keys
     keys, counts = fe.fused_extract_count(*main, K, canonical=True, seg=SEG,
                                           packed_width=MAIN_L)
-    reps = -(-(1 << 23) // keys.numel())
-    bk = keys.reshape(-1).repeat(reps)[:1 << 23]
-    bc = counts.reshape(-1).to(torch.int64).repeat(reps)[:1 << 23]
-    bk = torch.where(bc > 0, bk, sent)
-    merge = [torch.cat([state, bk]),
-             torch.cat([rand(state.numel(), 50) + 1, bc])]
+    k21 = merge_rows([torch.unique(rand(1 << 24, 4 ** K))], [keys], counts)
+    # k = 55: K1's (hi, lo) pairs into a state of sorted pairs
+    wide = [t.to(dev) for t in gapped_batch(rng, MAIN_B, MAIN_L, packed=True,
+                                            amb=False, short=False,
+                                            full_len=READ_LEN)]
+    (hi, lo), counts55 = fe.fused_extract_count(
+        *wide, WIDE_K, canonical=True, seg=SEG, packed_width=MAIN_L)
+    bits55 = plane_bits(WIDE_K)
+    state55 = sk.sort_words_ref([rand(1 << 24, 1 << bits55[0]),
+                                 rand(1 << 24, 1 << bits55[1])])
+    k55 = merge_rows(state55, [hi, lo], counts55)
+    # k = 63: lo carries its flipped top bit (negatives), and a real lo of
+    # INT64_MAX (a key ending in 32 T's) beside sentinel rows
+    (hi63, lo63), c63 = fe.fused_extract_count(
+        *wide, 63, canonical=False, seg=SEG, packed_width=MAIN_L)
+    live63 = c63.reshape(-1) > 0
+    lo63 = torch.where(live63, lo63.reshape(-1), sent)
+    lo63[::97] = sent
+    k63 = [torch.where(live63, hi63.reshape(-1), sent), lo63,
+           c63.reshape(-1).to(torch.int64)]
+    # the span-55 mask under sort_group_keys=0: K7's (hi, lo) lanes
+    mask_pos = parse_seed_mask(WIDE_MASK)
+    mask = list(ek.extract_keys(*wide, len(mask_pos), canonical=True,
+                                packed_width=MAIN_L, positions=mask_pos))
+    mask = [w.reshape(-1) for w in mask]
     # the parity path: K3's live (hi, lo, counts) of one batch
-    hi, lo, gc = fg.fused_gapped_count(
+    ghi, glo, gc = fg.fused_gapped_count(
         *(t.to(dev) for t in gapped_batch(rng, GAP_B, GAP_L, packed=True,
                                           amb=False, short=False)),
         **GAP, seg=SEG, packed_width=GAP_L)
     live = gc.reshape(-1) > 0
-    parity = [hi.reshape(-1)[live], lo.reshape(-1)[live],
+    parity = [ghi.reshape(-1)[live], glo.reshape(-1)[live],
               gc.reshape(-1)[live].to(torch.int64)]
+    parity_bits = (2 * GAP["l_len"], 2 * GAP["r_len"], 31)
 
     def with_sentinels(words, share=0.2):
         dead = torch.rand(words[0].numel(), generator=gen, device=dev) < share
         return [torch.where(dead, sent, w) for w in words]
 
+    def payload(n):
+        return torch.randperm(n, generator=gen, device=dev)
+
+    # (words, num_keys, bits): None is every word at 64 bits
     cases = {
-        "devmerge": merge, "parity": parity,
-        "n1": [rand(1, 100), rand(1, 100)],
-        "tile": with_sentinels([rand(4096, 1 << 62)]),
-        "tile_plus_1": with_sentinels([rand(4097, 50), rand(4097, 50)]),
-        "odd_n": with_sentinels([rand(1_000_003, 1 << 42), rand(1_000_003,
-                                                                1 << 20),
-                                 rand(1_000_003, 7)]),
-        "all_sentinels": [torch.full((100_000,), sent, device=dev)] * 2,
-        "all_equal": [torch.full((70_000,), 7, device=dev)] * 3,
-        "w4": with_sentinels([rand(300_001, 4) for _ in range(4)]),
+        "k21_merge": (k21, 1, (2 * K,)),                  # merge_batch
+        "k21_merge_counts_keyed": (k21, 2, (2 * K, 32)),
+        "devmerge": (k21, None, None),                    # the parent's work
+        "k55_merge": (k55, 2, bits55),
+        "k63_lo": (k63, 2, plane_bits(63)),
+        "mask_sort_group_keys0": (mask, None, plane_bits(len(mask_pos))),
+        "parity_bits": (parity, 3, parity_bits),
+        "parity": (parity, None, None),
+        "n1": ([rand(1, 100), rand(1, 100)], None, None),
+        "tile": (with_sentinels([rand(sk.TILE_ROWS, 1 << 62)]), None, None),
+        "tile_plus_1": (with_sentinels([rand(sk.TILE_ROWS + 1, 50)])
+                        + [payload(sk.TILE_ROWS + 1)], 1, (6,)),
+        "odd_passes": (with_sentinels([rand(1_000_003, 1 << 16)])
+                       + [payload(1_000_003)], 1, (16,)),
+        "odd_n": (with_sentinels([rand(1_000_003, 1 << 42),
+                                  rand(1_000_003, 1 << 20),
+                                  rand(1_000_003, 7)]), None, None),
+        "all_sentinels": ([torch.full((100_000,), sent, device=dev),
+                           payload(100_000)], 1, (42,)),
+        "all_equal": ([torch.full((70_000,), 7, device=dev)] * 3, None,
+                      None),
+        "w4": (with_sentinels([rand(300_001, 4) for _ in range(4)]), None,
+               None),
+        "w4_keys2": (with_sentinels([rand(300_001, 4), rand(300_001, 4)])
+                     + [payload(300_001), payload(300_001)], 2, (3, 64)),
     }
     max_err = 0
-    for name, words in cases.items():
+    for name, (words, num_keys, bits) in cases.items():
         before = sk.launches
-        got = sk.sort_words([w.clone() for w in words])
-        want = sk.sort_words_ref(words)
+        got = sk.sort_words([w.clone() for w in words], num_keys, bits)
+        want = sk.sort_words_ref(words, num_keys, bits)
         torch.cuda.synchronize()
-        err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+        err = max(exact_err(g, w) for g, w in zip(got, want))
         launched = sk.launches - before
         _say(f"sort_check case={name} W={len(words)} N={words[0].numel()} "
+             f"num_keys={num_keys or len(words)} bits={bits} "
              f"launches={launched} max_abs_err={err}")
         if err != 0 or launched != 1 or not all(
                 torch.equal(g, w) for g, w in zip(got, want)):
@@ -738,41 +803,52 @@ def phase_sort_kernel(dev, seed: int) -> dict:
         max_err = max(max_err, err)
     del got, want
 
-    def kernel_ms(words, reps, inner):
+    def kernel_ms(words, num_keys, bits, reps, inner):
         # K6 sorts in place: every call gets its own unsorted copy
         copies = iter([[w.clone() for w in words]
                        for _ in range(5 + reps * inner)])
-        return time_ms(lambda: sk.sort_words(next(copies)), reps=reps,
-                       inner=inner)
+        return time_ms(lambda: sk.sort_words(next(copies), num_keys, bits),
+                       reps=reps, inner=inner)
 
     rec = {"name": "sort_words", "route": "cuda", "source": sk.SOURCE,
-           "replaces": sk.REPLACES, "max_abs_err": max_err}
-    for name, reps, inner in (("devmerge", 5, 2), ("parity", 10, 2)):
-        words = cases[name]
+           "replaces": sk.REPLACES, "max_abs_err": max_err, "cases": {}}
+    for name, reps, inner in (("k21_merge", 5, 2), ("devmerge", 5, 2),
+                              ("k21_merge_counts_keyed", 5, 2),
+                              ("k55_merge", 5, 2), ("k63_lo", 10, 2),
+                              ("mask_sort_group_keys0", 10, 2),
+                              ("parity_bits", 10, 2)):
+        words, num_keys, bits = cases[name]
         n, W = words[0].numel(), len(words)
-        plain = functools.partial(sk.sort_words_ref, words)
+        plain = functools.partial(sk.sort_words_ref, words, num_keys, bits)
         p1 = time_ms(plain, reps=reps, inner=inner)
-        k1_, k2_ = kernel_ms(words, reps, inner), kernel_ms(words, reps,
-                                                            inner)
+        k1_ = kernel_ms(words, num_keys, bits, reps, inner)
+        k2_ = kernel_ms(words, num_keys, bits, reps, inner)
         p2 = time_ms(plain, reps=reps, inner=inner)
         ms, plain_ms = min(k1_, k2_), min(p1, p2)
         library_ms = time_ms(functools.partial(torch.sort, words[0]),
                              reps=reps, inner=inner)
         # one read and one write of N rows of W words; N log2 N row
-        # comparisons of W words each
-        b = bound(2 * n * W * 8, n * math.ceil(math.log2(n)) * W)
-        _say(f"sort_time case={name} W={W} N={n} kernel_ms={ms} "
+        # comparisons of num_keys words each
+        b = bound(2 * n * W * 8,
+                  n * math.ceil(math.log2(n)) * (num_keys or W))
+        _say(f"sort_time case={name} W={W} N={n} "
+             f"num_keys={num_keys or W} bits={bits} kernel_ms={ms} "
              f"plain_ms={plain_ms} speedup={plain_ms / ms} "
              f"library_ms={library_ms} (torch.sort, one word) "
              f"bound_ms={b['bound_ms']} bound_by={b['bound_by']} "
              f"GB_per_s={2 * n * W * 8 / (ms * 1e-3) / 1e9} "
              f"(tolerance: exact, max_abs_err must be 0)")
-        if name == "devmerge":
+        if name == "k21_merge":
             rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b)
         else:
-            rec.update(parity_ms=ms, parity_plain_ms=plain_ms,
-                       parity_library_ms=library_ms,
-                       parity_bound_ms=b["bound_ms"])
+            rec["cases"][name] = {"ms": ms, "plain_ms": plain_ms,
+                                  "library_ms": library_ms,
+                                  "bound_ms": b["bound_ms"]}
+    # where K6's time goes at the k = 21 merge, beside torch.sort's
+    words, num_keys, bits = cases["k21_merge"]
+    _say("sort_profile case=k21_merge " + json.dumps(device_kernel_ms(
+        lambda: (sk.sort_words([w.clone() for w in words], num_keys, bits),
+                 torch.sort(words[0])))))
     return rec
 
 
@@ -786,10 +862,10 @@ class _merge_probe:
         from kmer_tpu_torch.ops import devmerge
         self.mod, self.orig, self.states = devmerge, devmerge.merge_batch, []
 
-        def counted(state_words, state_counts, *rest):
+        def counted(state_words, state_counts, *rest, **kw):
             self.states.append(state_counts.numel() * 8
                                * (len(state_words) + 1))
-            return self.orig(state_words, state_counts, *rest)
+            return self.orig(state_words, state_counts, *rest, **kw)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         devmerge.merge_batch = counted
@@ -835,37 +911,38 @@ def profile_devmerge(dev, path: str, cfg) -> None:
     """The k=21 device-merge run once more under torch.profiler: device
     time by kernel and the device's busy share of the wall (kernel time
     summed over the run's kernels, which share one stream)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from kmer_tpu_torch import count_fasta
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        count_fasta(path, cfg.replace(device_merge="on"), device=dev)
-        torch.cuda.synchronize()
+    by_kernel = device_kernel_ms(
+        lambda: count_fasta(path, cfg.replace(device_merge="on"), device=dev))
     wall = time.perf_counter() - t0
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-    # the device's own events only: a host op's row repeats the time of
-    # the kernels it launched
-    rows = sorted(((device_us(e), e.key, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and device_us(e) > 0),
-                  reverse=True)
-    busy = sum(us for us, _, _ in rows) / 1e6
+    rows = sorted(((ms, key, n) for key, (ms, n) in by_kernel.items()
+                   if ms > 0), reverse=True)
     if not rows:
         _say("k21_devmerge_profile device time not measured (the profiler "
              "saw no device events)")
         return
+    busy = sum(ms for ms, _, _ in rows) / 1e3
     _say(f"k21_devmerge_profile wall_s={wall} device_busy_s={busy} "
          f"device_busy_share={busy / wall} (wall under the profiler)")
     _say("k21_devmerge_profile_top " + json.dumps(
-        [{"kernel": key[:60], "ms": us / 1e3, "calls": n}
-         for us, key, n in rows[:8]]))
+        [{"kernel": key, "ms": ms, "calls": n} for ms, key, n in rows[:8]]))
+
+
+def device_kernel_ms(fn) -> dict:
+    """{kernel name: [device ms, calls]} of one run of fn under
+    torch.profiler: the device's own events only (a host op's row would
+    repeat the time of the kernels it launched)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: [getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0)) / 1e3,
+                         e.count]
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
 def time_pair(kernel, plain) -> tuple[float, float]:

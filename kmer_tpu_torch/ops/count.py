@@ -35,13 +35,16 @@ from .kernels import sort as sort_kernel
 GROUPED_BACKENDS = ("auto", "hybrid", "xla", "pallas", "pallas_t", "dedup")
 
 
-def sort_words(words) -> list[torch.Tensor]:
-    """Lexicographic multiset sort of W in 1..4 int64 word planes of any
-    shape (flattened; word 0 most significant), duplicates kept.  CPU
-    tensors take the plain torch version and are left as they are; CUDA
-    tensors are sorted in place by kernel K6 (ops/kernels/sort), so a
+def sort_words(words, num_keys=None, bits=None) -> list[torch.Tensor]:
+    """Stable multiset sort of W in 1..4 int64 word planes of any shape
+    (flattened) by their first num_keys words (default all; word 0 most
+    significant), duplicates kept; the other words are payload.  bits:
+    each key word's value bits (ops/kernels/sort; default 64, any int64).
+    CPU tensors take the plain torch version and are left as they are;
+    CUDA tensors are sorted in place by kernel K6 (ops/kernels/sort), so a
     caller passes tensors it no longer needs."""
-    return sort_kernel.sort_words([w.reshape(-1) for w in words])
+    return sort_kernel.sort_words([w.reshape(-1) for w in words], num_keys,
+                                  bits)
 
 
 def run_lengths(sorted_words) -> torch.Tensor:
@@ -65,10 +68,11 @@ def run_lengths(sorted_words) -> torch.Tensor:
     return torch.where(live, next_start - idx, 0).to(torch.int32)
 
 
-def sort_count(words):
-    """One exact flat sort of the lanes (K6 on a GPU) and their run
-    lengths: (sorted flat words, counts (N,) int32)."""
-    s = sort_words(words)
+def sort_count(words, bits=None):
+    """One exact flat sort of the lanes (K6 on a GPU; bits: the key
+    words' value bits) and their run lengths: (sorted flat words, counts
+    (N,) int32)."""
+    s = sort_words(words, bits=bits)
     return s, run_lengths(s)
 
 

@@ -5,8 +5,9 @@ the device between batches as W int64 key words (one key of up to 31
 bases, or a (hi, lo) pair: gapped, or a key of 32 to 63 bases) plus
 int64 counts, sorted and unique,
 padded with SENTINEL rows (count 0) that sort after every real key.
-Each group of batches merges into it with one lexicographic sort of
-[key words..., counts] (kernel K6 on a GPU, through ops/count.sort_words),
+Each group of batches merges into it with one stable sort of the key
+words, the counts riding along as payload, as kmer_tpu's lax.sort with
+num_keys = W (kernel K6 on a GPU, through ops/count.sort_words),
 run totals by cumsum and a backward cummin, and a scatter of the run
 starts to the front; the host reads the distinct rows once, at a drain.
 
@@ -48,13 +49,15 @@ def empty_state(capacity: int, n_words: int, device="cpu"):
     return words, torch.zeros(capacity, dtype=torch.int64, device=device)
 
 
-def merge_batch(state_words, state_counts, batch_words, batch_counts):
+def merge_batch(state_words, state_counts, batch_words, batch_counts,
+                bits=None):
     """Merge one batch's lanes (duplicates allowed; count <= 0 marks a
     dead lane) into the sorted unique state.
 
     state_words: W (C,) int64 planes, sorted unique, sentinel-padded;
     state_counts: (C,) int64.  batch_words: W int64 tensors of N lanes
-    (any shape); batch_counts: N lanes of any integer dtype.  Returns
+    (any shape); batch_counts: N lanes of any integer dtype.  bits: the
+    key words' value bits (sort_words' promise; default 64).  Returns
     (words, counts, distinct): the new state, C rows, and its live row
     count as a device scalar, without a host sync.  Requires C >=
     distinct_before + N; raises when N > C."""
@@ -68,7 +71,7 @@ def merge_batch(state_words, state_counts, batch_words, batch_counts):
     bw = [torch.where(dead, SENTINEL, w.reshape(-1)) for w in batch_words]
     ops = ([torch.cat([s, b]) for s, b in zip(state_words, bw)]
            + [torch.cat([state_counts, bc.clamp(min=0)])])
-    *kw, counts = sort_words(ops)
+    *kw, counts = sort_words(ops, num_keys=W, bits=bits)
 
     neq = kw[0][1:] != kw[0][:-1]
     for w in kw[1:]:

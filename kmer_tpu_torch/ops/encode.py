@@ -104,6 +104,15 @@ def pair_r_len(n_bases: int) -> int:
     return max(n_bases - HI_BASES, 0)
 
 
+def plane_bits(n_bases: int) -> tuple[int, ...]:
+    """The value bits of each int64 key plane of a contiguous or spaced
+    key of n_bases bases (sort_words' `bits`): (2 n_bases,), or (62,
+    2 r_len) for a pair; at r_len = 32 lo's top bit is flipped and 64
+    means any int64, a real lo of INT64_MAX included."""
+    r_len = pair_r_len(n_bases)
+    return (2 * HI_BASES, 2 * r_len) if r_len else (2 * n_bases,)
+
+
 def encode_seq(seq: str | bytes, allow_ambiguous: bool = False) -> np.ndarray:
     """ASCII sequence -> uint8 codes (plus AMBIG_CODE when
     allow_ambiguous); raises InvalidBaseError otherwise."""

@@ -54,7 +54,7 @@ from ..config import KmerConfig
 from ..io.fasta import iter_batches, iter_parse_chunks, parse_seqs
 from ..ops import count as count_ops
 from ..ops import devmerge
-from ..ops.encode import HI_BASES, key_planes, pair_r_len
+from ..ops.encode import HI_BASES, key_planes, pair_r_len, plane_bits
 from ..ops.kernels import compact as compact_kernel
 from ..ops.kernels import fused_gapped
 from ..ops.kernels.extract import extract_keys
@@ -149,7 +149,7 @@ def count_step_sort(codes: torch.Tensor, lengths: torch.Tensor,
         mask_ambiguous=mask_ambiguous, packed_width=packed_width,
         positions=positions))]
     if group_keys == 0:
-        words, counts = count_ops.sort_count(planes)
+        words, counts = count_ops.sort_count(planes, bits=plane_bits(k))
     elif os.environ.get("KMER_TPU_STEP") == "t":
         words, counts = count_ops.grouped_count(planes, _t_group_keys(),
                                                 backend="pallas_t")
@@ -282,12 +282,15 @@ class DeviceMerge:
 
     A drain reads the distinct rows through the wire tiers and appends
     to_part(keys (d, W) int64, counts (d,) int64) to `parts`; each part
-    is sorted and unique, so a run with one drain needs no host merge."""
+    is sorted and unique, so a run with one drain needs no host merge.
+    bits: the key words' value bits, which the merge's sort trims its
+    passes to (ops/kernels/sort; default 64 each)."""
 
     def __init__(self, n_words: int, device, to_part, *, l_len: int = 0,
-                 r_len: int = 0):
+                 r_len: int = 0, bits=None):
         self.W, self.device, self.to_part = n_words, device, to_part
         self.wire = dict(l_len=l_len, r_len=r_len)
+        self.bits = bits
         self.words = self.counts = None
         self.fixed = False
         self.distinct = 0          # live rows at the last sync
@@ -354,7 +357,7 @@ class DeviceMerge:
                   for i in range(self.W)]
             bc = torch.cat([p[1].reshape(-1) for p in self.pend])
             self.words, self.counts, self.d_dev = devmerge.merge_batch(
-                self.words, self.counts, bw, bc)
+                self.words, self.counts, bw, bc, bits=self.bits)
         self.bound += N
         self.pend, self.pend_lanes = [], 0
 
@@ -654,7 +657,8 @@ def _count_devmerge(codes, offsets, cfg: KmerConfig, dev: torch.device,
         def to_part(keys, counts):
             return gapped_run_pairs(keys[:, 0], keys[:, 1], counts,
                                     cfg.r_len, k)
-        dm = DeviceMerge(2, dev, to_part, l_len=cfg.l_len, r_len=cfg.r_len)
+        dm = DeviceMerge(2, dev, to_part, l_len=cfg.l_len, r_len=cfg.r_len,
+                         bits=(2 * cfg.l_len, 2 * cfg.r_len))
     else:
         r_len = pair_r_len(k)
 
@@ -670,12 +674,13 @@ def _count_devmerge(codes, offsets, cfg: KmerConfig, dev: torch.device,
             def to_part(keys, counts):
                 return gapped_run_pairs(keys[:, 0], keys[:, 1], counts,
                                         r_len, k)
-            dm = DeviceMerge(2, dev, to_part, l_len=HI_BASES, r_len=r_len)
+            dm = DeviceMerge(2, dev, to_part, l_len=HI_BASES, r_len=r_len,
+                             bits=plane_bits(k))
         else:
             def to_part(keys, counts):
                 return (np.ascontiguousarray(keys[:, 0]).view(np.uint64),
                         counts)
-            dm = DeviceMerge(1, dev, to_part)
+            dm = DeviceMerge(1, dev, to_part, bits=plane_bits(k))
 
     n_batches = 0
     for _, (words, counts) in dispatch_batches(codes, offsets, cfg, dev,

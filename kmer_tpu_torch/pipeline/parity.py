@@ -51,7 +51,8 @@ def parity_step(codes: torch.Tensor, lengths: torch.Tensor,
                 l_len: int = 27, r_len: int = 27, packed_width: int = 0):
     """One batch on the device its tensors lie on: every gapped chunk as
     (hi, lo, counts) 1-D int64, sorted lexicographically by (hi, lo)
-    (kernel K6 on a GPU, ops/count.sort_words).  Equal chunks collapsed
+    (kernel K6 on a GPU, ops/count.sort_words), then by count (positive
+    int8 counts: 31 bits is a safe promise).  Equal chunks collapsed
     within a segment carry their count; expanding each row `counts`
     times gives the batch's sorted multiset."""
     hi, lo, counts = gapped_step_sort(codes, lengths, limits, c_min=c_min,
@@ -59,7 +60,8 @@ def parity_step(codes: torch.Tensor, lengths: torch.Tensor,
                                       packed_width=packed_width)
     live = counts.reshape(-1) > 0
     return tuple(sort_words([hi.reshape(-1)[live], lo.reshape(-1)[live],
-                             counts.reshape(-1)[live].to(torch.int64)]))
+                             counts.reshape(-1)[live].to(torch.int64)],
+                            bits=(2 * l_len, 2 * r_len, 31)))
 
 
 def _sorted_batches(codes: np.ndarray, offsets: np.ndarray,

@@ -273,12 +273,12 @@ def test_compact_dense_and_card_cuda_equal_cpu(cuda, tmp_path):
             == kmer_tpu_torch.count_fasta(str(rpath), gcfg, device="cpu"))
 
 
-def _sort_both(words):
+def _sort_both(words, **kw):
     """K6 (in place, on copies) and the plain version on the same rows;
     asserts they agree bit for bit and returns the launches made."""
     before = sk.launches
-    got = sk.sort_words([w.clone() for w in words])
-    want = sk.sort_words_ref(words)
+    got = sk.sort_words([w.clone() for w in words], **kw)
+    want = sk.sort_words_ref(words, **kw)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -310,6 +310,61 @@ def test_sort_kernel_edges(cuda):
     before = sk.launches
     assert sk.sort_words([empty])[0].numel() == 0
     assert sk.launches == before
+
+
+def _keyed(cuda, seed, W, N, bits, dead=0.15):
+    """W planes on the card: len(bits) key words (few distinct values,
+    some wide ones, a share of all-sentinel rows; at bits 64 negatives,
+    INT64_MIN and a real INT64_MAX), then payload words of distinct
+    values, which show the order within equal keys."""
+    rng = np.random.default_rng(seed)
+    keys = []
+    for b in bits:
+        if b == 64:
+            pool = np.array([np.iinfo(np.int64).min, -(1 << 40), -1, 0, 9,
+                             1 << 62, sk.SENTINEL])
+            keys.append(pool[rng.integers(0, len(pool), N)])
+            continue
+        k = rng.integers(0, min(1 << b, 6), N)
+        wide = rng.random(N) < 0.5
+        k[wide] = rng.integers(0, 1 << b, int(wide.sum()))
+        keys.append(k)
+    gone = rng.random(N) < dead
+    for k, b in zip(keys, bits):
+        if b < 64:
+            k[gone] = sk.SENTINEL
+    payload = [rng.permutation(N).astype(np.int64) - N // 2
+               for _ in range(W - len(bits))]
+    return [torch.from_numpy(p).to(cuda) for p in keys + payload]
+
+
+@pytest.mark.parametrize("W,N,bits", [
+    (1, 1, (42,)),                              # n = 1
+    (2, sk.TILE_ROWS + 1, (42,)),               # one past a tile
+    (2, 100_000, (16,)),                        # three passes: the copy back
+    (2, 25_165_824, (42,)),                     # the k = 21 merge's rows
+    (3, 50_001, (62, 48)),                      # a k = 55 merge
+    (3, 20_000, (62, 64)),                      # k = 63: lo any int64
+    (3, 77_777, (54, 54, 31)),                  # parity with counts
+    (1, 4097, (0,)), (2, 9000, (64,)),
+    *[(W, 30_001, (40, 64, 7, 20)[:K]) for W in (1, 2, 3, 4)
+      for K in range(1, W + 1)]])
+def test_sort_kernel_keys_and_bits_equal_plain(cuda, W, N, bits):
+    """num_keys < W (payload order within equal keys included) and trimmed
+    digits: K6 equals the plain version bit for bit."""
+    words = _keyed(cuda, W * 100 + len(bits) + N, W, N, bits)
+    assert _sort_both(words, num_keys=len(bits), bits=bits) == 1
+
+
+@pytest.mark.parametrize("bits", [(42,), (64,)])
+def test_sort_kernel_all_sentinel_keys(cuda, bits):
+    n = 3 * sk.TILE_ROWS + 5
+    key = torch.full((n,), sk.SENTINEL, device=cuda)
+    payload = torch.arange(n, 0, -1, device=cuda)
+    assert _sort_both([key, payload], num_keys=1, bits=bits) == 1
+    got = sk.sort_words([key.clone(), payload.clone()], num_keys=1,
+                        bits=bits)
+    assert torch.equal(got[1], payload)            # stable: order kept
 
 
 def test_devmerge_count_cuda_equals_cpu(cuda, tmp_path):

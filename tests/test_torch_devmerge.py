@@ -6,7 +6,9 @@ values are integers):
   kmer_tpu.ops.devmerge on the same states and batches, converted
   between the port's int64 words and kmer_tpu's uint32 words;
 - count_fasta(..., device_merge="on") tables against kmer_tpu's and the
-  port's host-merge tables, through growth, drains and the clamp;
+  port's host-merge tables (k up to 63, spaced seeds, gapped pairs),
+  through growth, drains and the clamp; every merge's sort takes the
+  key words at their widths and the counts as payload;
 - a reset followed by a group larger than the state, against the
   independent oracle of kmer_tpu/utils/oracle.py;
 - _devmerge_ok, effective_mode and the dense scatter policy against
@@ -261,7 +263,7 @@ def reads(tmp_path_factory):
 
 
 @pytest.mark.parametrize("canonical", [True, False])
-@pytest.mark.parametrize("k", [5, 15, 21, 31])
+@pytest.mark.parametrize("k", [5, 15, 21, 31, 55, 63])
 def test_count_fasta_devmerge_equals_kmer_tpu(reads, k, canonical):
     kw = dict(k=k, canonical=canonical, batch_reads=8, max_read_len=96)
     want = kmer_tpu.count_fasta(reads["a"], mode="sort", **kw)
@@ -284,6 +286,45 @@ def test_gapped_count_devmerge_equals_kmer_tpu(reads, win):
     assert got == want and got.total > 0
     assert kmer_tpu_torch.count_fasta(reads["a"], port_cfg,
                                       device="cpu") == got
+
+
+@pytest.mark.parametrize("mask,canonical", [
+    ("110101011", True), ("1110111011101110111011101110111", False),
+    ("1110111011101110111011101110111011101110111011101110111", True)])
+def test_spaced_count_devmerge_equals_kmer_tpu(reads, mask, canonical):
+    """Spaced seeds of one key word and of a (hi, lo) pair through the
+    device merge, whose sort now takes the counts as payload."""
+    kw = dict(seed_mask=mask, canonical=canonical, batch_reads=8,
+              max_read_len=96)
+    want = kmer_tpu.count_fasta(reads["a"], kmer_tpu.KmerConfig(**kw))
+    got = kmer_tpu_torch.count_fasta(reads["a"], kmer_tpu_torch.KmerConfig(
+        **kw, device_merge="on"), device="cpu")
+    assert got == want and got.total == 37 * (90 - len(mask) + 1)
+
+
+@pytest.mark.parametrize("kw,bits", [
+    (dict(k=21), (42,)), (dict(k=55), (62, 48)), (dict(k=63), (62, 64)),
+    (dict(seed_mask="110101011"), (12,)),
+    (dict(seed_mask="1110111011101110111011101110111011101110111011101110111"),
+     (62, 22)),
+    (dict(gapped=True, l_len=5, r_len=7, c_min=12, c_max=16), (10, 14))])
+def test_devmerge_sorts_keys_with_counts_as_payload(reads, monkeypatch, kw,
+                                                    bits):
+    """Every merge sorts its W key words at the key's bits (k <= 31: 2k;
+    a pair: 62 and 2 r_len, 64 at r_len = 32) with the counts as the
+    payload word, as kmer_tpu's lax.sort(num_keys=W)."""
+    seen = []
+    orig = dm.sort_words
+
+    def spy(words, num_keys=None, bits=None):
+        seen.append((len(words), num_keys, bits))
+        return orig(words, num_keys, bits)
+    monkeypatch.setattr(dm, "sort_words", spy)
+    cfg = kmer_tpu_torch.KmerConfig(batch_reads=8, max_read_len=96,
+                                    device_merge="on", **kw)
+    got = kmer_tpu_torch.count_fasta(reads["a"], cfg, device="cpu")
+    assert got.total > 0 and seen
+    assert set(seen) == {(len(bits) + 1, len(bits), bits)}
 
 
 def _spy(monkeypatch, name):

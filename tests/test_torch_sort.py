@@ -1,8 +1,9 @@
 """The multiset sort (kernel K6's plain version, ops/kernels/sort) against
 kmer_tpu's Pallas K6, sort_words_pallas in interpret mode, and against a
-numpy lexsort, on inputs from np.random.default_rng.  All values are
-integers: every comparison is exact.  The CUDA kernel is held against
-the plain version in test_torch_cuda.py.
+numpy lexsort (stable: with num_keys < W the payload's order within equal
+keys too), on inputs from np.random.default_rng; the key widths its
+callers promise.  All values are integers: every comparison is exact.
+The CUDA kernel is held against the plain version in test_torch_cuda.py.
 """
 
 import jax.numpy as jnp
@@ -89,6 +90,62 @@ def test_plain_sort_equals_lexsort(W, N):
         np.testing.assert_array_equal(g.numpy(), p[order])
 
 
+KEY_BITS = (42, 20, 3, 62)          # a key word's value bits, by position
+
+
+def _keyed_rows(rng, W, num_keys, N, case):
+    """(planes, bits): num_keys key words (heavily duplicated, a share of
+    all-sentinel rows) then payload words of distinct values, so that the
+    payload shows the order within equal keys."""
+    bits = [64 if case == "bits64" else KEY_BITS[q] for q in range(num_keys)]
+    if case == "bits64":        # negatives, INT64_MIN and a real INT64_MAX
+        pool = np.array([np.iinfo(np.int64).min, -(1 << 40), -1, 0, 5,
+                         1 << 62, SENTINEL_KEY])
+        keys = [pool[rng.integers(0, len(pool), N)] for _ in bits]
+    else:
+        keys = [rng.integers(0, min(1 << b, 5), N) for b in bits]
+        keys[0][rng.random(N) < 0.5] = rng.integers(0, 1 << bits[0])
+        dead = rng.random(N) < (1.0 if case == "sentinels" else 0.15)
+        for k in keys:
+            k[dead] = SENTINEL_KEY
+    payload = [rng.permutation(N).astype(np.int64) - N // 2
+               for _ in range(W - num_keys)]
+    return keys + payload, bits
+
+
+@pytest.mark.parametrize("case", ["random", "sentinels", "bits64"])
+@pytest.mark.parametrize("W,num_keys", [(W, K) for W in (1, 2, 3, 4)
+                                        for K in range(1, W + 1)])
+def test_plain_sort_keys_and_payload_equal_lexsort(W, num_keys, case):
+    """num_keys key words with bits promises, the rest payload: the rows
+    in numpy's stable lexsort order of the key words, payload order within
+    equal keys included."""
+    rng = np.random.default_rng(W * 10 + num_keys)
+    planes, bits = _keyed_rows(rng, W, num_keys, 3001, case)
+    order = np.lexsort(planes[:num_keys][::-1])
+    got = sort_words([torch.from_numpy(p) for p in planes],
+                     num_keys=num_keys, bits=bits)
+    for g, p in zip(got, planes):
+        np.testing.assert_array_equal(g.numpy(), p[order])
+    if num_keys == W:           # all keys: as without num_keys and bits
+        same = sort_words([torch.from_numpy(p) for p in planes])
+        assert all(torch.equal(a, b) for a, b in zip(got, same))
+
+
+def test_plain_sort_checks_bits_and_keys():
+    x = torch.tensor([3, 7, SENTINEL_KEY, 0])
+    assert sk.sort_words_ref([x], bits=[3])[0].tolist() == [0, 3, 7,
+                                                            SENTINEL_KEY]
+    with pytest.raises(ValueError, match="outside"):
+        sk.sort_words_ref([x], bits=[2])
+    with pytest.raises(ValueError, match="outside"):
+        sk.sort_words([x, -x], bits=[3, 63])
+    for num_keys, bits in ((0, None), (3, None), (1, [3, 3]), (1, [65]),
+                           (2, [3, -1])):
+        with pytest.raises(ValueError, match="num_keys|bits"):
+            sk.sort_words([x, x], num_keys=num_keys, bits=bits)
+
+
 def test_sort_words_flattens_and_leaves_cpu_inputs():
     rng = np.random.default_rng(3)
     a = torch.from_numpy(rng.integers(0, 50, (6, 7)))
@@ -116,6 +173,36 @@ def test_sort_words_rejects_bad_planes():
     before = sk.launches
     sk.sort_words([x])
     assert sk.launches == before        # the plain version launches nothing
+
+
+def test_parity_and_sort_count_pass_key_bits(monkeypatch):
+    """parity_step sorts by (hi, lo, count) with bits (2 l, 2 r, 31);
+    the unfused sort_group_keys=0 step sorts every key word at its
+    width (ops/encode.plane_bits)."""
+    from kmer_tpu_torch.ops import count as count_ops
+    from kmer_tpu_torch.ops.encode import plane_bits
+    from kmer_tpu_torch.pipeline import count as tcount
+    from kmer_tpu_torch.pipeline import parity
+    seen = []
+    orig = count_ops.sort_words
+
+    def spy(words, num_keys=None, bits=None):
+        seen.append((len(words), num_keys, bits))
+        return orig(words, num_keys, bits)
+    monkeypatch.setattr(parity, "sort_words", spy)
+    monkeypatch.setattr(count_ops, "sort_words", spy)
+    rng = np.random.default_rng(9)
+    B, L = 4, 150
+    args = [torch.from_numpy(rng.integers(0, 4, (B, L), dtype=np.uint8)),
+            torch.full((B,), L, dtype=torch.int32),
+            torch.full((B,), L, dtype=torch.int32)]
+    parity_step(*args, c_min=80, c_max=100, l_len=27, r_len=20)
+    assert seen.pop() == (3, None, (54, 40, 31))
+    for k in (21, 45, 63):
+        tcount.count_step_sort(*args, k=k, canonical=True, group_keys=0)
+        assert seen.pop() == (len(plane_bits(k)), None, plane_bits(k))
+    assert plane_bits(21) == (42,) and plane_bits(45) == (62, 28)
+    assert plane_bits(63) == (62, 64)
 
 
 def test_parity_step_sorts_live_rows():
