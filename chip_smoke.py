@@ -131,9 +131,13 @@ Any failed check raises, so the script exits non-zero and prints no
 result line.  Without a CUDA device it fails at once.
 
 Bounds: the larger of the bytes a kernel must move (each input read
-once, each output written once) over HBM3's 3.35 TB/s and its integer
-operations over 67 T/s (the H100 SXM's rate outside the tensor cores),
-both from NVIDIA's data sheet.
+once, each output written once) over HBM3's 3.35 TB/s (NVIDIA's data
+sheet) and the thread instructions its function needs over the card's
+issue ceiling: four warp instructions an SM a clock, one from each
+scheduler of its four partitions (the H100 white paper), whatever pipe
+they go to -- SMs x 128 x the maximum SM clock that nvidia-smi reads,
+33.5 T/s on an H100 SXM, half the data sheet's 67 TFLOP/s float32, which
+counts a fused multiply-add as two.
 """
 
 from __future__ import annotations
@@ -164,20 +168,40 @@ GAP_B, GAP_L, GAP_LEN = 256, 416, 400
 GAP_RECORDS, GAP_ORACLE_RECORDS = 4000, 300
 # keys of 32 to 63 bases and spaced seeds: k = 55, and two palindromic
 # masks, span 31 with 24 selected (one key word) and span 55 with 42
-# selected (a (hi, lo) pair)
+# selected (a (hi, lo) pair); phase 20 also checks the edges of the rolled
+# spaced window (spans of exactly 32 and 64, a 32-base key in a 32-base
+# span, a 32-base run that makes lo's flipped top bit, single-base runs, a
+# mask that is no palindrome) and a span over 64 (the gathered window)
 WIDE_K = 55
 SHORT_MASK = "1110111011101110111011101110111"
 WIDE_MASK = "1110111011101110111011101110111011101110111011101110111"
+EDGE_MASKS = ("1111" + "0" * 24 + "1111", "1" * 32,
+              "1" * 20 + "0" * 24 + "1" * 20, "1" * 31 + "0" + "1" * 32,
+              "10" * 31 + "1", "110100101011")
+GATHER_MASK = "1" * 10 + "0" * 80 + "1" * 10
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
-ALU_OPS_PER_S = 67e12
+# thread instructions a second: an SM issues at most four warp
+# instructions a clock, one from each of its four schedulers (NVIDIA H100
+# white paper), whichever pipe takes them; main() sets it from the card's
+# SM count and maximum SM clock (132 x 128 x 1.98 GHz = 33.5 T/s on an
+# H100 SXM)
+OPS_PER_S = 132 * 128 * 1.98e9
+
+
+def issue_ops_per_s(dev) -> float:
+    """SMs x 4 schedulers x 32 lanes x the card's maximum SM clock."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = float(_tool(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                       "--format=csv,noheader,nounits"]).splitlines()[0])
+    return sms * 128 * mhz * 1e6
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
     """The least time the card could take: bytes over HBM bandwidth or
-    operations over the ALU rate, whichever is larger."""
+    thread instructions over the issue ceiling, whichever is larger."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / ALU_OPS_PER_S * 1e3
+    t_ops = n_ops / OPS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -1568,27 +1592,59 @@ def phase_unfused_small(dev, small: str) -> tuple[int, int]:
     return seen["grouped=pallas"]["k2b"], seen["step=t"]["k2c"]
 
 
+def window_ops(positions, span: int, lanes: int,
+               canonical: bool = True) -> int:
+    """Thread instructions that K1's or K7's window function needs over
+    `lanes` windows, from the key's shape alone (span, runs, n), not from
+    the kernels' tiles.  Contiguous (positions None, two words): two
+    128-bit values rolled (~16) and the compare, split and collapse (~8).
+    A spaced seed: one push a window into its span's ceil(span / 16)
+    32-bit words -- 2 to take the code from its packed word, a funnel shift
+    a word forward and, canonical, a word and the complement's insert
+    backward --; a shift and a three-input and-or per run of the mask on
+    each strand; with canonical, the compare and select of the two keys (2
+    a 32-bit key word); ~12 for the split, validity, stores and
+    collapse."""
+    from kmer_tpu_torch.ops.extract import seed_runs
+    if positions is None:
+        return lanes * 24
+    n, sw = len(positions), -(-span // 16)
+    push = 2 + sw + (sw + 1 if canonical else 0)
+    cut = 2 * (2 if canonical else 1) * len(seed_runs(positions))
+    select = 2 * -(-n // 16) if canonical else 0
+    return lanes * (push + cut + select + 12)
+
+
 def phase_wide_kernels(dev, seed: int) -> list[dict]:
     """K1 and K7 on keys of 32 to 63 bases and on spaced seeds == their
     plain versions, lane for lane, at B=8192, L=160: k = 32, 45, 48, 55
-    and 63 and the two masks, canonical and not, packed rows and u8 rows
-    with 1% ambiguous codes and short rows; then each variant timed at
-    k = 55 (or the 55-span mask), canonical, packed.  Returns the JSON
-    records of the four variants (without the main-path launch counts)."""
+    and 63, the two masks, the rolled window's edge masks and a span over
+    64 bases, canonical (palindromic masks) and not, packed rows and u8
+    rows with 1% ambiguous codes and short rows, one launch each; then
+    each variant timed at k = 55 (or the 55-span mask), canonical, packed,
+    and the spaced kernels also at the span-31 mask and the span-100
+    gathered window.  Returns the JSON records of the four variants
+    (without the main-path launch counts)."""
     from kmer_tpu_torch.ops.encode import key_planes
-    from kmer_tpu_torch.ops.extract import parse_seed_mask
+    from kmer_tpu_torch.ops.extract import (mask_from_positions,
+                                            parse_seed_mask,
+                                            seed_mask_palindromic)
     from kmer_tpu_torch.ops.kernels import extract as ek
     from kmer_tpu_torch.ops.kernels import fused_extract as fe
     rng = np.random.default_rng(seed + 7)
     variants = {
         "two_word": [(k, None) for k in (32, 45, 48, WIDE_K, 63)],
         "spaced": [(m.count("1"), parse_seed_mask(m))
-                   for m in (SHORT_MASK, WIDE_MASK)]}
+                   for m in (SHORT_MASK, WIDE_MASK, *EDGE_MASKS,
+                             GATHER_MASK)]}
     max_err = {}
     for variant, shapes in variants.items():
         e1 = e7 = 0
         for k, pos in shapes:
-            for canon in (False, True):
+            span = k if pos is None else pos[-1] + 1
+            palindrome = pos is None or seed_mask_palindromic(
+                mask_from_positions(pos))
+            for canon in (False, True) if palindrome else (False,):
                 for packed, amb, short in ((True, False, False),
                                            (False, True, True)):
                     host = gapped_batch(rng, MAIN_B, MAIN_L, packed=packed,
@@ -1611,7 +1667,6 @@ def phase_wide_kernels(dev, seed: int) -> list[dict]:
                     err7 = exact_err(got7, want7)
                     live = int((counts > 0).sum())
                     launched = (fe.launches - b1, ek.launches - b7)
-                    span = k if pos is None else pos[-1] + 1
                     _say(f"wide_kernel_check variant={variant} B={MAIN_B} "
                          f"L={MAIN_L} n_bases={k} span={span} "
                          f"canonical={canon} packed={packed} ambiguous={amb} "
@@ -1621,14 +1676,19 @@ def phase_wide_kernels(dev, seed: int) -> list[dict]:
                     if err1 or err7 or live == 0 or launched != (1, 1):
                         raise AssertionError(
                             f"K1/K7 {variant} != plain version (k={k}, "
-                            f"errors {err1}, {err7}, live {live})")
+                            f"span={span}, errors {err1}, {err7}, live "
+                            f"{live})")
                     e1, e7 = max(e1, err1), max(e7, err7)
         max_err[variant] = (e1, e7)
 
     recs = []
-    for variant, k, pos in (("two_word", WIDE_K, None),
-                            ("spaced", WIDE_MASK.count("1"),
-                             parse_seed_mask(WIDE_MASK))):
+    for variant, k, pos in (
+            ("two_word", WIDE_K, None),
+            ("spaced", WIDE_MASK.count("1"), parse_seed_mask(WIDE_MASK)),
+            ("spaced_span31", SHORT_MASK.count("1"),
+             parse_seed_mask(SHORT_MASK)),
+            ("spaced_gather", GATHER_MASK.count("1"),
+             parse_seed_mask(GATHER_MASK))):
         span = k if pos is None else pos[-1] + 1
         main = [t.to(dev) for t in kernel_batch(rng, MAIN_B, MAIN_L, span,
                                                 packed=True, amb=False,
@@ -1638,21 +1698,14 @@ def phase_wide_kernels(dev, seed: int) -> list[dict]:
         P_pad = -(-P // SEG) * SEG
         lanes = P * MAIN_B
         in_bytes = main[0].numel() * 4 + MAIN_B * 8
-        # integer operations a lane that the function needs: a contiguous
-        # window rolls two 128-bit values (~16), compares, splits and
-        # collapses (~8); a spaced window can roll its span the same way
-        # and cut each run of consecutive selected bases out of the value
-        # and its reverse complement (a shift, a mask and an or each, ~6
-        # a run; 14 runs for the span-55 mask)
-        runs = 0 if pos is None else 1 + sum(
-            b != a + 1 for a, b in zip(pos, pos[1:]))
-        ops = lanes * (24 + 6 * runs)
+        ops = window_ops(pos, span, lanes)
+        wide = k > 31
         for name, mod, fn, ref, out_bytes, extra in (
                 ("fused_extract_count", fe, fe.fused_extract_count,
-                 fe.fused_extract_count_ref, P_pad * MAIN_B * 17,
-                 dict(seg=SEG)),
+                 fe.fused_extract_count_ref,
+                 P_pad * MAIN_B * (17 if wide else 9), dict(seg=SEG)),
                 ("extract_keys", ek, ek.extract_keys, ek.extract_keys_ref,
-                 lanes * 16, {})):
+                 lanes * (16 if wide else 8), {})):
             ms, plain_ms = time_pair(
                 functools.partial(fn, *main, k, **kw, **extra),
                 functools.partial(ref, *main, k, **kw, **extra))
@@ -1662,9 +1715,12 @@ def phase_wide_kernels(dev, seed: int) -> list[dict]:
                  f"canonical=True packed=True kernel_ms={ms} "
                  f"plain_ms={plain_ms} speedup={plain_ms / ms} "
                  f"out_GB_per_s={out_bytes / (ms * 1e-3) / 1e9} "
+                 f"ops={ops} "
                  f"bound_ms={b['bound_ms']} bound_by={b['bound_by']} "
                  f"library_ms=None (no single PyTorch call extracts k-mers) "
                  f"(tolerance: exact, max_abs_err must be 0)")
+            if variant not in max_err:
+                continue        # timed only: not a row of the JSON line
             err = max_err[variant][0 if mod is fe else 1]
             recs.append({"name": f"{name}[{variant}]", "route": "cuda",
                          "source": mod.SOURCE, "replaces": mod.REPLACES,
@@ -1817,6 +1873,10 @@ def main(argv=None) -> int:
          f"cuda={torch.version.cuda} devices={torch.cuda.device_count()}")
     _say(_tool(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"]).splitlines()[0])
+    global OPS_PER_S
+    OPS_PER_S = issue_ops_per_s(dev)
+    _say(f"ops_per_s={OPS_PER_S} (SMs x 128 lanes x max SM clock: the "
+         "issue ceiling, the bounds' operation rate)")
     _say("nvcc: " + _tool([build.nvcc(), "--version"]).splitlines()[-1])
     build_all()
     _say(f"native_parser_loaded={fasta.native_loaded()} "

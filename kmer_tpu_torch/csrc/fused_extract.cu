@@ -11,25 +11,34 @@
 // What bounds it: memory.  Each output lane costs an 8-byte key (16 for a
 // (hi, lo) pair) and a 1-byte count store; the input is L/4 bytes of
 // packed codes per row (L bytes for u8 rows); the arithmetic is a few
-// integer ops per base.
+// integer ops per base, and for a spaced seed a rotate and a masked or per
+// piece of its cut table.
 //
-// Design: one thread walks CHUNK consecutive window starts of one row.
-// A contiguous window keeps a rolling forward value and a rolling reverse
-// complement (kmer_window.cuh Roll; 64-bit registers up to 31 bases,
-// 128-bit beyond), each updated in O(1) per base, where the TPU kernel
-// builds every window at once with O(log k) doubling tables or banded
-// matmuls because its vector lanes carry no state along a sequence.  A
-// spaced window gathers its n selected bases, O(n) loads a window from L1,
-// the offsets broadcast from shared memory; don't-care bases are never
-// read, so they poison no window.  Neighbouring threads take neighbouring
-// rows, so a warp's store of keys[o, b .. b+31] is one contiguous 256-byte
-// run: the output is position-major (P_pad, B), the TPU kernel's layout.
-// The collapse runs over the SEG keys of a segment held in registers,
-// comparing both words of a pair; SEG is a template parameter, so the
-// loops unroll and the register array is indexed statically.  Splitting
-// each row into CHUNK-sized pieces (each primed with the n - 1 bases
-// before it) gives ceil(P_pad / CHUNK) times more threads than one thread
-// per row.
+// Design: one thread walks CHUNK consecutive window starts of one row,
+// where the TPU kernel builds every window at once with O(log k) doubling
+// tables or banded matmuls because its vector lanes carry no state along a
+// sequence.  Two bodies (kmer_window.cuh): fused_extract_kernel for a
+// contiguous window, which keeps a rolling forward value and a rolling
+// reverse complement (Roll; 64-bit registers up to 31 bases, 128-bit
+// beyond), each updated in O(1) per base, and for a spaced seed of span
+// over 64, which gathers its n selected bases, O(n) loads a window from L1,
+// the offsets broadcast from shared memory; fused_rolled_kernel for a
+// spaced seed of span <= 64, which rolls its whole span the same way
+// (SpanWalk) and cuts its key out of the registers by the seed's cut table
+// (the mask's runs, cut into pieces that each lie in one 32-bit word of
+// the span register and of the key: forward, and reverse complement with
+// the same table), 4 windows at a time so that each load of a piece serves
+// 8 independent cuts, with a rolled bit a base for ambiguity.  So a row is
+// read once, one packed word every 16 bases, except by the gather, and
+// don't-care bases poison no window.  Neighbouring threads take
+// neighbouring rows, so a warp's store of keys[o, b .. b+31] is one
+// contiguous 256-byte run: the output is position-major (P_pad, B), the
+// TPU kernel's layout.  The collapse runs over the SEG keys of a segment
+// held in registers, comparing both words of a pair; SEG is a template
+// parameter, so the loops unroll and the register array is indexed
+// statically.  Splitting each row into CHUNK-sized pieces (each primed with
+// the n - 1 bases before it, span - 1 for a rolled span) gives
+// ceil(P_pad / CHUNK) times more threads than one thread per row.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -41,6 +50,32 @@ namespace {
 constexpr int CHUNK = 32;      // window starts per thread; every SEG divides it
 constexpr int THREADS = 128;
 
+// count on the first occurrence: itself + equal keys later in the segment
+// kh[t .. t + SEG) (windows s + t ..); later duplicates and sentinels get 0
+template <int SEG, bool TWO, int N>
+__device__ __forceinline__ void count_segment(const int64_t (&kh)[N],
+                                              const int64_t (&kl)[N], int s,
+                                              int t, int8_t* counts, int B,
+                                              int b) {
+#pragma unroll
+  for (int i = t; i < t + SEG; ++i) {
+    int cnt = 0;
+    if (kh[i] != kmer::SENTINEL) {
+      bool dup = false;
+      cnt = 1;
+#pragma unroll
+      for (int j = t; j < t + SEG; ++j) {
+        const bool eq = kh[j] == kh[i] && (!TWO || kl[j] == kl[i]);
+        if (j < i) dup |= eq;
+        if (j > i) cnt += eq;
+      }
+      if (dup) cnt = 0;
+    }
+    counts[(size_t)(s + i) * B + b] = (int8_t)cnt;
+  }
+}
+
+// a contiguous key, or a spaced seed's gathered key (span over 64)
 template <typename KEY, int SEG, bool PACKED, bool CANON, bool SPACED>
 __global__ void __launch_bounds__(THREADS)
 fused_extract_kernel(const void* __restrict__ codes, int row_stride,
@@ -96,29 +131,72 @@ fused_extract_kernel(const void* __restrict__ codes, int row_stride,
       keys_hi[(size_t)o * B + b] = kh[j];
       if constexpr (TWO) keys_lo[(size_t)o * B + b] = kl[j];
     }
-    // count on the first occurrence: itself + equal keys later in the
-    // segment; later duplicates and sentinels get 0
+    count_segment<SEG, TWO>(kh, kl, s, 0, counts, B, b);
+  }
+}
+
+// a spaced seed of span <= 64: the rolled span cut by the seed's table
+template <typename KEY, typename SPAN, int SEG, bool PACKED, bool CANON>
+__global__ void __launch_bounds__(THREADS)
+fused_rolled_kernel(const void* __restrict__ codes, int row_stride,
+                    const int32_t* __restrict__ lengths,
+                    const int32_t* __restrict__ limits,
+                    int64_t* __restrict__ keys_hi,
+                    int64_t* __restrict__ keys_lo,
+                    int8_t* __restrict__ counts, int B, int L, int n,
+                    int span, int P, int P_pad, int mask_amb, kmer::Cut cut) {
+  constexpr bool TWO = kmer::TWO_WORDS<KEY>;
+  __shared__ kmer::Cut cut_sh;
+  kmer::load_cut(cut_sh, cut);
+  __syncthreads();
+  const int b = blockIdx.x * THREADS + threadIdx.x;
+  if (b >= B) return;
+  const int o0 = blockIdx.y * CHUNK;
+  const int o_end = min(o0 + CHUNK, P_pad);
+  // window o is valid iff o < P, o <= len - span, o < limit, no ambiguous
+  // base at a selected offset
+  const int o_hi = min(min(P, lengths[b] - span + 1), limits[b]);
+  const void* row = static_cast<const char*>(codes) +
+                    (size_t)b * row_stride * (PACKED ? 4 : 1);
+  typedef kmer::SpanWalk<KEY, SPAN, PACKED, CANON> Walk;
+  Walk win(row, L, span, mask_amb, cut_sh);
+  win.prime(o0);
+  // a step is one segment, or the Walk::G windows whose keys are cut at
+  // once when they span more than one (STEP divides CHUNK; o_end is a
+  // multiple of SEG, so a segment lies wholly before or after it)
+  constexpr int G = Walk::G, STEP = SEG > G ? SEG : G;
+  for (int s = o0; s < o_end; s += STEP) {
+    int64_t kh[STEP], kl[STEP];
 #pragma unroll
-    for (int i = 0; i < SEG; ++i) {
-      int cnt = 0;
-      if (kh[i] != kmer::SENTINEL) {
-        bool dup = false;
-        cnt = 1;
+    for (int j0 = 0; j0 < STEP; j0 += G) {
+      bool ok[G];
+      KEY v[G];
 #pragma unroll
-        for (int j = 0; j < SEG; ++j) {
-          const bool eq = kh[j] == kh[i] && (!TWO || kl[j] == kl[i]);
-          if (j < i) dup |= eq;
-          if (j > i) cnt += eq;
+      for (int j = 0; j < G; ++j) ok[j] = s + j0 + j < o_hi;
+      win.keys(s + j0, ok, v);
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int i = j0 + j, o = s + i;
+        if (ok[j]) {
+          kmer::split_key(v[j], n, kh[i], kl[i]);
+        } else {
+          kh[i] = kl[i] = kmer::SENTINEL;
         }
-        if (dup) cnt = 0;
+        if (STEP == SEG || o < o_end) {
+          keys_hi[(size_t)o * B + b] = kh[i];
+          if constexpr (TWO) keys_lo[(size_t)o * B + b] = kl[i];
+        }
       }
-      counts[(size_t)(s + i) * B + b] = (int8_t)cnt;
     }
+#pragma unroll
+    for (int t = 0; t < STEP; t += SEG)
+      if (STEP == SEG || s + t < o_end)
+        count_segment<SEG, TWO>(kh, kl, s, t, counts, B, b);
   }
 }
 
 // one batch's launch arguments; kmer::dispatch picks the template
-// arguments of run, and run the segment width
+// arguments of run or rolled, and they the segment width
 struct Launch {
   dim3 grid;
   cudaStream_t st;
@@ -129,6 +207,7 @@ struct Launch {
   int8_t* counts;
   int B, L, n, span, P, P_pad, mask_amb, seg;
   kmer::Offsets off;
+  kmer::Cut cut;
 
   template <typename KEY, int SEG, bool PACKED, bool CANON, bool SPACED>
   void go() const {
@@ -146,6 +225,22 @@ struct Launch {
       case 16: go<KEY, 16, PACKED, CANON, SPACED>(); break;
     }
   }
+  template <typename KEY, typename SPAN, int SEG, bool PACKED, bool CANON>
+  void go_rolled() const {
+    fused_rolled_kernel<KEY, SPAN, SEG, PACKED, CANON>
+        <<<grid, THREADS, 0, st>>>(codes, row_stride, lengths, limits,
+                                   keys_hi, keys_lo, counts, B, L, n, span,
+                                   P, P_pad, mask_amb, cut);
+  }
+  template <typename KEY, typename SPAN, bool PACKED, bool CANON>
+  void rolled() const {
+    switch (seg) {
+      case 2: go_rolled<KEY, SPAN, 2, PACKED, CANON>(); break;
+      case 4: go_rolled<KEY, SPAN, 4, PACKED, CANON>(); break;
+      case 8: go_rolled<KEY, SPAN, 8, PACKED, CANON>(); break;
+      case 16: go_rolled<KEY, SPAN, 16, PACKED, CANON>(); break;
+    }
+  }
 };
 
 }  // namespace
@@ -155,26 +250,34 @@ struct Launch {
 // int32.  A key of n bases: contiguous (positions == nullptr, span = n) or
 // a spaced seed's bases at window offsets positions[0 .. n) (host memory,
 // checked by the caller: ascending, positions[0] = 0, span = positions[n -
-// 1] + 1).  keys_hi: (P_pad, B) int64, the key for n <= 31, else the hi
-// word of the pair whose lo word is keys_lo, (P_pad, B) int64 (unused for
-// n <= 31); counts: (P_pad, B) int8; seg 2, 4, 8 or 16 divides P_pad.
-// Returns the launch's cudaError_t.
+// 1] + 1) with, for a span of at most 64 bases, its cut table `cut` of
+// kmer::CUT_TABLE_WORDS words (ops/extract.seed_cut_table).  keys_hi:
+// (P_pad, B) int64, the key for n <= 31, else the hi word of the pair whose
+// lo word is keys_lo, (P_pad, B) int64 (unused for n <= 31); counts:
+// (P_pad, B) int8; seg 2, 4, 8 or 16 divides P_pad.  Returns the launch's
+// cudaError_t.
 extern "C" int fused_extract_count_launch(
     const void* codes, int packed, int row_stride, const int32_t* lengths,
     const int32_t* limits, int64_t* keys_hi, int64_t* keys_lo, int8_t* counts,
     int B, int L, int n, int span, int P, int P_pad, int canonical,
-    int mask_amb, int seg, const int32_t* positions, void* stream) {
+    int mask_amb, int seg, const int32_t* positions, const uint32_t* cut,
+    void* stream) {
+  const bool rolled = positions != nullptr && span <= kmer::MAX_ROLLED_SPAN;
   if (n < 1 || n > kmer::MAX_BASES || B < 1 || P < 1 || P != L - span + 1 ||
       (seg != 2 && seg != 4 && seg != 8 && seg != 16) || P_pad % seg != 0 ||
       (P_pad + CHUNK - 1) / CHUNK > 65535 ||
-      (positions == nullptr && span != n) ||
+      (positions == nullptr && span != n) || (rolled && cut == nullptr) ||
       (n > kmer::HI_BASES && keys_lo == nullptr))
     return (int)cudaErrorInvalidValue;
   const Launch l = {
       dim3((B + THREADS - 1) / THREADS, (P_pad + CHUNK - 1) / CHUNK),
       static_cast<cudaStream_t>(stream), codes, row_stride, lengths, limits,
       keys_hi, keys_lo, counts, B, L, n, span, P, P_pad, mask_amb, seg,
-      kmer::offsets_of(positions, n)};
-  kmer::dispatch(l, n, packed, canonical, positions != nullptr);
+      kmer::offsets_of(positions, n), kmer::cut_of(rolled ? cut : nullptr)};
+  kmer::dispatch(l, n, packed, canonical, positions != nullptr, span);
   return (int)cudaGetLastError();
 }
+
+// the cut table's layout (kmer::cut_layout): CUT_WORDS, CUT_TABLE_WORDS,
+// MAX_ROLLED_SPAN
+extern "C" void cut_layout(int32_t* out) { kmer::cut_layout(out); }

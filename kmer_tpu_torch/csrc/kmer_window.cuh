@@ -1,7 +1,8 @@
 // Window extraction shared by csrc/fused_extract.cu (K1) and
 // csrc/extract.cu (K7): the row reader, the rolling key of a contiguous
-// window, the gathered key of a spaced seed, the key's int64 words, and the
-// host dispatch from runtime choices to a kernel's template arguments.
+// window, the rolled span of a spaced seed and the cut of its key, the
+// gathered key of a wide spaced seed, the key's int64 words, and the host
+// dispatch from runtime choices to a kernel's template arguments.
 //
 // A key of n bases is its 2n-bit value, built in a uint64_t register for
 // n <= 31 and in an unsigned __int128 for 32 <= n <= 63 (the KEY template
@@ -12,6 +13,29 @@
 // last n - 31, with lo's top bit flipped when lo holds 32 bases (64 bits),
 // so that signed int64 order on lo is the order of its bits.  A real hi is
 // at most 62 bits and never equals SENTINEL.
+//
+// The windows, one thread walking consecutive starts of one row:
+// - a contiguous k-mer: one forward value and its reverse complement, each
+//   rolled one base at a time (Roll), in the kernels' first body;
+// - a spaced seed of span <= 64 (the kernels' rolled body, SpanWalk): the
+//   window's whole span rolled the same way (SpanRoll: a uint64_t register
+//   up to 32 bases when the key is one word, else 128 bits, held as 32-bit
+//   words), and the key cut out of it by the seed's cut table
+//   (ops/extract.seed_cut_table): the mask's runs of consecutive '1's,
+//   split so that each piece lies in one 32-bit word of the span register
+//   and one of the key; a piece is a rotate and a masked or.  The canonical
+//   key is cut from the reverse-complement register with the same table.
+//   That is right only because a canonical mask is a palindrome
+//   (ops/extract.check_window): the reverse complement of the span then
+//   selects the same offsets, in reverse order, complemented.  A
+//   non-canonical mask need not be one; only its forward key is cut.  With
+//   the ambiguity mask, a 64-bit register rolls one "ambiguous" bit a base,
+//   and a window is invalid iff it shares a bit with the table's selection
+//   mask, so an ambiguous base at a don't-care offset never poisons a
+//   window;
+// - a spaced seed of span over 64, where a span register would not fit:
+//   the n selected bases loaded one by one from the offsets in shared
+//   memory (gather_key), in the kernels' first body.
 //
 // The build helper (kmer_tpu_torch/utils/build.py) rebuilds a kernel when
 // this header is newer than its library.
@@ -27,6 +51,7 @@ typedef unsigned __int128 u128;
 constexpr int64_t SENTINEL = 0x7FFFFFFFFFFFFFFFLL;
 constexpr int HI_BASES = 31;     // bases of one int64 key word
 constexpr int MAX_BASES = 63;    // bases of a (hi, lo) pair
+constexpr int MAX_ROLLED_SPAN = 64;
 
 // true when KEY is the 128-bit register of a (hi, lo) pair
 template <typename KEY>
@@ -44,6 +69,49 @@ inline Offsets offsets_of(const int32_t* positions, int n) {
   for (int i = 0; positions != nullptr && i < n; ++i)
     off.at[i] = (int16_t)positions[i];
   return off;
+}
+
+// A spaced seed's cut table, as ops/extract.seed_cut_table lays it out in
+// CUT_TABLE_WORDS uint32 words: the start of each group (CUT_GROUPS + 1),
+// then (mask, rot) for each of at most MAX_BASES pieces, then the 64-bit
+// selection mask (low word first).  Group g = source word * CUT_WORDS + key
+// word holds the pieces [start[g], start[g + 1]); a piece ors
+// rotr(source word, rot) & mask into its key word.  Passed by value as a
+// kernel parameter; a block copies it to shared memory.  The wrappers check
+// their copy of the layout against cut_layout (the kernels' C entry points)
+// when they load a library.
+constexpr int CUT_WORDS = 4;
+constexpr int CUT_GROUPS = CUT_WORDS * CUT_WORDS;
+constexpr int CUT_TABLE_WORDS = CUT_GROUPS + 1 + 2 * MAX_BASES + 2;
+
+struct Piece {
+  uint32_t mask, rot;
+};
+
+struct Cut {
+  uint8_t start[CUT_GROUPS + 1];
+  Piece piece[MAX_BASES];
+  uint64_t amb;   // bit span - 1 - i for each selected offset i
+};
+
+inline Cut cut_of(const uint32_t* table) {
+  Cut cut = {};
+  if (table == nullptr) return cut;
+  for (int g = 0; g <= CUT_GROUPS; ++g) cut.start[g] = (uint8_t)table[g];
+  const uint32_t* p = table + CUT_GROUPS + 1;
+  for (int i = 0; i < MAX_BASES; ++i) cut.piece[i] = {p[2 * i], p[2 * i + 1]};
+  p += 2 * MAX_BASES;
+  cut.amb = p[0] | (uint64_t)p[1] << 32;
+  return cut;
+}
+
+// a block's copy of the cut table in shared memory (the caller syncs)
+__device__ __forceinline__ void load_cut(Cut& sh, const Cut& cut) {
+  for (int i = threadIdx.x; i < MAX_BASES; i += blockDim.x)
+    sh.piece[i] = cut.piece[i];
+  for (int g = threadIdx.x; g <= CUT_GROUPS; g += blockDim.x)
+    sh.start[g] = cut.start[g];
+  if (threadIdx.x == 0) sh.amb = cut.amb;
 }
 
 // code of base q of a row: 2-bit packed (16 bases an int32 word, the
@@ -136,6 +204,143 @@ __device__ __forceinline__ KEY gather_key(const void* row, int o,
   return v;
 }
 
+// A spaced seed's span of at most 64 bases rolled one base at a time, in
+// W 32-bit words (word 0 the lowest): the forward value, base i of the
+// window at bit 2 (span - 1 - i) (older bases above the span are never
+// cut, so nothing masks them off), and the reverse complement, the
+// complement of base i at bit 2 i, entered at bit 2 span - 2 (unit holds
+// that bit, so the complement enters by one multiply-add a word; the bits
+// above the span stay 0).  No shift reaches the register's width, so a
+// span of exactly 32 or 64 bases needs no special case.
+template <typename SPAN>
+struct SpanRoll {
+  static constexpr int W = sizeof(SPAN) / 4;
+  uint32_t fw[W], rc[W], unit[W];
+  uint64_t amb = 0;   // bit span - 1 - i: base i of the window is ambiguous
+  __device__ explicit SpanRoll(int span) {
+    const int top = 2 * span - 2;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      fw[w] = rc[w] = 0u;
+      unit[w] = (top >> 5) == w ? 1u << (top & 31) : 0u;
+    }
+  }
+  template <bool CANON>
+  __device__ __forceinline__ void push(uint32_t c) {
+#pragma unroll
+    for (int w = W - 1; w > 0; --w)
+      fw[w] = __funnelshift_l(fw[w - 1], fw[w], 2);
+    fw[0] = (fw[0] << 2) | c;
+    if constexpr (CANON) {
+      const uint32_t cc = 3u - c;
+#pragma unroll
+      for (int w = 0; w < W - 1; ++w)
+        rc[w] = __funnelshift_r(rc[w], rc[w + 1], 2) + unit[w] * cc;
+      rc[W - 1] = (rc[W - 1] >> 2) + unit[W - 1] * cc;
+    }
+  }
+};
+
+// The keys of G windows cut out of their span registers' words (f, r:
+// the forward and reverse-complement registers after each window's push)
+// by the cut table: each piece, loaded once for all G windows, a rotate and
+// a masked or into its key word, so the G windows give 2 G independent
+// chains; start holds the table's group starts in registers.  With CANON
+// the min of the forward key and the key cut from the reverse complement.
+template <typename KEY, int SW, bool CANON, int G>
+__device__ __forceinline__ void cut_keys(const uint32_t (&f)[G][SW],
+                                         const uint32_t (&r)[G][SW],
+                                         const Piece* piece,
+                                         const int (&start)[CUT_GROUPS + 1],
+                                         KEY (&v)[G]) {
+  constexpr int KW = sizeof(KEY) / 4;
+  uint32_t kf[G][KW], kr[G][KW];
+#pragma unroll
+  for (int j = 0; j < G; ++j)
+#pragma unroll
+    for (int w = 0; w < KW; ++w) kf[j][w] = kr[j][w] = 0u;
+#pragma unroll
+  for (int sw = 0; sw < SW; ++sw) {
+#pragma unroll
+    for (int dw = 0; dw <= sw && dw < KW; ++dw) {
+      const int g = sw * CUT_WORDS + dw;
+#pragma unroll 2
+      for (int i = start[g]; i < start[g + 1]; ++i) {
+        const Piece p = piece[i];
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          kf[j][dw] |= __funnelshift_r(f[j][sw], f[j][sw], p.rot) & p.mask;
+          if constexpr (CANON)
+            kr[j][dw] |= __funnelshift_r(r[j][sw], r[j][sw], p.rot) & p.mask;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    KEY a = 0, c = 0;
+#pragma unroll
+    for (int w = KW - 1; w >= 0; --w) {
+      a = (a << 32) | kf[j][w];
+      if constexpr (CANON) c = (c << 32) | kr[j][w];
+    }
+    if constexpr (CANON) a = c < a ? c : a;
+    v[j] = a;
+  }
+}
+
+// One thread's walk over consecutive window starts of one row for a spaced
+// seed of span <= 64 (cut: the block's copy in shared memory): prime(o0)
+// reads the span - 1 bases before the first window o0 (o0 a multiple of
+// 16), then keys(o, ok, v) gives the keys of the G windows o .. o + G - 1
+// (each call's o the last call's o + G), which share each load of the cut
+// table, and clears ok[j] when window o + j holds an ambiguous base at a
+// selected offset (with mask_amb).
+template <typename KEY, typename SPAN, bool PACKED, bool CANON>
+struct SpanWalk {
+  static constexpr int G = 4;
+  RowReader<PACKED> reader;
+  SpanRoll<SPAN> sr;
+  const Cut& cut;
+  int span;
+  bool mask_amb;
+  int start[CUT_GROUPS + 1];
+
+  __device__ SpanWalk(const void* row, int L, int span_, bool mask_amb_,
+                      const Cut& cut_)
+      : reader(row, L, mask_amb_), sr(span_), cut(cut_), span(span_),
+        mask_amb(mask_amb_) {
+#pragma unroll
+    for (int g = 0; g <= CUT_GROUPS; ++g) start[g] = cut.start[g];
+  }
+
+  __device__ __forceinline__ void push(int q) {
+    sr.template push<CANON>(reader.next(q));
+    if constexpr (!PACKED)
+      if (mask_amb) sr.amb = (sr.amb << 1) | (uint64_t)(reader.last_amb == q);
+  }
+
+  __device__ __forceinline__ void prime(int o0) {
+    for (int q = o0; q < o0 + span - 1; ++q) push(q);
+  }
+
+  __device__ __forceinline__ void keys(int o, bool (&ok)[G], KEY (&v)[G]) {
+    constexpr int SW = SpanRoll<SPAN>::W;
+    uint32_t f[G][SW], r[G][SW];
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      push(o + j + span - 1);
+#pragma unroll
+      for (int w = 0; w < SW; ++w) {
+        f[j][w] = sr.fw[w];
+        r[j][w] = sr.rc[w];
+      }
+      if constexpr (!PACKED) ok[j] = ok[j] && (sr.amb & cut.amb) == 0;
+    }
+    cut_keys<KEY, SW, CANON, G>(f, r, cut.piece, start, v);
+  }
+};
+
 // a key's value -> its words: the int64 key for n <= 31 (lo 0); else the
 // (hi, lo) pair, lo flipped at 32 lo bases
 template <typename KEY>
@@ -157,29 +362,50 @@ __device__ __forceinline__ void split_key(KEY v, int n, int64_t& hi,
 }
 
 // Host: the runtime choices of a launch -> L::run<KEY, PACKED, CANON,
-// SPACED>(), KEY uint64_t for keys of at most 31 bases, else u128.
+// SPACED>() for a contiguous key and a spaced seed of span over 64 (the
+// gathered window), L::rolled<KEY, SPAN, PACKED, CANON>() for a spaced
+// seed of span <= 64.  KEY is uint64_t for keys of at most 31 bases, else
+// u128; SPAN is uint64_t when the span fits in 32 bases and the key in one
+// word, else u128.
 template <typename L, typename KEY, bool PACKED, bool CANON>
-void run_spaced(const L& l, bool spaced) {
-  if (spaced) l.template run<KEY, PACKED, CANON, true>();
-  else l.template run<KEY, PACKED, CANON, false>();
+void run_spaced(const L& l, bool spaced, int span) {
+  if (!spaced)
+    l.template run<KEY, PACKED, CANON, false>();
+  else if (span > MAX_ROLLED_SPAN)
+    l.template run<KEY, PACKED, CANON, true>();
+  else if constexpr (TWO_WORDS<KEY>)
+    l.template rolled<KEY, u128, PACKED, CANON>();
+  else if (span <= 32)
+    l.template rolled<KEY, uint64_t, PACKED, CANON>();
+  else
+    l.template rolled<KEY, u128, PACKED, CANON>();
 }
 
 template <typename L, typename KEY, bool PACKED>
-void run_canon(const L& l, bool canon, bool spaced) {
-  if (canon) run_spaced<L, KEY, PACKED, true>(l, spaced);
-  else run_spaced<L, KEY, PACKED, false>(l, spaced);
+void run_canon(const L& l, bool canon, bool spaced, int span) {
+  if (canon) run_spaced<L, KEY, PACKED, true>(l, spaced, span);
+  else run_spaced<L, KEY, PACKED, false>(l, spaced, span);
 }
 
 template <typename L, typename KEY>
-void run_packed(const L& l, bool packed, bool canon, bool spaced) {
-  if (packed) run_canon<L, KEY, true>(l, canon, spaced);
-  else run_canon<L, KEY, false>(l, canon, spaced);
+void run_packed(const L& l, bool packed, bool canon, bool spaced, int span) {
+  if (packed) run_canon<L, KEY, true>(l, canon, spaced, span);
+  else run_canon<L, KEY, false>(l, canon, spaced, span);
 }
 
 template <typename L>
-void dispatch(const L& l, int n, bool packed, bool canon, bool spaced) {
-  if (n > HI_BASES) run_packed<L, u128>(l, packed, canon, spaced);
-  else run_packed<L, uint64_t>(l, packed, canon, spaced);
+void dispatch(const L& l, int n, bool packed, bool canon, bool spaced,
+              int span) {
+  if (n > HI_BASES) run_packed<L, u128>(l, packed, canon, spaced, span);
+  else run_packed<L, uint64_t>(l, packed, canon, spaced, span);
+}
+
+// Host: the cut table's layout, for the wrappers to check their copy
+// against: CUT_WORDS, CUT_TABLE_WORDS and MAX_ROLLED_SPAN
+inline void cut_layout(int32_t* out) {
+  out[0] = CUT_WORDS;
+  out[1] = CUT_TABLE_WORDS;
+  out[2] = MAX_ROLLED_SPAN;
 }
 
 }  // namespace kmer

@@ -167,6 +167,63 @@ def check_window(n_bases: int, positions=None,
     return positions[-1] + 1
 
 
+def seed_runs(positions) -> list[tuple[int, int, int]]:
+    """A spaced seed's runs of consecutive selected offsets, in key order,
+    as (shift, width, place): the run's `width` bases sit at bits
+    [shift, shift + 2 width) of the window's 2 span-bit value (offset i at
+    bit 2 (span - 1 - i)) and at bits [place, place + 2 width) of the key
+    (key base k at bit 2 (n - 1 - k)).  The key is the runs cut out of the
+    value and packed together: the OR of ((value >> shift) & (4**width - 1))
+    << place."""
+    span, n = positions[-1] + 1, len(positions)
+    runs, k0 = [], 0
+    for k in range(1, n + 1):
+        if k == n or positions[k] != positions[k - 1] + 1:
+            w = k - k0
+            runs.append((2 * (span - positions[k0] - w), w, 2 * (n - k0 - w)))
+            k0 = k
+    return runs
+
+
+# The cut table of the rolled spaced window (csrc/kmer_window.cuh Cut): a
+# span register and a key register are each at most CUT_WORDS 32-bit words.
+# The kernel wrappers check these against the library's own
+# (ops/kernels/extract.check_cut_layout) when they load it.
+CUT_WORDS = 4
+CUT_GROUPS = CUT_WORDS * CUT_WORDS
+MAX_ROLLED_SPAN = 64
+CUT_TABLE_WORDS = CUT_GROUPS + 1 + 2 * MAX_K + 2
+
+
+def seed_cut_table(positions) -> list[int]:
+    """The launch argument of K1's and K7's rolled spaced window (spans of
+    at most MAX_ROLLED_SPAN bases): seed_runs cut into pieces that each lie
+    in one 32-bit word of the span register and one of the key, as
+    CUT_TABLE_WORDS uint32 words -- group starts, (mask, rot) a piece, the
+    64-bit selection mask.  A piece of group g = source word * CUT_WORDS +
+    key word ors rotr32(source word, rot) & mask into its key word; the
+    selection mask has bit span - 1 - i for each selected offset i (the
+    rolled ambiguity bits a window must not hold)."""
+    span = positions[-1] + 1
+    if span > MAX_ROLLED_SPAN:
+        raise ValueError(f"span {span} > {MAX_ROLLED_SPAN}: the window "
+                         "gathers its bases instead")
+    pieces = []                                   # (group, mask, rot)
+    for shift, width, place in seed_runs(positions):
+        while width:
+            m = min(width, (32 - shift % 32) // 2, (32 - place % 32) // 2)
+            pieces.append(((shift // 32) * CUT_WORDS + place // 32,
+                           ((1 << 2 * m) - 1) << place % 32,
+                           (shift - place) % 32))
+            shift, place, width = shift + 2 * m, place + 2 * m, width - m
+    pieces.sort(key=lambda p: p[0])
+    start = [sum(p[0] < g for p in pieces) for g in range(CUT_GROUPS + 1)]
+    pairs = [v for _, mask, rot in pieces for v in (mask, rot)]
+    amb = sum(1 << (span - 1 - i) for i in positions)
+    return (start + pairs + [0] * (2 * MAX_K - len(pairs))
+            + [amb & 0xFFFFFFFF, amb >> 32])
+
+
 def spaced_lanes(codes: torch.Tensor, lengths: torch.Tensor, mask: str, *,
                  limits: torch.Tensor | None = None, sentinel: bool = True,
                  mask_ambiguous: bool = False, canonical: bool = False):

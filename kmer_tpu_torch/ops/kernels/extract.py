@@ -26,7 +26,8 @@ import os
 import torch
 
 from ..encode import HI_BASES, unpack_codes_i32
-from ..extract import check_window, window_keys
+from ..extract import (CUT_TABLE_WORDS, CUT_WORDS, MAX_ROLLED_SPAN,
+                       check_window, seed_cut_table, window_keys)
 
 SOURCE = "kmer_tpu_torch/csrc/extract.cu"
 REPLACES = "kmer_tpu/ops/pallas/extract.py:88"
@@ -48,9 +49,34 @@ def load():
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.extract_launch.restype = i
         lib.extract_launch.argtypes = [vp, i, i, vp, vp, vp, vp, i, i, i, i,
-                                       i, i, vp, vp]
+                                       i, i, vp, vp, vp]
+        check_cut_layout(lib)
         _lib = lib
     return _lib
+
+
+def check_cut_layout(lib) -> None:
+    """Raise unless a K1 or K7 library lays out the cut table as
+    seed_cut_table does (its C entry cut_layout: CUT_WORDS,
+    CUT_TABLE_WORDS, MAX_ROLLED_SPAN)."""
+    got = (ctypes.c_int32 * 3)()
+    lib.cut_layout(got)
+    want = (CUT_WORDS, CUT_TABLE_WORDS, MAX_ROLLED_SPAN)
+    if tuple(got) != want:
+        raise RuntimeError(f"cut table layout {tuple(got)} of the kernel "
+                           f"library != {want} of ops/extract")
+
+
+def seed_args(positions, span: int):
+    """A spaced seed's launch arguments for K1 and K7: its offsets and, for
+    a span the window rolls (at most MAX_ROLLED_SPAN bases), its cut
+    table; (None, None) for contiguous k-mers."""
+    if positions is None:
+        return None, None
+    offs = (ctypes.c_int32 * len(positions))(*positions)
+    cut = ((ctypes.c_uint32 * CUT_TABLE_WORDS)(*seed_cut_table(positions))
+           if span <= MAX_ROLLED_SPAN else None)
+    return offs, cut
 
 
 def _shape(codes: torch.Tensor, span: int, packed_width: int):
@@ -124,12 +150,12 @@ def extract_keys(codes: torch.Tensor, lengths: torch.Tensor,
     lib = load()
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream().cuda_stream
-        offs = None if positions is None else (ctypes.c_int32 * k)(*positions)
+        offs, cut = seed_args(positions, span)
         rc = lib.extract_launch(
             codes.data_ptr(), int(bool(packed_width)), codes.shape[1],
             lengths.data_ptr(), limits.data_ptr(), keys.data_ptr(),
             None if lo is None else lo.data_ptr(), B, L, k, span,
-            int(canonical), int(mask_ambiguous), offs, stream)
+            int(canonical), int(mask_ambiguous), offs, cut, stream)
     if rc != 0:
         raise RuntimeError(f"extract kernel launch failed: cudaError {rc}")
     global launches, wide_launches, spaced_launches

@@ -27,6 +27,7 @@ import torch
 
 from ..encode import HI_BASES, SENTINEL_KEY, unpack_codes_i32
 from ..extract import check_window, window_keys
+from .extract import check_cut_layout, seed_args
 from .fused_count import dedup_runlen
 
 SOURCE = "kmer_tpu_torch/csrc/fused_extract.cu"
@@ -49,7 +50,9 @@ def load():
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.fused_extract_count_launch.restype = i
         lib.fused_extract_count_launch.argtypes = [
-            vp, i, i, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, vp, vp]
+            vp, i, i, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, vp, vp,
+            vp]
+        check_cut_layout(lib)
         _lib = lib
     return _lib
 
@@ -136,13 +139,13 @@ def fused_extract_count(codes: torch.Tensor, lengths: torch.Tensor,
     counts = torch.empty((P_pad, B), dtype=torch.int8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        offs = None if positions is None else (ctypes.c_int32 * k)(*positions)
+        offs, cut = seed_args(positions, span)
         rc = lib.fused_extract_count_launch(
             codes.data_ptr(), int(bool(packed_width)), codes.shape[1],
             lengths.data_ptr(), limits.data_ptr(), keys.data_ptr(),
             None if lo is None else lo.data_ptr(), counts.data_ptr(), B, L, k,
             span, P, P_pad, int(canonical), int(mask_ambiguous), seg, offs,
-            stream)
+            cut, stream)
     if rc != 0:
         raise RuntimeError(f"fused_extract_count kernel launch failed: "
                            f"cudaError {rc}")

@@ -519,7 +519,23 @@ WIDE_CASES = [(32, None, True, False, 2, True),
               (24, MASK24, True, True, 2, False),
               (42, MASK42, True, False, 2, True),
               (42, MASK42, False, True, 4, False),
-              (5, "1101011", False, False, 2, True)]
+              (5, "1101011", False, False, 2, True),
+              # the rolled span's edges: spans of exactly 32 and 64, a
+              # 32-base key in a 32-base span, lo a 32-base run (flipped
+              # top bit), single-base runs, no palindrome; then a span
+              # over 64 (the gathered window)
+              (8, "1111" + "0" * 24 + "1111", True, True, 2, False),
+              (8, "1111" + "0" * 24 + "1111", False, False, 4, True),
+              (32, "1" * 32, True, False, 2, True),
+              (40, "1" * 20 + "0" * 24 + "1" * 20, True, True, 8, False),
+              (40, "1" * 20 + "0" * 24 + "1" * 20, False, False, 2, True),
+              (63, "1" * 31 + "0" + "1" * 32, False, True, 2, False),
+              (63, "1" * 31 + "0" + "1" * 32, False, False, 16, True),
+              (32, "10" * 31 + "1", True, False, 2, True),
+              (32, "10" * 31 + "1", False, True, 4, False),
+              (7, "110100101011", False, True, 2, False),
+              (20, "1" * 10 + "0" * 80 + "1" * 10, True, True, 2, False),
+              (20, "1" * 10 + "0" * 80 + "1" * 10, False, False, 2, True)]
 
 
 def _wide_batch(seed, B, L, amb, packed):
