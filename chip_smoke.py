@@ -40,9 +40,14 @@ few) to stdout:
      total), on K1's output at the main shape and K3's at the parity
      shape, and at edge cases (no live lane, every lane live, a ragged
      last tile, a one-uint64 gapped record, no lanes at all); both timed;
-  8. kernel K5 (kmer_tpu_torch/csrc/histogram.cu) the same way, at bits
-     = 8, 15 and 16 over a stream the size of one k=21 batch, and in its
-     HyperLogLog mode on K1's main-shape output; both timed;
+  8. kernel K5 (kmer_tpu_torch/csrc/histogram.cu) the same way, bit for
+     bit, each case timed with its grid (clusters x blocks), shared bytes
+     a block and registers a thread: bits = 8, 15 and 16 over a stream
+     the size of one k=21 batch (beside torch.bincount), HyperLogLog
+     classes at b = 10 and 11 on K1's main-shape k = 21 output, at b = 10
+     on one `card` batch of 2048 reads and on k = 55 (hi, lo) pairs; then
+     a hot bin past 2**31 (17 M lanes in bin 0 at weight 127), unaligned
+     views of keys and weights, and an empty stream;
   9. the k=21 run of phase 4 again with compact=True: its table equals
      phase 4's, K1 and K4 launch once a batch; the stage breakdown;
  10. the gapped run of phase 6 again with compact=True: its table equals
@@ -1089,85 +1094,138 @@ def phase_compact_kernel(dev, seed: int) -> dict:
 
 
 def phase_histogram_kernel(dev, seed: int) -> dict:
-    """K5 == plain version on `dev`, bit for bit, in both modes; returns
-    K5's JSON record (without the main-path launch count)."""
+    """K5 == plain version on `dev`, bit for bit, in both modes, timed at
+    each caller's shape (with its grid, shared bytes and registers), and
+    at edge cases; returns K5's JSON record (without the main-path launch
+    counts)."""
     from kmer_tpu_torch.ops.kernels import fused_extract as fe
     from kmer_tpu_torch.ops.kernels import histogram as hk
     rng = np.random.default_rng(seed + 3)
     n = (MAIN_L - K + 1) * MAIN_B            # one k=21 batch of lanes
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     w = torch.from_numpy(rng.integers(0, 3, n).astype(np.int8)).to(dev)
-    rec = {"name": "index_histogram", "route": "cuda", "source": hk.SOURCE,
-           "replaces": hk.REPLACES, "max_abs_err": 0}
+
+    def k1_out(B, k):
+        host = kernel_batch(rng, B, MAIN_L, k, packed=True, amb=False,
+                            short=False)
+        return fe.fused_extract_count(*(t.to(dev) for t in host), k,
+                                      canonical=True, seg=SEG,
+                                      packed_width=MAIN_L)
+
+    # name -> (keys, weights, bits, k for HLL classes or 0, b)
+    cases = {}
     for bits in (8, 15, 16):
         idx = torch.from_numpy(rng.integers(0, 1 << bits, n)).to(dev)
-        got = hk.index_histogram(idx, w, bits)
-        want = hk.index_histogram_ref(idx, w, bits)
+        cases[f"index_b{bits}"] = (idx, w, bits, 0, 0)
+    keys, counts = k1_out(MAIN_B, K)
+    cases["hll_k21_b10"] = (keys, counts, 15, K, 10)
+    cases["hll_k21_b11"] = (keys, counts, 16, K, 11)
+    # one batch of `card` (batch_reads=2048), the shape it launches 489
+    # times a run
+    keys, counts = k1_out(2048, K)
+    cases["card_k21_b10"] = (keys, counts, 15, K, 10)
+    keys, counts = k1_out(MAIN_B, WIDE_K)
+    cases["pair_k55_b10"] = (keys, counts, 15, WIDE_K, 10)
+
+    def call(fn_index, fn_hll, keys, wt, bits, k, b, out=None):
+        if k:
+            return fn_hll(keys, wt, k=k, b=b, out=out)
+        return fn_index(keys, wt, bits, out=out)
+
+    kernel = functools.partial(call, hk.index_histogram,
+                               hk.hll_class_histogram)
+    plain = functools.partial(call, hk.index_histogram_ref,
+                              hk.hll_class_histogram_ref)
+    rec = {"name": "index_histogram", "route": "cuda", "source": hk.SOURCE,
+           "replaces": hk.REPLACES, "max_abs_err": 0, "cases": {}}
+    for name, (keys, wt, bits, k, b) in cases.items():
+        before = hk.launches
+        got = kernel(keys, wt, bits, k, b)
+        want = plain(keys, wt, bits, k, b)
         torch.cuda.synchronize()
         err = int((got - want).abs().max())
+        if (err != 0 or hk.launches != before + 1
+                or int(got.sum()) != int(wt.sum())):
+            raise AssertionError(f"K5 != plain version ({name})")
         ms, plain_ms = time_pair(
-            functools.partial(hk.index_histogram, idx, w, bits),
-            functools.partial(hk.index_histogram_ref, idx, w, bits))
-        _say(f"histogram_check bits={bits} lanes={n} sum={int(got.sum())} "
-             f"max_abs_err={err} kernel_ms={ms} plain_ms={plain_ms} "
-             f"speedup={plain_ms / ms} (tolerance: exact)")
-        if err != 0:
-            raise AssertionError(f"K5 != plain version (bits={bits})")
-        if bits == 16:
-            # indices and int8 weights in, 2**16 int64 bins out; one add
-            # a lane.  The yardstick: torch.bincount with the weights
-            # (as floats: it takes no integer weights)
-            wf = w.to(torch.float32)
+            functools.partial(kernel, keys, wt, bits, k, b),
+            functools.partial(plain, keys, wt, bits, k, b))
+        library_ms = None
+        if not k:
+            # the yardstick: torch.bincount with the weights (as floats:
+            # it takes no integer weights)
             library_ms = time_ms(functools.partial(
-                torch.bincount, idx, weights=wf, minlength=1 << bits))
-            rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                       **bound(n * 9 + (8 << bits), n))
-            _say(f"histogram_bound bits={bits} lanes={n} "
-                 f"bound_ms={rec['bound_ms']} bound_by={rec['bound_by']} "
-                 f"library_ms={library_ms} (torch.bincount, weights)")
-    main = [t.to(dev) for t in kernel_batch(rng, MAIN_B, MAIN_L, K,
-                                            packed=True, amb=False,
-                                            short=False)]
-    keys, counts = fe.fused_extract_count(*main, K, canonical=True, seg=SEG,
-                                          packed_width=MAIN_L)
-    for b in (10, 11):
-        got = hk.hll_class_histogram(keys, counts, k=K, b=b)
-        want = hk.hll_class_histogram_ref(keys, counts, k=K, b=b)
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max())
-        ms, plain_ms = time_pair(
-            functools.partial(hk.hll_class_histogram, keys, counts, k=K, b=b),
-            functools.partial(hk.hll_class_histogram_ref, keys, counts, k=K,
-                              b=b))
-        _say(f"hll_histogram_check k={K} b={b} lanes={keys.numel()} "
+                torch.bincount, keys, weights=wt.to(torch.float32),
+                minlength=1 << bits))
+        # lanes (keys and weights) in, 2**bits int64 bins out; one add a
+        # lane, and for an HLL class the hash of each live lane's key
+        # words (9 operations a 32-bit word: the combine's xor, multiply
+        # and add, the finaliser's two multiplies and three shift-xors
+        # counted as one each), 6 for bucket and rho, 4 to assemble a
+        # (hi, lo) pair's words
+        planes = keys if isinstance(keys, tuple) else (keys,)
+        lanes, live = wt.numel(), int((wt != 0).sum())
+        words = (2 * k + 1 + 31) // 32 if k else 0
+        ops = lanes + live * (9 * words + (6 if k else 0)
+                              + (4 if k > 31 else 0))
+        bd = bound(lanes * (1 + 8 * len(planes)) + (8 << bits), ops)
+        grid = hk.plan(lanes, bits, sms)
+        regs, spill = hk.attributes(2 if k > 31 else int(k > 0))
+        case = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                    lanes=lanes, grid=f"{grid.clusters}x{grid.cluster}",
+                    smem_bytes=grid.smem, regs=regs, spill_bytes=spill, **bd)
+        rec["cases"][name] = case
+        _say(f"histogram_check case={name} lanes={lanes} bits={bits} "
              f"sum={int(got.sum())} max_abs_err={err} kernel_ms={ms} "
-             f"plain_ms={plain_ms} speedup={plain_ms / ms} "
-             f"(tolerance: exact)")
-        if err != 0 or int(got.sum()) != int(counts.sum()):
-            raise AssertionError(f"K5 HLL != plain version (b={b})")
-        if b == 10:
-            rec.update(hll_ms=ms, hll_plain_ms=plain_ms)
-    # HLL classes of (hi, lo) pairs: K1's k = 55 output
-    main = [t.to(dev) for t in kernel_batch(rng, MAIN_B, MAIN_L, WIDE_K,
-                                            packed=True, amb=False,
-                                            short=False)]
-    keys, counts = fe.fused_extract_count(*main, WIDE_K, canonical=True,
-                                          seg=SEG, packed_width=MAIN_L)
-    got = hk.hll_class_histogram(keys, counts, k=WIDE_K, b=10)
-    want = hk.hll_class_histogram_ref(keys, counts, k=WIDE_K, b=10)
+             f"plain_ms={plain_ms} library_ms={library_ms} "
+             f"speedup={plain_ms / ms} bound_ms={bd['bound_ms']} "
+             f"bound_by={bd['bound_by']} grid={case['grid']} "
+             f"(clusters x blocks) smem_bytes={grid.smem} regs={regs} "
+             f"spill_bytes={spill} (tolerance: exact)")
+    main = rec["cases"]["index_b16"]
+    rec.update({key: main[key] for key in ("ms", "plain_ms", "library_ms",
+                                           "bound_ms", "bound_by")})
+    for label, name in (("hll", "hll_k21_b10"), ("card", "card_k21_b10"),
+                        ("hll_pair", "pair_k55_b10")):
+        case = rec["cases"][name]
+        rec.update({f"{label}_ms": case["ms"],
+                    f"{label}_plain_ms": case["plain_ms"],
+                    f"{label}_bound_ms": case["bound_ms"]})
+
+    # edge cases, untimed: a hot bin that passes 2**31 across clusters,
+    # views whose alignment differs from the allocation's (and keys not
+    # aligned with their weights), an empty stream
+    hot = 17_000_000
+    idx = torch.zeros(hot, dtype=torch.int64, device=dev)
+    wt = torch.full((hot,), 127, dtype=torch.int8, device=dev)
+    got = hk.index_histogram(idx, wt, 16)
+    want = hk.index_histogram_ref(idx, wt, 16)
     torch.cuda.synchronize()
-    err = int((got - want).abs().max())
-    ms, plain_ms = time_pair(
-        functools.partial(hk.hll_class_histogram, keys, counts, k=WIDE_K,
-                          b=10),
-        functools.partial(hk.hll_class_histogram_ref, keys, counts,
-                          k=WIDE_K, b=10))
-    _say(f"hll_histogram_check k={WIDE_K} (hi, lo) pairs b=10 "
-         f"lanes={counts.numel()} sum={int(got.sum())} max_abs_err={err} "
-         f"kernel_ms={ms} plain_ms={plain_ms} speedup={plain_ms / ms} "
-         f"(tolerance: exact)")
-    if err != 0 or int(got.sum()) != int(counts.sum()):
-        raise AssertionError("K5 HLL on (hi, lo) pairs != plain version")
-    rec.update(hll_pair_ms=ms, hll_pair_plain_ms=plain_ms)
+    if not (torch.equal(got, want) and int(got[0]) == 127 * hot):
+        raise AssertionError("K5 on a hot bin past 2**31 != plain version")
+    _say(f"histogram_check case=hot_bin lanes={hot} bin0={int(got[0])} "
+         f"grid={hk.plan(hot, 16, sms).clusters}x"
+         f"{hk.plan(hot, 16, sms).cluster} equal=True")
+    del idx, wt
+    idx, _, _, _, _ = cases["index_b16"]
+    k21, c21 = cases["hll_k21_b10"][:2]
+    kp, cp = cases["pair_k55_b10"][:2]
+    for ks, ws in ((slice(1, None), slice(1, None)),
+                   (slice(3, -5), slice(3, -5)),
+                   (slice(1, None), slice(0, -1))):
+        for name, keys, wt, bits, k in (
+                ("index_b16", idx[ks], w[ws], 16, 0),
+                ("hll_k21_b10", k21.reshape(-1)[ks], c21.reshape(-1)[ws], 15,
+                 K),
+                ("pair_k55_b10", tuple(p.reshape(-1)[ks] for p in kp),
+                 cp.reshape(-1)[ws], 15, WIDE_K)):
+            got = kernel(keys, wt, bits, k, 10)
+            want = plain(keys, wt, bits, k, 10)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"K5 != plain version on the view "
+                                     f"keys[{ks}], weights[{ws}] ({name})")
+    _say("histogram_check case=unaligned_views views=3 cases=3 equal=True")
     empty = torch.zeros(0, dtype=torch.int64, device=dev)
     before = hk.launches
     got = hk.index_histogram(empty, empty.to(torch.int8), 8)
@@ -1255,8 +1313,9 @@ def phase_dense(dev, path: str) -> int:
     return launches
 
 
-def phase_card(dev, path: str, small: str, exact_distinct: int) -> None:
-    """`card -k 21 --canonical` through the CLI's estimator."""
+def phase_card(dev, path: str, small: str, exact_distinct: int) -> int:
+    """`card -k 21 --canonical` through the CLI's estimator; returns K5's
+    launches in the run."""
     from kmer_tpu_torch import KmerConfig
     from kmer_tpu_torch.ops.kernels import histogram as hk
     from kmer_tpu_torch.pipeline.sketch import (estimate_distinct_multi_k,
@@ -1284,6 +1343,7 @@ def phase_card(dev, path: str, small: str, exact_distinct: int) -> None:
             or hk.launches != want_batches):
         raise AssertionError(f"card estimate {est} not within 15% of "
                              f"{exact_distinct}, or total/launches wrong")
+    return hk.launches
 
 
 def phase_extract_kernel(dev, seed: int) -> dict:
@@ -1812,9 +1872,10 @@ def phase_wide_end_to_end(dev, path: str, small: str, label: str, cfg,
 
 
 def phase_wide_card(dev, path: str, label: str, cfg, exact_distinct: int,
-                    variant_counter: str) -> None:
+                    variant_counter: str) -> int:
     """`card` at cfg's key (k = 55 or the 55-span mask, canonical): the
-    estimate within 15% of the exact distinct count of the same corpus."""
+    estimate within 15% of the exact distinct count of the same corpus;
+    returns K5's launches in the run."""
     from kmer_tpu_torch.pipeline.sketch import estimate_distinct_multi_k
     cfg = cfg.replace(batch_reads=2048)
     t0 = time.perf_counter()
@@ -1833,6 +1894,7 @@ def phase_wide_card(dev, path: str, label: str, cfg, exact_distinct: int,
             or got[variant_counter] != batches):
         raise AssertionError(f"card {label}: estimate {est} not within 15% "
                              f"of {exact_distinct}, or total/launches wrong")
+    return got["k5"]
 
 
 def build_all() -> None:
@@ -1916,7 +1978,7 @@ def main(argv=None) -> int:
                        gtable, gwall, "gapped")
         k4["launches"] = phase_compact_end_to_end(dev, path, table)
         k5["launches"] = phase_dense(dev, path)
-        phase_card(dev, path, small, table.num_distinct)
+        card_launches = [phase_card(dev, path, small, table.num_distinct)]
         k2b["launches"], k2c["launches"] = phase_unfused_small(dev, small)
 
         # phases 21-23: keys of 32 to 63 bases and spaced seeds end to end
@@ -1939,10 +2001,15 @@ def main(argv=None) -> int:
              {"k1_spaced": batches, "k6": -1}),
             ("sort_group_keys=0", {}, dict(sort_group_keys=0),
              {"k7_spaced": batches, "k6": batches, "k1": 0})])
-        phase_wide_card(dev, path, f"k={WIDE_K}", wide_cfg,
-                        k55_table.num_distinct, "k1_wide")
-        phase_wide_card(dev, path, f"seed_mask={WIDE_MASK}", spaced_cfg,
-                        sp_table.num_distinct, "k1_spaced")
+        card_launches.append(phase_wide_card(
+            dev, path, f"k={WIDE_K}", wide_cfg, k55_table.num_distinct,
+            "k1_wide"))
+        card_launches.append(phase_wide_card(
+            dev, path, f"seed_mask={WIDE_MASK}", spaced_cfg,
+            sp_table.num_distinct, "k1_spaced"))
+    # K5's launches: the dense k=8 run's, then each `card` run's (k = 21,
+    # 55 and the mask)
+    k5["card_launches"] = card_launches
     k1w, k7w, k1s, k7s = wide
     k1w["launches"], k7w["launches"] = (k55["sort"]["k1_wide"],
                                         k55["legacy"]["k7_wide"])

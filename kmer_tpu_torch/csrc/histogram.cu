@@ -5,22 +5,42 @@
 // Replaces the TPU kernel kmer_tpu/ops/pallas/histogram.py
 // `index_histogram_mxu` (entry of `dense_histogram_mxu` too).
 //
-// What bounds it: memory and atomics.  Each lane costs an 8-byte key and
-// a 1-byte weight load; lanes of weight 0 (sentinels, later in-segment
-// duplicates) stop there.  The TPU kernel builds bf16 one-hot matrices
-// and multiplies them on its matrix unit, because a TPU has no fast
-// scatter; Hopper has shared-memory atomics, so this is a privatised
-// histogram instead:
-//   - each block keeps a slice of at most 32,768 int32 bins (128 KB) in
-//     dynamic shared memory; 2^16 bins take two slices, one per
-//     blockIdx.y, and each slice's blocks read every lane;
-//   - blocks walk the lanes with a grid-stride loop (neighbouring threads
-//     on neighbouring lanes), adding each lane's weight to its bin with a
-//     shared-memory atomicAdd;
-//   - at the end each block adds its non-zero bins to the global int64
-//     histogram with 64-bit atomicAdd.
-// The TPU kernel carries its sum in VMEM across an in-order grid; here
-// blocks run in any order and only meet in the global atomics.
+// What bounds it: memory.  Each lane costs an 8-byte key (16 bytes for a
+// (hi, lo) pair) and a 1-byte weight; the histogram is 2^bits int64.  What
+// holds it back on an H100 is atomics: about two clocks an SM for each
+// shared-memory add, more for a remote one, and the flush's 64-bit adds
+// at the L2's atomic rate (PERF.md).  The TPU kernel builds bf16 one-hot
+// matrices and multiplies them on its matrix unit, because a TPU has no
+// fast scatter; Hopper has shared-memory atomics and thread-block
+// clusters, so this is a privatised histogram held in a cluster's
+// distributed shared memory:
+//   - one int32 copy of all 2^bits bins is spread over the C blocks of a
+//     cluster (C = 1, 2, 4 or 8), 2^bits / C bins a block, so every lane
+//     is read once whatever `bits` is.  A block adds a lane's weight to
+//     the owning block's bins through cluster.map_shared_rank() and an
+//     atomicAdd there.  The owner of bin idx is its top log2(C) bits
+//     XOR the next log2(C) (`owner`), which spreads canonical k-mers,
+//     whose top bases lean towards A, over the blocks;
+//   - each cluster takes one contiguous chunk of the lanes, its blocks'
+//     threads 16 consecutive lanes an iteration: the weights in one
+//     16-byte load, the keys as eight longlong2, all issued before any
+//     is used (no load waits on a weight's test).  Lanes before the
+//     first 16-byte-aligned weight and after the last whole group of 16
+//     go through a scalar head and tail in block 0;
+//   - the flush: each block adds its non-zero bins to the histogram, with
+//     a plain add when there is one cluster (the block alone owns them)
+//     and a 64-bit atomicAdd when there are several.  A block's non-zero
+//     bins are at most its cluster's live lanes, so the flush never
+//     exceeds the lanes.  (A scratch of [clusters, 2^bits] int32 rows
+//     summed by a second kernel measured slower at 76 of 78 grids.)
+// The grid (C, the number of clusters, the chunk) comes from the wrapper's
+// plan (kmer_tpu_torch/ops/kernels/histogram.py `plan`): one block an SM,
+// a cluster of 2 only where one block cannot hold the bins in 128 KB (bits
+// 16; measured on an H100, larger clusters and more blocks lose more to
+// remote atomics and to the flush than they gain), and chunks small
+// enough that no int32 bin can overflow (a cluster's lanes x 128 < 2^31).
+// A cluster of one block is launched plainly and syncs with
+// __syncthreads.
 //
 // MODE 1 folds the HyperLogLog class of kmer_tpu/ops/sketch.py
 // `hll_classes` into the load: the key's uint32 words (most significant
@@ -33,14 +53,32 @@
 // becomes its 2k-bit value hi * 4^(k - 31) + lo in a 128-bit register,
 // whose 3 or 4 words are hashed.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int THREADS = 512;
-constexpr int SLICE = 32768;               // bins per block, 128 KB
-constexpr int MAX_BLOCKS = 264;            // 2 x the 132 SMs of an H100
+constexpr int LANES = 16;               // lanes a thread takes an iteration
+constexpr int MAX_SMEM = 232448;        // 227 KB, the most a block can have
+
+struct Params {
+  const int64_t* keys;
+  const int64_t* keys_lo;
+  const int8_t* weights;
+  int64_t n;          // lanes
+  int64_t head;       // lanes before the first 16-byte-aligned weight
+  int64_t body_end;   // end of the whole groups of 16 lanes
+  int64_t chunk;      // lanes a cluster (a multiple of 16)
+  int bits, log_c, shift;   // 2^bits bins, 2^log_c blocks a cluster,
+                            // 2^shift bins a block
+  int n_words, lo_bits, b;  // HLL: words hashed, lo's bits, bucket bits
+  int keys_vec;       // the key planes are 16-byte aligned at `head`
+  unsigned long long* hist;
+};
 
 __device__ __forceinline__ uint32_t mix32(uint32_t h) {
   h ^= h >> 16;
@@ -62,76 +100,174 @@ __device__ __forceinline__ int64_t hll_bin(uint32_t h, int b) {
   return (int64_t)(h >> width) * 32 + rho;
 }
 
+// the bin of one lane (MODE 0: the key itself, maybe out of range)
 template <int MODE>
-__global__ void __launch_bounds__(THREADS)
-histogram_kernel(const int64_t* __restrict__ keys,
-                 const int64_t* __restrict__ keys_lo,
-                 const int8_t* __restrict__ weights, int64_t n, int bits,
-                 int n_words, int lo_bits, int b,
-                 unsigned long long* __restrict__ hist) {
-  extern __shared__ int32_t bins[];
-  const int64_t lo = (int64_t)blockIdx.y * SLICE;
-  const int64_t rest = ((int64_t)1 << bits) - lo;
-  const int nb = (int)(rest < SLICE ? rest : SLICE);
-  for (int i = threadIdx.x; i < nb; i += THREADS) bins[i] = 0;
-  __syncthreads();
-
-  const int64_t stride = (int64_t)gridDim.x * THREADS;
-  for (int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x; i < n;
-       i += stride) {
-    const int w = __ldg(weights + i);
-    if (w == 0) continue;
-    const int64_t key = __ldg(keys + i);
-    int64_t idx;
-    if constexpr (MODE == 0) {
-      idx = key;                                  // out of range: dropped
-    } else if constexpr (MODE == 1) {
-      uint32_t h = 0x9E3779B9u;
-      if (n_words == 2) h = combine(h, (uint32_t)((uint64_t)key >> 32));
-      idx = hll_bin(combine(h, (uint32_t)key), b);
-    } else {                               // (hi, lo): the 2k-bit value
-      uint64_t lo = (uint64_t)__ldg(keys_lo + i);
-      if (lo_bits == 64) lo ^= 1ull << 63;     // the stored flip
-      const unsigned __int128 v =
-          ((unsigned __int128)(uint64_t)key << lo_bits) | lo;
-      uint32_t h = 0x9E3779B9u;
-      for (int j = n_words - 1; j >= 0; --j)
-        h = combine(h, (uint32_t)(v >> (32 * j)));
-      idx = hll_bin(h, b);
-    }
-    idx -= lo;
-    if (idx >= 0 && idx < nb) atomicAdd(&bins[idx], w);
+__device__ __forceinline__ int64_t lane_bin(int64_t key, int64_t key_lo,
+                                            const Params& p) {
+  if constexpr (MODE == 0) {
+    return key;
+  } else if constexpr (MODE == 1) {
+    uint32_t h = 0x9E3779B9u;
+    if (p.n_words == 2) h = combine(h, (uint32_t)((uint64_t)key >> 32));
+    return hll_bin(combine(h, (uint32_t)key), p.b);
+  } else {                                 // (hi, lo): the 2k-bit value
+    uint64_t lo = (uint64_t)key_lo;
+    if (p.lo_bits == 64) lo ^= 1ull << 63;     // the stored flip
+    const unsigned __int128 v =
+        ((unsigned __int128)(uint64_t)key << p.lo_bits) | lo;
+    uint32_t h = 0x9E3779B9u;
+    for (int j = p.n_words - 1; j >= 0; --j)
+      h = combine(h, (uint32_t)(v >> (32 * j)));
+    return hll_bin(h, p.b);
   }
-  __syncthreads();
+}
 
+// the block of a cluster that owns bin idx: its top log_c bits XOR the
+// next log_c; the bin sits at idx's low `shift` bits in that block
+__device__ __forceinline__ int owner(int64_t idx, const Params& p) {
+  const int mask = (1 << p.log_c) - 1;
+  return (int)(idx >> p.shift) ^ ((int)(idx >> (p.shift - p.log_c)) & mask);
+}
+
+// out-of-range lanes and lanes of weight 0 are dropped
+__device__ __forceinline__ void add(cg::cluster_group& cluster, int32_t* bins,
+                                    int64_t idx, int w, const Params& p) {
+  if (w == 0 || ((uint64_t)idx >> p.bits) != 0) return;
+  const int at = (int)idx & ((1 << p.shift) - 1);
+  if (p.log_c == 0) {
+    atomicAdd(bins + at, w);
+  } else {
+    atomicAdd(cluster.map_shared_rank(bins, owner(idx, p)) + at, w);
+  }
+}
+
+// every block's bins are in place: the block's own threads, or the
+// cluster's when bins are spread over it
+__device__ __forceinline__ void sync_bins(cg::cluster_group& cluster,
+                                          int log_c) {
+  if (log_c == 0)
+    __syncthreads();
+  else
+    cluster.sync();
+}
+
+template <int MODE>
+__device__ __forceinline__ void scalar_lane(cg::cluster_group& cluster,
+                                            int32_t* bins, int64_t i,
+                                            const Params& p) {
+  const int w = __ldg(p.weights + i);
+  if (w == 0) return;
+  add(cluster, bins,
+      lane_bin<MODE>(__ldg(p.keys + i),
+                     MODE == 2 ? __ldg(p.keys_lo + i) : 0, p),
+      w, p);
+}
+
+// two blocks an SM at most 64 registers a thread; a (hi, lo) pair's 16
+// lanes take 64 for their keys alone
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, MODE == 2 ? 1 : 2)
+histogram_kernel(const Params p) {
+  extern __shared__ int4 bins4[];
+  int32_t* bins = reinterpret_cast<int32_t*>(bins4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int log_c = p.log_c;
+  const int rank = (int)cluster.block_rank();
+  const int nb = 1 << p.shift;
+  for (int i = threadIdx.x; i < nb / 4; i += THREADS)
+    bins4[i] = make_int4(0, 0, 0, 0);
+  for (int i = nb / 4 * 4 + threadIdx.x; i < nb; i += THREADS) bins[i] = 0;
+  sync_bins(cluster, log_c);              // every block's bins are zero
+
+  const int64_t g = blockIdx.x >> log_c;  // the cluster
+  const int64_t lo = p.head + g * p.chunk;
+  const int64_t hi = min(lo + p.chunk, p.body_end);
+  const int64_t step = ((int64_t)THREADS * LANES) << log_c;
+  for (int64_t i = lo + ((int64_t)rank * THREADS + threadIdx.x) * LANES;
+       i < hi; i += step) {
+    const int4 wv = __ldg(reinterpret_cast<const int4*>(p.weights + i));
+    int64_t key[LANES], key_lo[LANES];
+    if (p.keys_vec) {
+#pragma unroll
+      for (int j = 0; j < LANES / 2; ++j) {
+        const longlong2 v =
+            __ldg(reinterpret_cast<const longlong2*>(p.keys + i) + j);
+        key[2 * j] = v.x;
+        key[2 * j + 1] = v.y;
+        if constexpr (MODE == 2) {
+          const longlong2 u =
+              __ldg(reinterpret_cast<const longlong2*>(p.keys_lo + i) + j);
+          key_lo[2 * j] = u.x;
+          key_lo[2 * j + 1] = u.y;
+        }
+      }
+    } else {                  // keys not aligned with the weights
+#pragma unroll
+      for (int j = 0; j < LANES; ++j) {
+        key[j] = __ldg(p.keys + i + j);
+        if constexpr (MODE == 2) key_lo[j] = __ldg(p.keys_lo + i + j);
+      }
+    }
+    const uint32_t words[4] = {(uint32_t)wv.x, (uint32_t)wv.y,
+                               (uint32_t)wv.z, (uint32_t)wv.w};
+#pragma unroll
+    for (int l = 0; l < LANES; ++l) {
+      const int w = (int8_t)(words[l >> 2] >> (8 * (l & 3)));
+      if (w != 0)
+        add(cluster, bins,
+            lane_bin<MODE>(key[l], MODE == 2 ? key_lo[l] : 0, p), w, p);
+    }
+  }
+  if (blockIdx.x == 0) {                  // the scalar head and tail
+    const int64_t t = threadIdx.x;
+    const int64_t i = t < p.head ? t : p.body_end + (t - p.head);
+    if (i < p.n) scalar_lane<MODE>(cluster, bins, i, p);
+  }
+  sync_bins(cluster, log_c);  // every lane is in; no bins are a target
+
+  // bin i of this block is bin ((rank ^ its next log_c bits) << shift) | i
+  // of the histogram (`owner` inverted)
+  const int mask = (1 << log_c) - 1;
+  const bool single = gridDim.x == (1u << log_c);
   for (int i = threadIdx.x; i < nb; i += THREADS) {
     const int32_t v = bins[i];
-    if (v != 0)
-      atomicAdd(hist + lo + i, (unsigned long long)(long long)v);
+    if (v == 0) continue;
+    const int64_t idx =
+        ((int64_t)(rank ^ ((i >> (p.shift - log_c)) & mask)) << p.shift) | i;
+    if (single)                           // this block alone owns idx
+      p.hist[idx] += (unsigned long long)(long long)v;
+    else
+      atomicAdd(p.hist + idx, (unsigned long long)(long long)v);
   }
 }
 
 template <int MODE>
-int launch(const int64_t* keys, const int64_t* keys_lo, const int8_t* weights,
-           int64_t n, int bits, int n_words, int lo_bits, int b,
-           unsigned long long* hist, cudaStream_t st) {
-  const int64_t n_bins = 1LL << bits;
-  const int slices = (int)((n_bins + SLICE - 1) / SLICE);
-  const int nb = (int)(n_bins < SLICE ? n_bins : SLICE);
-  // at least max(nb, 8192) lanes a block, so the flush of a block's bins
-  // stays below the lanes it adds
-  const int64_t per_block = nb > 8192 ? nb : 8192;
-  int64_t blocks = (n + per_block - 1) / per_block;
-  blocks = blocks < 1 ? 1 : (blocks > MAX_BLOCKS ? MAX_BLOCKS : blocks);
-  const size_t smem = (size_t)nb * sizeof(int32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      histogram_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(SLICE * sizeof(int32_t)));
-  if (err != cudaSuccess) return (int)err;
-  histogram_kernel<MODE><<<dim3((unsigned)blocks, slices), THREADS, smem,
-                           st>>>(keys, keys_lo, weights, n, bits, n_words,
-                                 lo_bits, b, hist);
-  return (int)cudaGetLastError();
+int launch(const Params& p, int clusters, cudaStream_t st) {
+  const int smem = (int)(sizeof(int32_t) << p.shift);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        histogram_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (p.log_c == 0) {              // one block a cluster: a plain launch
+    histogram_kernel<MODE><<<(unsigned)clusters, THREADS, smem, st>>>(p);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)clusters << p.log_c);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1u << p.log_c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, histogram_kernel<MODE>, p);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace
@@ -140,21 +276,64 @@ int launch(const int64_t* keys, const int64_t* keys_lo, const int8_t* weights,
 // hist: 2^bits int64, accumulated into.  hll != 0: bits = b + 5 with
 // 1 <= b <= 11, and the bin of a key is its HLL class for a k-mer of k
 // bases: 1 <= k <= 31 keys, or 32 <= k <= 63 (hi, lo) pairs with the lo
-// plane in keys_lo.  Returns the launch's cudaError_t.
+// plane in keys_lo.  The grid: clusters of `cluster` blocks (1, 2, 4 or
+// 8, with bits >= 2 log2(cluster)), `clusters` of them, `chunk` lanes each
+// (a multiple of 16, clusters x chunk >= n, (chunk + 32) x 128 < 2^31).
+// Returns the launch's cudaError_t.
 extern "C" int histogram_launch(const int64_t* keys, const int64_t* keys_lo,
                                 const int8_t* weights, int64_t n, int bits,
                                 int hll, int k, int b, int64_t* hist,
+                                int cluster, int clusters, int64_t chunk,
                                 void* stream) {
+  int log_c = 0;
+  while ((1 << log_c) < cluster) ++log_c;
   if (n < 1 || bits < 1 || bits > 16 ||
       (hll && (b < 1 || b > 11 || bits != b + 5 || k < 1 || k > 63 ||
-               (k > 31) != (keys_lo != nullptr))))
+               (k > 31) != (keys_lo != nullptr))) ||
+      cluster < 1 || cluster > 8 || (1 << log_c) != cluster ||
+      bits < 2 * log_c || clusters < 1 || chunk < 16 || chunk % 16 ||
+      (double)clusters * (double)chunk < (double)n ||
+      (chunk + 32) * 128 >= (1LL << 31) ||
+      ((int64_t)sizeof(int32_t) << (bits - log_c)) > MAX_SMEM)
     return (int)cudaErrorInvalidValue;
+  Params p;
+  p.keys = keys;
+  p.keys_lo = keys_lo;
+  p.weights = weights;
+  p.n = n;
+  p.head = (int64_t)((16 - (reinterpret_cast<uintptr_t>(weights) & 15)) & 15);
+  if (p.head > n) p.head = n;
+  p.body_end = p.head + (n - p.head) / LANES * LANES;
+  p.chunk = chunk;
+  p.bits = bits;
+  p.log_c = log_c;
+  p.shift = bits - log_c;
+  p.n_words = (2 * k + 1 + 31) / 32;
+  p.lo_bits = k > 31 ? 2 * (k - 31) : 0;
+  p.b = b;
+  p.keys_vec = (reinterpret_cast<uintptr_t>(keys + p.head) & 15) == 0 &&
+               (keys_lo == nullptr ||
+                (reinterpret_cast<uintptr_t>(keys_lo + p.head) & 15) == 0);
+  p.hist = reinterpret_cast<unsigned long long*>(hist);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  unsigned long long* h = reinterpret_cast<unsigned long long*>(hist);
-  const int n_words = (2 * k + 1 + 31) / 32;
-  const int lo_bits = k > 31 ? 2 * (k - 31) : 0;
-  if (!hll) return launch<0>(keys, nullptr, weights, n, bits, 0, 0, 0, h, st);
-  if (k <= 31) return launch<1>(keys, nullptr, weights, n, bits, n_words, 0, b,
-                                h, st);
-  return launch<2>(keys, keys_lo, weights, n, bits, n_words, lo_bits, b, h, st);
+  if (!hll) return launch<0>(p, clusters, st);
+  if (k <= 31) return launch<1>(p, clusters, st);
+  return launch<2>(p, clusters, st);
+}
+
+// registers a thread and local (spill) bytes of the histogram kernel's
+// MODE 0, 1 or 2; returns the cudaError_t
+extern "C" int histogram_attributes(int mode, int* regs, int* local_bytes) {
+  cudaFuncAttributes a;
+  cudaError_t err;
+  switch (mode) {
+    case 0: err = cudaFuncGetAttributes(&a, histogram_kernel<0>); break;
+    case 1: err = cudaFuncGetAttributes(&a, histogram_kernel<1>); break;
+    case 2: err = cudaFuncGetAttributes(&a, histogram_kernel<2>); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return 0;
 }

@@ -1,7 +1,7 @@
 """Host FASTA/FASTQ ingest and batching into fixed-shape device batches.
 
 Parsing and batch filling run in the native C++ library compiled from
-kmer_tpu/io/native/fasta_pack.cpp (g++ and zlib, built at first use by
+the port's native/fasta_pack.cpp (g++ and zlib, built at first use by
 utils/build).  FASTA or FASTQ, plain, gzip or BGZF, is auto-detected.
 
 Output contract of parse_seqs: (codes, offsets)
@@ -35,9 +35,8 @@ def load_native():
     global _lib
     if _lib is not None:
         return _lib
-    from ..utils.build import KMER_TPU_DIR, build_cdll
-    lib = build_cdll(os.path.join(KMER_TPU_DIR, "io", "native",
-                                  "fasta_pack.cpp"),
+    from ..utils.build import NATIVE_DIR, build_cdll
+    lib = build_cdll(os.path.join(NATIVE_DIR, "fasta_pack.cpp"),
                      "fasta_pack", extra_link=("-lz",))
     i, i64, cp, vp = ctypes.c_int, ctypes.c_int64, ctypes.c_char_p, \
         ctypes.c_void_p

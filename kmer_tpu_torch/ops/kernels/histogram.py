@@ -19,12 +19,19 @@ Both accumulate into `out` ((2**bits,) int64, made zero when not given)
 and dispatch on where their inputs lie: CPU tensors run the plain
 version, CUDA tensors launch the kernel (or raise).  An empty stream
 launches nothing.
+
+The kernel holds one int32 copy of the bins across a thread-block
+cluster's distributed shared memory; `plan` sizes its grid from the
+lanes, the bins and the card's SM count, and `owner` says which block of
+a cluster holds a bin.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -34,6 +41,19 @@ from ..encode import key_planes
 SOURCE = "kmer_tpu_torch/csrc/histogram.cu"
 REPLACES = "kmer_tpu/ops/pallas/histogram.py:110"
 MAX_BITS = 16
+# the lanes a thread of the kernel takes an iteration (csrc/histogram.cu)
+LANES = 16
+# the plan's choices, measured on an H100 (PERF.md): at most
+# SMEM_TARGET bytes of bins a block, in clusters of at most MAX_CLUSTER
+# blocks (larger clusters, and smaller blocks two or more an SM, lose
+# more to remote atomics and to the flush than they gain); one block an
+# SM; at least MIN_BLOCK_LANES lanes a block
+SMEM_TARGET = 128 * 1024
+MAX_CLUSTER = 2
+MIN_BLOCK_LANES = 512
+# int32 bins: a cluster's lanes (its chunk and < 32 unaligned ones) times
+# the largest |weight| stay below 2**31
+MAX_CLUSTER_LANES = (((1 << 31) - 1) // 128 - 32) // LANES * LANES
 # calls that launched the kernel (the plain version on CPU tensors does
 # not count)
 launches = 0
@@ -48,9 +68,70 @@ def load():
                          "kmer_histogram", cuda=True)
         vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.histogram_launch.restype = i
-        lib.histogram_launch.argtypes = [vp, vp, vp, i64, i, i, i, i, vp, vp]
+        lib.histogram_launch.argtypes = [vp, vp, vp, i64, i, i, i, i, vp, i,
+                                         i, i64, vp]
+        lib.histogram_attributes.restype = i
+        lib.histogram_attributes.argtypes = [i, ctypes.POINTER(i),
+                                             ctypes.POINTER(i)]
         _lib = lib
     return _lib
+
+
+class Plan(NamedTuple):
+    """The kernel's grid: `clusters` clusters of `cluster` blocks, each
+    cluster `chunk` lanes (a multiple of LANES); `smem` bytes of bins a
+    block."""
+    cluster: int
+    clusters: int
+    chunk: int
+    smem: int
+
+
+def plan(n: int, bits: int, sm_count: int) -> Plan:
+    """The grid for n lanes into 2**bits bins on a card of sm_count SMs.
+
+    The cluster is the fewest blocks, up to MAX_CLUSTER, whose share of
+    the bins fits SMEM_TARGET.  The clusters give one block to each SM,
+    but each block at least MIN_BLOCK_LANES lanes; and they are at least
+    enough that no cluster takes over MAX_CLUSTER_LANES, so no int32 bin
+    can overflow.  A chunk is the lanes over the clusters, rounded up to
+    a multiple of LANES.  The flush adds each block's non-zero bins, at
+    most its cluster's lanes, so it needs no cap of its own."""
+    n_bins = 1 << bits
+    cluster = 1
+    while n_bins // cluster * 4 > SMEM_TARGET and cluster < MAX_CLUSTER:
+        cluster *= 2
+    clusters = min(max(1, sm_count // cluster),
+                   -(-n // (cluster * MIN_BLOCK_LANES)))
+    clusters = max(1, clusters, -(-n // MAX_CLUSTER_LANES))
+    chunk = max(LANES, -(-n // clusters // LANES) * LANES)
+    return Plan(cluster, max(1, -(-n // chunk)), chunk, n_bins // cluster * 4)
+
+
+def owner(idx, bits: int, cluster: int):
+    """(block of the cluster, bin in its shared memory) that holds bin
+    idx: idx's top log2(cluster) bits XOR the next log2(cluster), and its
+    low bits (csrc/histogram.cu `owner`)."""
+    log_c = cluster.bit_length() - 1
+    shift = bits - log_c
+    return ((idx >> shift) ^ ((idx >> (shift - log_c)) & (cluster - 1)),
+            idx & ((1 << shift) - 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def attributes(mode: int) -> tuple[int, int]:
+    """(registers a thread, local bytes) of the kernel's MODE `mode`: 0
+    indices, 1 HLL classes of keys, 2 of (hi, lo) pairs."""
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    rc = load().histogram_attributes(mode, ctypes.byref(regs),
+                                     ctypes.byref(local))
+    if rc != 0:
+        raise RuntimeError(f"histogram kernel attributes: cudaError {rc}")
+    return regs.value, local.value
 
 
 def _out(out, bits: int, device) -> torch.Tensor:
@@ -89,7 +170,8 @@ def hll_class_histogram_ref(keys, weight: torch.Tensor, *, k: int, b: int,
     return index_histogram_ref(hll_classes(keys, k, b), w[live], b + 5, out)
 
 
-def _launch(keys, weight, bits, out, hll_k: int, b: int) -> torch.Tensor:
+def _launch(keys, weight, bits, out, hll_k: int, b: int,
+            grid: Plan | None = None) -> torch.Tensor:
     planes = key_planes(keys)
     out = _out(out, bits, planes[0].device)
     if (any(p.dtype != torch.int64 or p.shape != weight.shape
@@ -102,12 +184,16 @@ def _launch(keys, weight, bits, out, hll_k: int, b: int) -> torch.Tensor:
     if n == 0:
         return out
     lib = load()
-    with torch.cuda.device(weight.device):
-        rc = lib.histogram_launch(planes[0].data_ptr(),
-                                  planes[1].data_ptr() if len(planes) == 2
-                                  else None, weight.data_ptr(), n, bits,
-                                  int(hll_k > 0), hll_k, b, out.data_ptr(),
-                                  torch.cuda.current_stream().cuda_stream)
+    dev = weight.device
+    if grid is None:
+        grid = plan(n, bits, _sm_count(dev.index))
+    with torch.cuda.device(dev):
+        rc = lib.histogram_launch(
+            planes[0].data_ptr(),
+            planes[1].data_ptr() if len(planes) == 2 else None,
+            weight.data_ptr(), n, bits, int(hll_k > 0), hll_k, b,
+            out.data_ptr(), grid.cluster, grid.clusters, grid.chunk,
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"histogram kernel launch failed: cudaError {rc}")
     global launches

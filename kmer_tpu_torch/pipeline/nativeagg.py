@@ -1,8 +1,8 @@
 """Native multithreaded (key, count) pair aggregation binding.
 
 KmerTable.from_pairs funnels every host merge through here for large
-inputs: a bucket-parallel sort-reduce in C++, compiled by path from
-kmer_tpu/pipeline/native/aggregate.cpp (utils/build).  Below MIN_N pairs
+inputs: a bucket-parallel sort-reduce in C++, compiled from the port's
+native/aggregate.cpp (utils/build).  Below MIN_N pairs
 the single-threaded numpy path in pipeline/table.py is faster and is
 used instead.  The native output equals numpy's bit for bit (sorted
 unique keys; int64 sums do not depend on order).
@@ -34,9 +34,8 @@ def load():
     global _lib
     if _lib is not None:
         return _lib
-    from ..utils.build import KMER_TPU_DIR, build_cdll
-    lib = build_cdll(os.path.join(KMER_TPU_DIR, "pipeline", "native",
-                                  "aggregate.cpp"), "kmer_agg")
+    from ..utils.build import NATIVE_DIR, build_cdll
+    lib = build_cdll(os.path.join(NATIVE_DIR, "aggregate.cpp"), "kmer_agg")
     i, i64 = ctypes.c_int, ctypes.c_int64
     lib.aggregate_pairs.restype = i64
     lib.aggregate_pairs.argtypes = [_u64p, _i64p, i64, i, i, _u64p, _i64p]

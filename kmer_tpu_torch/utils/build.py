@@ -1,7 +1,7 @@
 """One build-and-load helper for the port's native libraries.
 
-Host C++ (the ingest parser and the pair aggregator) is compiled with
-g++ from kmer_tpu's own sources, by path; the Hopper kernels under
+Host C++ (the ingest parser and the pair aggregator, under
+kmer_tpu_torch/native) is compiled with g++; the Hopper kernels under
 kmer_tpu_torch/csrc are compiled with nvcc for sm_90a.  Every library is
 a plain C interface loaded with ctypes, built at first use into the
 git-ignored kmer_tpu_torch/_build/, and rebuilt when its source (or, for
@@ -23,9 +23,7 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
-# kmer_tpu's native sources sit beside this package (in a checkout and
-# in an installed wheel alike)
-KMER_TPU_DIR = os.path.join(os.path.dirname(PKG_DIR), "kmer_tpu")
+NATIVE_DIR = os.path.join(PKG_DIR, "native")
 
 CXXFLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-pthread"]
 NVCCFLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

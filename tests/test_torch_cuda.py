@@ -244,6 +244,137 @@ def test_histogram_kernel_empty(cuda):
     assert hk.launches == before and int(got.abs().sum()) == 0
 
 
+def _histogram_both(idx, w, bits, out=None, grid=None):
+    """K5 and its plain version on the same lanes; both accumulate into a
+    copy of `out` (zeros when None).  Asserts one launch; returns both."""
+    if out is None:
+        out = torch.zeros(1 << bits, dtype=torch.int64, device=idx.device)
+    before = hk.launches
+    got = hk._launch(idx, w, bits, out.clone(), 0, 0, grid)
+    want = hk.index_histogram_ref(idx, w, bits, out=out.clone())
+    torch.cuda.synchronize()
+    assert hk.launches == before + 1
+    return got, want
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+def test_histogram_kernel_hot_bin(cuda, bits):
+    """Every lane in bin 0 at weight 127: the bin passes 2**31 across
+    clusters (no cluster's int32 bin may), in an int64 out."""
+    n = 17_000_000
+    idx = torch.zeros(n, dtype=torch.int64, device=cuda)
+    w = torch.full((n,), 127, dtype=torch.int8, device=cuda)
+    assert hk.plan(n, bits, hk._sm_count(0)).clusters > 1
+    got, want = _histogram_both(idx, w, bits)
+    assert int(got[0]) == 127 * n > 1 << 31 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bits", range(1, 17))
+def test_histogram_kernel_bits_sweep(cuda, bits):
+    """Indices around [0, 2**bits) (out-of-range ones dropped), weights
+    over all of int8."""
+    rng = np.random.default_rng(100 + bits)
+    n = 300_007
+    idx = torch.from_numpy(rng.integers(-2, (1 << bits) + 2, n)).to(cuda)
+    w = torch.from_numpy(rng.integers(-128, 128, n).astype(np.int8)).to(cuda)
+    got, want = _histogram_both(idx, w, bits)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bits", [4, 15, 16])
+def test_histogram_kernel_negative_weights(cuda, bits):
+    rng = np.random.default_rng(bits)
+    n = 1_146_880
+    idx = torch.from_numpy(rng.integers(0, 1 << bits, n)).to(cuda)
+    w = torch.from_numpy(rng.integers(-128, 0, n).astype(np.int8)).to(cuda)
+    got, want = _histogram_both(idx, w, bits)
+    assert torch.equal(got, want) and int(got.sum()) == int(w.sum()) < 0
+
+
+# (key slice, weight slice): views whose 16-byte alignment differs from
+# the allocation's, and keys not aligned with their weights
+VIEWS = [(slice(1, None), slice(1, None)), (slice(3, -5), slice(3, -5)),
+         (slice(1, None), slice(0, -1)), (slice(0, -7), slice(7, None)),
+         (slice(15, None), slice(15, None))]
+
+
+@pytest.mark.parametrize("ks,ws", VIEWS)
+@pytest.mark.parametrize("bits", [8, 16])
+def test_histogram_kernel_unaligned_views(cuda, ks, ws, bits):
+    rng = np.random.default_rng(bits)
+    n = 100_000
+    idx = torch.from_numpy(rng.integers(0, 1 << bits, n)).to(cuda)[ks]
+    w = torch.from_numpy(rng.integers(1, 4, n).astype(np.int8)).to(cuda)[ws]
+    got, want = _histogram_both(idx, w, bits)
+    assert torch.equal(got, want) and int(got.sum()) == int(w.sum())
+
+
+@pytest.mark.parametrize("ks,ws", VIEWS)
+@pytest.mark.parametrize("k", [21, 55])
+def test_hll_histogram_kernel_unaligned_views(cuda, ks, ws, k):
+    keys, counts = _k1_stream(cuda, k, 512, 150, k)
+    planes = keys if isinstance(keys, tuple) else (keys,)
+    planes = tuple(p[ks] for p in planes)
+    counts = counts[ws]
+    keys = planes if k > 31 else planes[0]
+    got = hk.hll_class_histogram(keys, counts, k=k, b=10)
+    want = hk.hll_class_histogram_ref(keys, counts, k=k, b=10)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and int(got.sum()) == int(counts.sum())
+
+
+@pytest.mark.parametrize("n", [1, 2, 15, 16, 17, 31, 33, 8191, 8192, 8193,
+                               16385, 286_721])
+@pytest.mark.parametrize("bits", [8, 15, 16])
+def test_histogram_kernel_lane_counts(cuda, n, bits):
+    """n from one lane up to one past a block's share of an iteration
+    (512 threads x 16 lanes) and past a 2048-read batch."""
+    rng = np.random.default_rng(n)
+    idx = torch.from_numpy(rng.integers(0, 1 << bits, n)).to(cuda)
+    w = torch.from_numpy(rng.integers(-3, 4, n).astype(np.int8)).to(cuda)
+    got, want = _histogram_both(idx, w, bits)
+    assert torch.equal(got, want)
+
+
+# (bits, cluster, clusters): 2**16 int32 bins need two blocks at least
+GRIDS = [(bits, cluster, clusters) for bits in (8, 15, 16)
+         for cluster, clusters in ((1, 1), (1, 132), (2, 3), (2, 66), (4, 8),
+                                   (4, 33), (8, 5), (8, 16), (8, 1))
+         if (bits, cluster) != (16, 1)]
+
+
+@pytest.mark.parametrize("bits,cluster,clusters", GRIDS)
+def test_histogram_kernel_grids(cuda, bits, cluster, clusters):
+    """Grids other than the plan's: every cluster size, one cluster (a
+    plain flush) and several (atomic), into a pre-filled out."""
+    rng = np.random.default_rng(clusters)
+    n = 400_003
+    idx = torch.from_numpy(rng.integers(0, 1 << bits, n)).to(cuda)
+    w = torch.from_numpy(rng.integers(-2, 3, n).astype(np.int8)).to(cuda)
+    chunk = -(-n // clusters // hk.LANES) * hk.LANES
+    grid = hk.Plan(cluster, -(-n // chunk), chunk,
+                   (1 << bits) // cluster * 4)
+    out = torch.from_numpy(rng.integers(-1 << 40, 1 << 40, 1 << bits)).to(
+        cuda)
+    got, want = _histogram_both(idx, w, bits, out=out, grid=grid)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k,B", [(21, 2048), (21, 8192), (55, 2048)])
+def test_hll_histogram_kernel_card_batch(cuda, k, B):
+    """The `card` batch shape (2048 reads at L = 160), and the main
+    batch, into a pre-filled histogram that is accumulated into."""
+    keys, counts = _k1_stream(cuda, B, B, 160, k)
+    rng = np.random.default_rng(k)
+    out = torch.from_numpy(rng.integers(0, 1 << 40, 1 << 15)).to(cuda)
+    got = hk.hll_class_histogram(keys, counts, k=k, b=10, out=out.clone())
+    want = hk.hll_class_histogram_ref(keys, counts, k=k, b=10,
+                                      out=out.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int((got - out).sum()) == int(counts.sum())
+
+
 def test_compact_dense_and_card_cuda_equal_cpu(cuda, tmp_path):
     path = tmp_path / "g.fasta"
     path.write_text(genome_reads_fasta(300, 150, genome_len=3000, seed=2,
