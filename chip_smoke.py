@@ -12,9 +12,11 @@ few) to stdout:
   2. kernel K1 (kmer_tpu_torch/csrc/fused_extract.cu) against its plain
      torch version on the card, bit-exact lane for lane, at the main
      path's shape (B=8192, L=160, k=21, canonical, seg=2, packed rows)
-     and at edge cases; both timed on the device with CUDA events (the
-     median of 20 samples of 10 back-to-back calls, after warm-up), and
-     as a caller sees one synchronised call;
+     and at edge cases (k = 32 and 63 on u8 rows with ambiguous codes
+     among them); both timed on the device with CUDA events (the median
+     of 20 samples of 10 back-to-back calls, after warm-up), and as a
+     caller sees one synchronised call; the timed launch's geometry
+     (threads, blocks, shared bytes, registers, spills, blocks an SM);
   3. kernel K3 (kmer_tpu_torch/csrc/fused_gapped.cu) the same way, at the
      parity path's shape (B=256, L=416, l=r=27, c in [80, 140], packed
      rows) and at edge cases (asymmetric windows, u8 rows with ambiguous
@@ -82,8 +84,8 @@ few) to stdout:
  15. phase 6's run with device_merge="on": its table equals phase 6's;
  16. kernel K7 (kmer_tpu_torch/csrc/extract.cu) against its plain version,
      lane for lane, at the main shape (canonical, packed rows) and at
-     k = 1, 16, 17, 31 (u8 rows with ambiguous codes, short lengths and
-     limits); both timed;
+     k = 1, 16, 17, 31, 32 and 63 (u8 rows with ambiguous codes, short
+     lengths and limits); both timed, with the launch's geometry;
  17. kernels K2a, K2b and K2c (kmer_tpu_torch/csrc/grouped_count.cu)
      against their plain versions, bit for bit (sorted planes and
      counts): on K7's output of one main batch (1,146,880 keys, m = 256,
@@ -108,9 +110,9 @@ few) to stdout:
      1110111...0111 of span 31 (24 selected) and 55 (42 selected),
      canonical and not, packed rows and u8 rows with ambiguous codes
      and short rows; each variant timed at k = 55 (or the span-55 mask),
-     canonical, packed; phases 7 and 8 also hold K4 on K1's pairs (k =
-     55, and k = 63 whose lo carries a flipped top bit) and K5's
-     HyperLogLog classes on k = 55 pairs;
+     canonical, packed, with its launch's geometry; phases 7 and 8 also
+     hold K4 on K1's pairs (k = 55, and k = 63 whose lo carries a flipped
+     top bit) and K5's HyperLogLog classes on k = 55 pairs;
  21. k = 55 canonical on phase 4's corpus (96 M k-mers): the default
      (host merge), compact=True (K1 -> K4), device_merge="on" (K1 -> K6
      at two key words) and KMER_TPU_STEP=legacy with the grouped sort
@@ -220,11 +222,15 @@ def _tool(cmd: list[str]) -> str:
     return res.stdout.strip()
 
 
-def kernel_batch(rng, B, L, k, *, packed, amb, short):
+def kernel_batch(rng, B, L, k, *, packed, amb, short, amb_share=None):
     """Random codes + lengths + limits as tensors (host side); packed
-    rows cross as the int32 view of the 2-bit packed words."""
+    rows cross as the int32 view of the 2-bit packed words.  With amb,
+    a fifth of the codes are ambiguous (4), or amb_share of them."""
     from kmer_tpu_torch.io.fasta import pack_batch_codes
-    codes = rng.integers(0, 5 if amb else 4, (B, L), dtype=np.uint8)
+    codes = rng.integers(0, 5 if amb and amb_share is None else 4, (B, L),
+                         dtype=np.uint8)
+    if amb and amb_share is not None:
+        codes[rng.random((B, L)) < amb_share] = 4
     if short:
         lengths = rng.integers(0, L + 1, B).astype(np.int32)
         limits = rng.integers(1, L + 1, B).astype(np.int32)
@@ -272,6 +278,16 @@ def time_host_ms(fn, reps: int = 20) -> float:
     return float(np.median(ts))
 
 
+def launch_line(label: str, mod, B: int, L: int, k: int, **kw) -> None:
+    """Print the launch K1's or K7's wrapper makes for a (B, L) batch:
+    threads a block, blocks, threads launched, shared bytes a block,
+    registers a thread, spill bytes and resident blocks an SM."""
+    info = mod.launch_info(B, L, k, **kw)
+    _say(f"launch kernel={label} B={B} L={L} n_bases={k} "
+         + " ".join(f"{key}={v}" for key, v in info.items())
+         + f" threads_launched={info['threads'] * info['blocks']}")
+
+
 def phase_kernel(dev, seed: int) -> dict:
     """Kernel == plain version, lane for lane, on `dev`; returns the
     kernel's JSON record (without the main-path launch count)."""
@@ -286,20 +302,23 @@ def phase_kernel(dev, seed: int) -> dict:
         (4096, 150, 21, False, True, False, True, 2),
         (4096, 150, 21, True, False, True, True, 2),
         (999, 77, 31, False, False, True, True, 16),
+        (4096, 150, 32, True, False, True, True, 2),
+        (4096, 150, 63, True, False, True, True, 4),
     ]
     max_err = 0
     for B, L, k, canon, packed, amb, short, seg in cases:
+        # 1% ambiguous codes for pairs, so that a 63-base window can be
+        # live
         host = kernel_batch(rng, B, L, k, packed=packed, amb=amb,
-                            short=short)
+                            short=short, amb_share=0.01 if k > 31 else None)
         kw = dict(canonical=canon, mask_ambiguous=amb, seg=seg,
                   packed_width=L if packed else 0)
         on_dev = [t.to(dev) for t in host]
         keys, counts = fe.fused_extract_count(*on_dev, k, **kw)
         want_keys, want_counts = fe.fused_extract_count_ref(*on_dev, k, **kw)
         torch.cuda.synchronize()
-        err = max(int((keys - want_keys).abs().max()),
-                  int((counts.to(torch.int32)
-                       - want_counts.to(torch.int32)).abs().max()))
+        err = max(exact_err(keys, want_keys),
+                  exact_err(counts, want_counts))
         live = int((counts > 0).sum())
         _say(f"kernel_check B={B} L={L} k={k} canonical={canon} "
              f"packed={packed} ambiguous={amb} short={short} seg={seg} "
@@ -319,9 +338,10 @@ def phase_kernel(dev, seed: int) -> dict:
     lanes = (MAIN_L - K + 1) * MAIN_B
     out_bytes = kernel()[1].numel() * 9            # int64 key + int8 count
     # packed codes, lengths and limits in; ~16 integer operations a lane
-    # (rolling forward and reverse-complement values, min, validity,
-    # collapse)
+    # (the key and its reverse complement, min, validity, collapse)
     b = bound(main[0].numel() * 4 + MAIN_B * 8 + out_bytes, lanes * 16)
+    launch_line("fused_extract_count", fe, MAIN_B, MAIN_L, K, canonical=True,
+                seg=SEG)
     _say(f"kernel_time B={MAIN_B} L={MAIN_L} k={K} kernel_ms={ms} "
          f"plain_ms={plain_ms} speedup={plain_ms / ms} "
          f"lanes_per_s={lanes / (ms * 1e-3)} "
@@ -1349,7 +1369,7 @@ def phase_card(dev, path: str, small: str, exact_distinct: int) -> int:
 def phase_extract_kernel(dev, seed: int) -> dict:
     """K7 == plain version, lane for lane, on `dev`; returns K7's JSON
     record (without the main-path launch count)."""
-    from kmer_tpu_torch.ops.encode import SENTINEL_KEY
+    from kmer_tpu_torch.ops.encode import SENTINEL_KEY, key_planes
     from kmer_tpu_torch.ops.kernels import extract as ek
     rng = np.random.default_rng(seed + 5)
     cases = [  # (B, L, k, canonical, packed, ambiguous, short)
@@ -1359,11 +1379,13 @@ def phase_extract_kernel(dev, seed: int) -> dict:
         (4096, 150, 17, False, False, True, True),
         (4096, 150, 31, False, False, True, True),
         (999, 77, 31, True, True, False, True),
+        (4096, 150, 32, True, False, True, True),
+        (4096, 150, 63, True, False, True, True),
     ]
     max_err = 0
     for B, L, k, canon, packed, amb, short in cases:
         host = kernel_batch(rng, B, L, k, packed=packed, amb=amb,
-                            short=short)
+                            short=short, amb_share=0.01 if k > 31 else None)
         kw = dict(canonical=canon, mask_ambiguous=amb,
                   packed_width=L if packed else 0)
         on_dev = [t.to(dev) for t in host]
@@ -1371,8 +1393,8 @@ def phase_extract_kernel(dev, seed: int) -> dict:
         keys = ek.extract_keys(*on_dev, k, **kw)
         want = ek.extract_keys_ref(*on_dev, k, **kw)
         torch.cuda.synchronize()
-        err = int((keys - want).abs().max())
-        live = int((keys != SENTINEL_KEY).sum())
+        err = exact_err(keys, want)
+        live = int((key_planes(keys)[0] != SENTINEL_KEY).sum())
         launched = ek.launches - before
         _say(f"extract_check B={B} L={L} k={k} canonical={canon} "
              f"packed={packed} ambiguous={amb} short={short} "
@@ -1390,9 +1412,10 @@ def phase_extract_kernel(dev, seed: int) -> dict:
         functools.partial(ek.extract_keys_ref, *main, K, **kw))
     lanes = (MAIN_L - K + 1) * MAIN_B
     # packed codes, lengths and limits in, one int64 key a lane out; ~8
-    # integer operations a lane (rolling forward and reverse-complement
-    # values, min, validity)
+    # integer operations a lane (the key and its reverse complement, min,
+    # validity)
     b = bound(main[0].numel() * 4 + MAIN_B * 8 + lanes * 8, lanes * 8)
+    launch_line("extract_keys", ek, MAIN_B, MAIN_L, K, canonical=True)
     _say(f"extract_time B={MAIN_B} L={MAIN_L} k={K} kernel_ms={ms} "
          f"plain_ms={plain_ms} speedup={plain_ms / ms} "
          f"out_GB_per_s={lanes * 8 / (ms * 1e-3) / 1e9} "
@@ -1656,8 +1679,9 @@ def window_ops(positions, span: int, lanes: int,
                canonical: bool = True) -> int:
     """Thread instructions that K1's or K7's window function needs over
     `lanes` windows, from the key's shape alone (span, runs, n), not from
-    the kernels' tiles.  Contiguous (positions None, two words): two
-    128-bit values rolled (~16) and the compare, split and collapse (~8).
+    the kernels' tiles.  Contiguous (positions None, two words): the key's
+    two words and their reverse complement (~16) and the compare, split
+    and collapse (~8).
     A spaced seed: one push a window into its span's ceil(span / 16)
     32-bit words -- 2 to take the code from its packed word, a funnel shift
     a word forward and, canonical, a word and the complement's insert
@@ -1770,6 +1794,8 @@ def phase_wide_kernels(dev, seed: int) -> list[dict]:
                 functools.partial(fn, *main, k, **kw, **extra),
                 functools.partial(ref, *main, k, **kw, **extra))
             b = bound(in_bytes + out_bytes, ops)
+            launch_line(f"{name}[{variant}]", mod, MAIN_B, MAIN_L, k,
+                        canonical=True, positions=pos, **extra)
             _say(f"wide_kernel_time kernel={name} variant={variant} "
                  f"B={MAIN_B} L={MAIN_L} n_bases={k} span={span} "
                  f"canonical=True packed=True kernel_ms={ms} "

@@ -4,49 +4,56 @@
 // csrc/grouped_count.cu, or the flat sort of csrc/sort.cu).
 //
 // Replaces the TPU kernel kmer_tpu/ops/pallas/extract.py `_extract_kernel`
-// (entry extract_repacked).
+// (pallas_call at :88, entry extract_repacked :65).
 //
-// What bounds it: memory.  Each output lane is one 8-byte key store (16
-// for a (hi, lo) pair); the input is L/4 bytes of packed codes a row (L
-// bytes for u8 rows) and two int32 a row; the arithmetic is a few integer
-// operations per base, and for a spaced seed a rotate and a masked or per
-// piece of its cut table.
+// What bounds it: memory, and there the key stores.  Each output lane is
+// one 8-byte key store (16 for a (hi, lo) pair); the input is L/4 bytes of
+// packed codes a row (L bytes for u8 rows) and two int32 a row; the
+// arithmetic is a few integer operations a key.
 //
 // Design: the TPU kernel builds every window of a row block at once from k
 // shifted slices and splits the key into the (top, bot) uint32 words of its
 // sort layout, so it takes only 17 <= k <= 31 and no ambiguous codes
 // (kmer_tpu's unfused route extracts every other key outside a kernel).
 // Here a key is one int64 or an int64 (hi, lo) pair, so every k <= 63,
-// spaced seeds and the ambiguity mask come at no cost.  One thread walks
-// CHUNK consecutive window starts of one row (kmer_window.cuh, shared with
-// csrc/fused_extract.cu), in one of two bodies.  extract_kernel: a
-// contiguous window rolls a forward value and reverse complement (64-bit
-// registers up to 31 bases, 128-bit beyond), primed with the n - 1 bases
-// before its chunk; a spaced seed of span over 64 gathers its selected
-// bases.  extract_rolled_kernel: a spaced seed of span <= 64 rolls its
-// whole span (SpanWalk), primed with span - 1 bases, and cuts the keys of 4
-// windows at a time out of the registers by the seed's cut table (each
-// load of the table shared by the 4), with a rolled bit a base for
-// ambiguity.  Priming span - 1 bases for 16 windows would cost more pushes
-// than the windows themselves, so the rolled body takes chunks of 32
-// windows in blocks of 64 threads (the staging buffer stays 33.8 KB, under
-// the 48 KB of static shared memory).  Thread t of the grid takes chunk t
-// of the flat (B, P) output, row-major, so the chunks of a block cover one
-// contiguous range of the output: the block stages its keys in shared
-// memory (one plane a key word) and stores the range with neighbouring
-// threads on neighbouring addresses.  The staging index skips one slot
-// every CHUNK slots, so the 16 threads of a half-warp that write key j of
-// their chunks fall in different banks.
+// spaced seeds and the ambiguity mask come at no cost.  Three bodies
+// (kmer_window.cuh, shared with csrc/fused_extract.cu):
+// - extract_cut_kernel, a contiguous key: a block takes a tile of
+//   consecutive outputs of the flat (B, P) row-major output, `iters` a
+//   thread, and thread i takes flat index f0 + i of each round, so a
+//   warp's stores are contiguous whatever P is, straight from registers.
+//   The block stages the rows the tile touches, each over the windows it
+//   takes (CutTile: packed words and, with the ambiguity mask, ambiguity
+//   words) with each row's last valid window, and cuts each key out of
+//   shared memory with a few funnel shifts, its reverse complement with a
+//   bit reverse, and no priming.  `iters` is chosen so that the grid holds
+//   about as many threads as the card has slots;
+// - extract_rolled_kernel, a spaced seed of span <= 64: one thread walks a
+//   chunk of 32 windows of one row, rolls the whole span (SpanWalk),
+//   primed with span - 1 bases, and cuts the keys of 4 windows at a time
+//   out of the registers by the seed's cut table, with a rolled bit a base
+//   for ambiguity;
+// - extract_gather_kernel, a spaced seed of span over 64: one thread walks
+//   a chunk of 16 windows of one row and gathers each key's bases.
+// The last two stage their keys in shared memory (one plane a key word)
+// and store the block's contiguous range of the output with neighbouring
+// threads on neighbouring addresses; thread t of the grid takes chunk t of
+// the flat output, row-major, and the staging index skips one slot every
+// chunk, so the 16 threads of a half-warp that write key j of their chunks
+// fall in different banks.  The rolled body takes blocks of 64 threads, so
+// that its staging stays 33.8 KB, under the 48 KB of static shared memory.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <algorithm>
 #include <utility>
 
 #include "kmer_window.cuh"
 
 namespace {
 
-constexpr int CHUNK = 16;      // window starts per thread
+// the gathered body's window starts a thread and threads a block
+constexpr int CHUNK = 16;
 constexpr int THREADS = 128;
 constexpr int STAGE = THREADS * CHUNK + THREADS;   // keys + one pad slot a chunk
 static_assert(CHUNK % 16 == 0, "a chunk starts on a packed word");
@@ -55,27 +62,74 @@ constexpr int ROLLED_CHUNK = 32, ROLLED_THREADS = 64;
 constexpr int ROLLED_STAGE = ROLLED_THREADS * ROLLED_CHUNK + ROLLED_THREADS;
 static_assert(ROLLED_CHUNK % 16 == 0, "a chunk starts on a packed word");
 
+// the cut body's threads a block, most keys a thread, and shared bytes
+constexpr int CUT_THREADS = 256, MAX_ITERS = 8, CUT_SMEM = 48 * 1024;
+
 template <int C>
 __device__ __forceinline__ int stage_slot(int64_t i) {
   return (int)(i + i / C);
 }
 
-// a contiguous key, or a spaced seed's gathered key (span over 64)
-template <typename KEY, bool PACKED, bool CANON, bool SPACED>
+// a contiguous key cut out of the block's tile
+template <typename KEY, bool PACKED, bool CANON>
+__global__ void __launch_bounds__(CUT_THREADS)
+extract_cut_kernel(const void* __restrict__ codes, int row_stride,
+                   const int32_t* __restrict__ lengths,
+                   const int32_t* __restrict__ limits,
+                   int64_t* __restrict__ keys_hi,
+                   int64_t* __restrict__ keys_lo, int B, int L, int n, int P,
+                   int mask_amb, int iters, int cap, int stride) {
+  constexpr bool TWO = kmer::TWO_WORDS<KEY>;
+  extern __shared__ uint32_t tile_sm[];
+  const int64_t total = (int64_t)B * P;
+  const int64_t f0 = (int64_t)blockIdx.x * CUT_THREADS * iters;
+  const int64_t f_end = f0 + (int64_t)CUT_THREADS * iters;
+  const int64_t f1 = f_end < total ? f_end : total;
+  // the tile's rows b0 .. and its outputs [l0, l1) counted from row b0's
+  // first; slot s serves row b0 + s over windows [l0 - s P, l1 - s P) in
+  // [0, P)
+  const int b0 = (int)(f0 / P);
+  const int64_t base = (int64_t)b0 * P;
+  const int l0 = (int)(f0 - base), l1 = (int)(f1 - base);
+  auto first = [=](int s) { return max(l0 - s * P, 0); };
+  const kmer::CutTile tile = {tile_sm, cap, stride, n, (L + 15) / 16,
+                              !PACKED && mask_amb != 0};
+  // window o of slot s is valid iff o < o_hi[s] (o <= len - n, o <
+  // limit) and no base of it is ambiguous; a slot a row, at most one an
+  // output (P = 1)
+  __shared__ int o_hi[CUT_THREADS * MAX_ITERS];
+  const int slots = (l1 - 1) / P + 1;
+  for (int s = threadIdx.x; s < slots; s += CUT_THREADS)
+    o_hi[s] = min(lengths[b0 + s] - n + 1, limits[b0 + s]);
+  tile.stage<PACKED>(codes, row_stride, L, b0, slots, first);
+  for (int i = l0 + threadIdx.x; i < l1; i += CUT_THREADS) {
+    const int s = i / P, o = i - s * P;
+    const int wa = first(s);
+    bool ok = o < o_hi[s];
+    int64_t hi, lo;
+    tile.key<TWO, CANON>(s, o, wa, hi, lo);
+    if (!PACKED && mask_amb) ok = ok && !tile.ambiguous<TWO>(s, o, wa);
+    if (!ok) hi = lo = kmer::SENTINEL;
+    keys_hi[base + i] = hi;
+    if constexpr (TWO) keys_lo[base + i] = lo;
+  }
+}
+
+// a spaced seed of span over 64: the gathered key
+template <typename KEY, bool PACKED, bool CANON>
 __global__ void __launch_bounds__(THREADS)
-extract_kernel(const void* __restrict__ codes, int row_stride,
-               const int32_t* __restrict__ lengths,
-               const int32_t* __restrict__ limits,
-               int64_t* __restrict__ keys_hi, int64_t* __restrict__ keys_lo,
-               int B, int L, int n, int span, int P, int cpr, int mask_amb,
-               kmer::Offsets off) {
+extract_gather_kernel(const void* __restrict__ codes, int row_stride,
+                      const int32_t* __restrict__ lengths,
+                      const int32_t* __restrict__ limits,
+                      int64_t* __restrict__ keys_hi,
+                      int64_t* __restrict__ keys_lo, int B, int L, int n,
+                      int span, int P, int cpr, int mask_amb,
+                      kmer::Offsets off) {
   constexpr bool TWO = kmer::TWO_WORDS<KEY>;
   __shared__ int64_t stage[TWO ? 2 : 1][STAGE];
-  __shared__ int16_t pos[SPACED ? kmer::MAX_BASES : 1];
-  if constexpr (SPACED) {
-    if (threadIdx.x < n) pos[threadIdx.x] = off.at[threadIdx.x];
-    __syncthreads();
-  }
+  __shared__ int16_t pos[kmer::MAX_BASES];
+  if (threadIdx.x < n) pos[threadIdx.x] = off.at[threadIdx.x];
+  __syncthreads();
   const int64_t n_chunks = (int64_t)B * cpr;
   const int64_t c0 = (int64_t)blockIdx.x * THREADS;
   const int64_t c_end = c0 + THREADS < n_chunks ? c0 + THREADS : n_chunks;
@@ -97,24 +151,13 @@ extract_kernel(const void* __restrict__ codes, int row_stride,
     const int o_hi = min(min(P, lengths[b] - span + 1), limits[b]);
     const void* row = static_cast<const char*>(codes) +
                       (size_t)b * row_stride * (PACKED ? 4 : 1);
-    kmer::RowReader<PACKED> reader(row, L, mask_amb);
-    kmer::Roll<KEY> roll(n);
-    if constexpr (!SPACED)
-      for (int q = o0; q < o0 + n - 1; ++q)
-        roll.template push<CANON>(reader.next(q));
     const int64_t s0 = first_of(c) - f0;
     for (int o = o0; o < o_end; ++o) {
       bool ok = o < o_hi;
       KEY v;
-      if constexpr (SPACED) {
-        bool amb;
-        v = kmer::gather_key<KEY, PACKED, CANON>(row, o, pos, n, L, amb);
-        ok = ok && !(mask_amb && amb);
-      } else {
-        roll.template push<CANON>(reader.next(o + n - 1));
-        v = roll.template key<CANON>();
-        ok = ok && reader.last_amb < o;
-      }
+      bool amb;
+      v = kmer::gather_key<KEY, PACKED, CANON>(row, o, pos, n, L, amb);
+      ok = ok && !(mask_amb && amb);
       int64_t hi = kmer::SENTINEL, lo = kmer::SENTINEL;
       if (ok) kmer::split_key(v, n, hi, lo);
       const int slot = stage_slot<CHUNK>(s0 + (o - o0));
@@ -194,8 +237,9 @@ extract_rolled_kernel(const void* __restrict__ codes, int row_stride,
   }
 }
 
-// one batch's launch arguments; kmer::dispatch picks the template
-// arguments of run or rolled
+// one batch's launch arguments; kmer::dispatch picks the body and its
+// template arguments.  With `info`, each body reports its launch
+// (kmer::report) instead of making it.
 struct Launch {
   cudaStream_t st;
   const void* codes;
@@ -205,28 +249,95 @@ struct Launch {
   int B, L, n, span, P, mask_amb;
   kmer::Offsets off;
   kmer::Cut cut;
+  int* info;
 
+  template <typename K, typename... A>
+  void launch(K kernel, unsigned blocks, int threads, size_t smem,
+              A... args) const {
+    if (info)
+      kmer::report(info, kernel, blocks, threads, smem);
+    else
+      kernel<<<blocks, threads, smem, st>>>(args...);
+  }
   // blocks of `threads` chunks of `chunk` windows: (blocks, chunks a row)
   std::pair<unsigned, int> tile(int chunk, int threads) const {
     const int cpr = (P + chunk - 1) / chunk;
     return {(unsigned)(((int64_t)B * cpr + threads - 1) / threads), cpr};
   }
-  template <typename KEY, bool PACKED, bool CANON, bool SPACED>
-  void run() const {
+  // the cut body: `iters` keys a thread, as many as keep the grid at about
+  // the card's thread slots (at most MAX_ITERS, fewer where the tile's rows
+  // would outgrow CUT_SMEM)
+  template <typename KEY, bool PACKED, bool CANON>
+  void contiguous() const {
+    const int64_t total = (int64_t)B * P;
+    int dev = 0, sms = 1, per_sm = 1;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxThreadsPerMultiProcessor,
+                           dev);
+    int iters = (int)std::min<int64_t>(
+        MAX_ITERS, std::max<int64_t>(1, total / ((int64_t)sms * per_sm)));
+    int cap, stride;
+    int64_t smem;
+    for (;; --iters) {
+      // a tile's outputs touch at most slots rows, each over at most
+      // min(P, outputs) windows
+      const int t = CUT_THREADS * iters;
+      const int64_t slots = std::min<int64_t>(B, (t + P - 2) / P + 1);
+      kmer::tile_shape(std::min(P, t), n, !PACKED && mask_amb, cap, stride);
+      smem = slots * stride * 4;
+      if (smem <= CUT_SMEM || iters == 1) break;
+    }
+    const int64_t per_block = (int64_t)CUT_THREADS * iters;
+    launch(extract_cut_kernel<KEY, PACKED, CANON>,
+           (unsigned)((total + per_block - 1) / per_block), CUT_THREADS,
+           (size_t)smem, codes, row_stride, lengths, limits, keys_hi,
+           keys_lo, B, L, n, P, mask_amb, iters, cap, stride);
+  }
+  template <typename KEY, bool PACKED, bool CANON>
+  void gather() const {
     const auto [blocks, cpr] = tile(CHUNK, THREADS);
-    extract_kernel<KEY, PACKED, CANON, SPACED><<<blocks, THREADS, 0, st>>>(
-        codes, row_stride, lengths, limits, keys_hi, keys_lo, B, L, n, span,
-        P, cpr, mask_amb, off);
+    launch(extract_gather_kernel<KEY, PACKED, CANON>, blocks, THREADS, 0,
+           codes, row_stride, lengths, limits, keys_hi, keys_lo, B, L, n,
+           span, P, cpr, mask_amb, off);
   }
   template <typename KEY, typename SPAN, bool PACKED, bool CANON>
   void rolled() const {
     const auto [blocks, cpr] = tile(ROLLED_CHUNK, ROLLED_THREADS);
-    extract_rolled_kernel<KEY, SPAN, PACKED, CANON>
-        <<<blocks, ROLLED_THREADS, 0, st>>>(codes, row_stride, lengths,
-                                            limits, keys_hi, keys_lo, B, L,
-                                            n, span, P, cpr, mask_amb, cut);
+    launch(extract_rolled_kernel<KEY, SPAN, PACKED, CANON>, blocks,
+           ROLLED_THREADS, 0, codes, row_stride, lengths, limits, keys_hi,
+           keys_lo, B, L, n, span, P, cpr, mask_amb, cut);
   }
 };
+
+// the launch (info == nullptr) or its report
+int launch_or_report(const void* codes, int packed, int row_stride,
+                     const int32_t* lengths, const int32_t* limits,
+                     int64_t* keys_hi, int64_t* keys_lo, int B, int L, int n,
+                     int span, int canonical, int mask_amb,
+                     const int32_t* positions, const uint32_t* cut,
+                     void* stream, int* info) {
+  const int P = L - span + 1;
+  const bool rolled = positions != nullptr && span <= kmer::MAX_ROLLED_SPAN;
+  if (n < 1 || n > kmer::MAX_BASES || B < 1 || P < 1 ||
+      (positions == nullptr && span != n) || (rolled && cut == nullptr) ||
+      (n > kmer::HI_BASES && keys_lo == nullptr) ||
+      (packed && row_stride < (L + 15) / 16) || (!packed && row_stride < L))
+    return (int)cudaErrorInvalidValue;
+  // the most blocks any body's tile gives: the cut body's at one key a
+  // thread, the others' at a chunk a thread
+  const int64_t chunks = (int64_t)B * ((P + CHUNK - 1) / CHUNK);
+  if ((chunks + ROLLED_THREADS - 1) / ROLLED_THREADS > 0x7FFFFFFF ||
+      ((int64_t)B * P + CUT_THREADS - 1) / CUT_THREADS > 0x7FFFFFFF ||
+      P > 0x7FFFFFFF - CUT_THREADS * MAX_ITERS)
+    return (int)cudaErrorInvalidValue;
+  const Launch l = {static_cast<cudaStream_t>(stream), codes, row_stride,
+                    lengths, limits, keys_hi, keys_lo, B, L, n, span, P,
+                    mask_amb, kmer::offsets_of(positions, n),
+                    kmer::cut_of(rolled ? cut : nullptr), info};
+  kmer::dispatch(l, n, packed, canonical, positions != nullptr, span);
+  return info ? info[kmer::INFO_INTS - 1] : (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -246,23 +357,22 @@ extern "C" int extract_launch(const void* codes, int packed, int row_stride,
                               int L, int n, int span, int canonical,
                               int mask_amb, const int32_t* positions,
                               const uint32_t* cut, void* stream) {
-  const int P = L - span + 1;
-  const bool rolled = positions != nullptr && span <= kmer::MAX_ROLLED_SPAN;
-  if (n < 1 || n > kmer::MAX_BASES || B < 1 || P < 1 ||
-      (positions == nullptr && span != n) || (rolled && cut == nullptr) ||
-      (n > kmer::HI_BASES && keys_lo == nullptr) ||
-      (packed && row_stride < (L + 15) / 16) || (!packed && row_stride < L))
-    return (int)cudaErrorInvalidValue;
-  // the most blocks either body's tile gives
-  const int64_t chunks = (int64_t)B * ((P + CHUNK - 1) / CHUNK);
-  if ((chunks + ROLLED_THREADS - 1) / ROLLED_THREADS > 0x7FFFFFFF)
-    return (int)cudaErrorInvalidValue;
-  const Launch l = {static_cast<cudaStream_t>(stream), codes, row_stride,
-                    lengths, limits, keys_hi, keys_lo, B, L, n, span, P,
-                    mask_amb, kmer::offsets_of(positions, n),
-                    kmer::cut_of(rolled ? cut : nullptr)};
-  kmer::dispatch(l, n, packed, canonical, positions != nullptr, span);
-  return (int)cudaGetLastError();
+  return launch_or_report(codes, packed, row_stride, lengths, limits,
+                          keys_hi, keys_lo, B, L, n, span, canonical,
+                          mask_amb, positions, cut, stream, nullptr);
+}
+
+// the launch that extract_launch would make with the same arguments (no
+// pointer is read), reported into info[0 .. 7) as kmer::report lays it
+// out; returns the cudaError_t of the queries
+extern "C" int extract_info(int packed, int row_stride, int B, int L, int n,
+                            int span, int canonical, int mask_amb,
+                            const int32_t* positions, const uint32_t* cut,
+                            int* info) {
+  int64_t dummy[1];
+  return launch_or_report(nullptr, packed, row_stride, nullptr, nullptr,
+                          dummy, dummy, B, L, n, span, canonical, mask_amb,
+                          positions, cut, nullptr, info);
 }
 
 // the cut table's layout (kmer::cut_layout): CUT_WORDS, CUT_TABLE_WORDS,

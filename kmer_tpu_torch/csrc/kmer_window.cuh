@@ -1,26 +1,37 @@
 // Window extraction shared by csrc/fused_extract.cu (K1) and
-// csrc/extract.cu (K7): the row reader, the rolling key of a contiguous
-// window, the rolled span of a spaced seed and the cut of its key, the
-// gathered key of a wide spaced seed, the key's int64 words, and the host
-// dispatch from runtime choices to a kernel's template arguments.
+// csrc/extract.cu (K7): the tile of a contiguous window and the cut of its
+// key, the row reader, the rolled span of a spaced seed and the cut of its
+// key, the gathered key of a wide spaced seed, the key's int64 words, and
+// the host dispatch from runtime choices to a kernel's template arguments.
 //
-// A key of n bases is its 2n-bit value, built in a uint64_t register for
-// n <= 31 and in an unsigned __int128 for 32 <= n <= 63 (the KEY template
-// argument), so numeric order on the register is the order of the keys and
-// the canonical min is one compare.  It leaves the kernel in the layout of
+// A key of n bases leaves the kernel in the layout of
 // kmer_tpu_torch/ops/encode.py: one int64 for n <= 31; for 32 <= n <= 63
 // the pair (hi, lo), hi the value of the first 31 bases and lo that of the
 // last n - 31, with lo's top bit flipped when lo holds 32 bases (64 bits),
 // so that signed int64 order on lo is the order of its bits.  A real hi is
-// at most 62 bits and never equals SENTINEL.
+// at most 62 bits and never equals SENTINEL.  The KEY template argument is
+// uint64_t for n <= 31 and an unsigned __int128 beyond: the register of a
+// rolled or gathered key, and for a contiguous key only the choice of one
+// word or two.
 //
-// The windows, one thread walking consecutive starts of one row:
-// - a contiguous k-mer: one forward value and its reverse complement, each
-//   rolled one base at a time (Roll), in the kernels' first body;
+// The windows:
+// - a contiguous k-mer (CutTile, the kernels' cut bodies): a block stages
+//   the rows it serves in shared memory, each row's segment as packed
+//   words (16 bases a word, the first base in the top pair; u8 codes
+//   packed by their low two bits) and, for u8 rows with the ambiguity
+//   mask, an ambiguity row in the same layout (01 a base whose code is
+//   >= 4).  The forward key of window o is then bits [2o, 2o + 2n) of the
+//   row's stream: a handful of __funnelshift_l a 64-bit cut, whatever n
+//   is, with no priming; its reverse complement is the reverse complement
+//   of forward cuts (rc64: a bit reverse, a swap within each 2-bit pair
+//   and a complement).  A pair is cut as hi (31 bases from o) and lo
+//   (n - 31 bases from o + 31) and compared as (hi, lo) before lo's top
+//   bit is flipped; a window is ambiguous iff its cut of the ambiguity row
+//   is not zero;
 // - a spaced seed of span <= 64 (the kernels' rolled body, SpanWalk): the
-//   window's whole span rolled the same way (SpanRoll: a uint64_t register
-//   up to 32 bases when the key is one word, else 128 bits, held as 32-bit
-//   words), and the key cut out of it by the seed's cut table
+//   window's whole span rolled one base at a time (SpanRoll: a uint64_t
+//   register up to 32 bases when the key is one word, else 128 bits, held
+//   as 32-bit words), and the key cut out of it by the seed's cut table
 //   (ops/extract.seed_cut_table): the mask's runs of consecutive '1's,
 //   split so that each piece lies in one 32-bit word of the span register
 //   and one of the key; a piece is a rotate and a masked or.  The canonical
@@ -35,7 +46,7 @@
 //   window;
 // - a spaced seed of span over 64, where a span register would not fit:
 //   the n selected bases loaded one by one from the offsets in shared
-//   memory (gather_key), in the kernels' first body.
+//   memory (gather_key), in the kernels' gather bodies.
 //
 // The build helper (kmer_tpu_torch/utils/build.py) rebuilds a kernel when
 // this header is newer than its library.
@@ -43,6 +54,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda_runtime.h>
 
 namespace kmer {
 
@@ -155,29 +167,6 @@ struct RowReader {
       }
       return c;
     }
-  }
-};
-
-// A contiguous window of n bases rolled one base at a time: the forward
-// value and the reverse complement, each O(1) a base.  The new base enters
-// at the bottom, so the base leaving lo's top moves into hi when the
-// 128-bit value is split.
-template <typename KEY>
-struct Roll {
-  KEY fw = 0, rc = 0;
-  KEY mask;
-  int rc_shift;
-  __device__ explicit Roll(int n)
-      : mask(((KEY)1 << (2 * n)) - 1), rc_shift(2 * n - 2) {}
-  template <bool CANON>
-  __device__ __forceinline__ void push(uint32_t c) {
-    fw = ((fw << 2) | c) & mask;
-    if constexpr (CANON) rc = (rc >> 2) | ((KEY)(3u - c) << rc_shift);
-  }
-  template <bool CANON>
-  __device__ __forceinline__ KEY key() const {
-    if constexpr (CANON) return rc < fw ? rc : fw;
-    return fw;
   }
 };
 
@@ -361,18 +350,188 @@ __device__ __forceinline__ void split_key(KEY v, int n, int64_t& hi,
   }
 }
 
-// Host: the runtime choices of a launch -> L::run<KEY, PACKED, CANON,
-// SPACED>() for a contiguous key and a spaced seed of span over 64 (the
-// gathered window), L::rolled<KEY, SPAN, PACKED, CANON>() for a spaced
-// seed of span <= 64.  KEY is uint64_t for keys of at most 31 bases, else
-// u128; SPAN is uint64_t when the span fits in 32 bases and the key in one
-// word, else u128.
+// ---- A contiguous window: the key cut out of a shared-memory tile ----
+
+// the 64 bits of a packed stream from base q on (q >= 0 local to the words
+// w, which hold at least (q >> 4) + 3 words)
+__device__ __forceinline__ uint64_t cut64(const uint32_t* w, int q) {
+  const int j = q >> 4, s = 2 * (q & 15);
+  const uint32_t a = w[j], b = w[j + 1], c = w[j + 2];
+  return (uint64_t)__funnelshift_l(b, a, s) << 32 | __funnelshift_l(c, b, s);
+}
+
+// four u8 codes (the first in the low byte, each <= 3) -> 8 packed bits,
+// the first code on top
+__device__ __forceinline__ uint32_t pack4(uint32_t y) {
+  return (y & 0xFFu) << 6 | (y >> 8 & 0xFFu) << 4 | (y >> 16 & 0xFFu) << 2 |
+         y >> 24;
+}
+
+// packed word j of a row (j < ceil(L / 16)): a packed row's int32 word, or
+// a u8 row's bases 16 j .. 16 j + 15 packed by their low two bits, with
+// their ambiguity word in `amb` (01 a base whose code is >= 4); bases past
+// L are 0 in both
+template <bool PACKED>
+__device__ __forceinline__ uint32_t row_word(const void* row, int j, int L,
+                                             uint32_t& amb) {
+  amb = 0u;
+  if constexpr (PACKED) {
+    return __ldg(static_cast<const uint32_t*>(row) + j);
+  } else {
+    const uint8_t* p = static_cast<const uint8_t*>(row) + 16 * j;
+    uint32_t w = 0u;
+    if (16 * j + 16 <= L && (reinterpret_cast<uintptr_t>(p) & 3u) == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t x = __ldg(reinterpret_cast<const uint32_t*>(p) + i);
+        w = w << 8 | pack4(x & 0x03030303u);
+        amb = amb << 8 | pack4(__vcmpgtu4(x, 0x03030303u) & 0x01010101u);
+      }
+    } else {
+      for (int i = 0; i < 16; ++i) {
+        const uint32_t c = 16 * j + i < L ? (uint32_t)__ldg(p + i) : 0u;
+        w = w << 2 | (c & 3u);
+        amb = amb << 2 | (uint32_t)(c >= 4u);
+      }
+    }
+    return w;
+  }
+}
+
+// a 64-bit packed value's reverse complement: its 32 bases in reverse
+// order, complemented
+__device__ __forceinline__ uint64_t rc64(uint64_t x) {
+  x = __brevll(x);
+  return ~((x >> 1 & 0x5555555555555555ull) |
+           (x & 0x5555555555555555ull) << 1);
+}
+
+// words of a slot serving `windows` consecutive windows of n bases: those
+// the windows' bases span, and the two a cut reads past them
+__host__ __device__ constexpr int tile_cap(int windows, int n) {
+  return ((windows + n + 13) >> 4) + 3;
+}
+
+// A block's tile of rows in shared memory (dynamic, slots * stride words):
+// slot s serves row b0 + s for windows from wa on (the kernel's range(s)),
+// at most the `windows` of tile_cap.  A slot holds `cap` packed words of
+// the row from word wa / 16 and, with the ambiguity mask, `cap` ambiguity
+// words over the same bases.  `stride` is odd, so that the 32 slots read
+// at one word index by a warp fall in 32 banks.  The reverse complement
+// needs no words of its own: it is the reverse complement of forward cuts
+// (rc64).
+struct CutTile {
+  uint32_t* sm;
+  int cap, stride, n, W;   // W: the row's ceil(L / 16) words
+  bool amb;
+
+  // stage rows b0 .. b0 + slots - 1, slot s from window range(s); every
+  // thread of the block calls it
+  template <bool PACKED, typename RANGE>
+  __device__ void stage(const void* codes, int row_stride, int L, int b0,
+                        int slots, RANGE range) const {
+    for (int e = threadIdx.x; e < slots * cap; e += blockDim.x) {
+      const int s = e / cap, i = e - s * cap;
+      const int j = (range(s) >> 4) + i;
+      uint32_t f = 0u, a = 0u;
+      if (j < W)
+        f = row_word<PACKED>(static_cast<const char*>(codes) +
+                                 (size_t)(b0 + s) * row_stride *
+                                     (PACKED ? 4 : 1),
+                             j, L, a);
+      sm[s * stride + i] = f;
+      if (!PACKED && amb) sm[s * stride + cap + i] = a;
+    }
+    __syncthreads();
+  }
+
+  // the key of window o of slot s (wa = range(s) <= o): hi the int64 key
+  // for n <= 31; else the (hi, lo) pair, compared before lo's flip.  The
+  // reverse complement of a key of n <= 31 bases is the low 2n bits of
+  // rc64 of its forward cut; of a pair, hi is the top 31 bases of rc64 of
+  // the cut of the window's last 32 bases, and lo the low 2 (n - 31) bits
+  // of rc64 of the forward cut.
+  template <bool TWO, bool CANON>
+  __device__ __forceinline__ void key(int s, int o, int wa, int64_t& hi,
+                                      int64_t& lo) const {
+    const uint32_t* f = sm + s * stride;
+    const int q = o - 16 * (wa >> 4);
+    const uint64_t x = cut64(f, q);
+    if constexpr (!TWO) {
+      uint64_t v = x >> (64 - 2 * n);
+      if constexpr (CANON) {
+        const uint64_t c = rc64(x) & ((1ull << 2 * n) - 1);
+        v = c < v ? c : v;
+      }
+      hi = (int64_t)v;
+      lo = 0;
+    } else {
+      const int m = 2 * (n - HI_BASES);   // lo's bits: 2 .. 64
+      uint64_t h = x >> 2, l = cut64(f, q + HI_BASES) >> (64 - m);
+      if constexpr (CANON) {
+        const uint64_t h2 = rc64(cut64(f, q + n - 32)) >> 2;
+        const uint64_t l2 = rc64(x) & (~0ull >> (64 - m));
+        if (h2 < h || (h2 == h && l2 < l)) {
+          h = h2;
+          l = l2;
+        }
+      }
+      if (m == 64) l ^= 1ull << 63;
+      hi = (int64_t)h;
+      lo = (int64_t)l;
+    }
+  }
+
+  // window o of slot s holds an ambiguous base (the ambiguity words are
+  // staged)
+  template <bool TWO>
+  __device__ __forceinline__ bool ambiguous(int s, int o, int wa) const {
+    const uint32_t* a = sm + s * stride + cap;
+    const int q = o - 16 * (wa >> 4);
+    if constexpr (!TWO) return (cut64(a, q) >> (64 - 2 * n)) != 0;
+    return ((cut64(a, q) >> 2) |
+            (cut64(a, q + HI_BASES) >> (64 - 2 * (n - HI_BASES)))) != 0;
+  }
+};
+
+// Host: a cut tile's (cap, stride) for slots serving at most `windows`
+// windows each, with the ambiguity words or without
+inline void tile_shape(int windows, int n, bool amb, int& cap, int& stride) {
+  cap = tile_cap(windows, n);
+  stride = cap * (1 + (int)amb) | 1;
+}
+
+// Host: a launch's geometry and its kernel's attributes, for chip_smoke's
+// report: info[0 .. 7) = threads a block, blocks, dynamic shared bytes,
+// registers a thread, local (spill) bytes, resident blocks an SM, and the
+// cudaError_t of the queries
+constexpr int INFO_INTS = 7;
+
+template <typename K>
+void report(int* info, K kernel, unsigned blocks, int threads, size_t smem) {
+  cudaFuncAttributes a = {};
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  const int v[INFO_INTS] = {threads, (int)blocks, (int)smem, a.numRegs,
+                            (int)a.localSizeBytes, per_sm, (int)err};
+  for (int i = 0; i < INFO_INTS; ++i) info[i] = v[i];
+}
+
+// Host: the runtime choices of a launch -> L::contiguous<KEY, PACKED,
+// CANON>() for a contiguous key, L::gather<KEY, PACKED, CANON>() for a
+// spaced seed of span over 64, L::rolled<KEY, SPAN, PACKED, CANON>() for a
+// spaced seed of span <= 64.  KEY is uint64_t for keys of at most 31
+// bases, else u128; SPAN is uint64_t when the span fits in 32 bases and the
+// key in one word, else u128.
 template <typename L, typename KEY, bool PACKED, bool CANON>
 void run_spaced(const L& l, bool spaced, int span) {
   if (!spaced)
-    l.template run<KEY, PACKED, CANON, false>();
+    l.template contiguous<KEY, PACKED, CANON>();
   else if (span > MAX_ROLLED_SPAN)
-    l.template run<KEY, PACKED, CANON, true>();
+    l.template gather<KEY, PACKED, CANON>();
   else if constexpr (TWO_WORDS<KEY>)
     l.template rolled<KEY, u128, PACKED, CANON>();
   else if (span <= 32)

@@ -50,6 +50,8 @@ def load():
         lib.extract_launch.restype = i
         lib.extract_launch.argtypes = [vp, i, i, vp, vp, vp, vp, i, i, i, i,
                                        i, i, vp, vp, vp]
+        lib.extract_info.restype = i
+        lib.extract_info.argtypes = [i, i, i, i, i, i, i, i, vp, vp, vp]
         check_cut_layout(lib)
         _lib = lib
     return _lib
@@ -77,6 +79,34 @@ def seed_args(positions, span: int):
     cut = ((ctypes.c_uint32 * CUT_TABLE_WORDS)(*seed_cut_table(positions))
            if span <= MAX_ROLLED_SPAN else None)
     return offs, cut
+
+
+# what the kernels' *_info entries report of a launch (kmer::report)
+INFO_KEYS = ("threads", "blocks", "smem", "registers", "spill_bytes",
+             "blocks_per_sm")
+
+
+def report_info(entry, *args) -> dict:
+    """Call a K1 or K7 library's *_info entry with the launch's arguments
+    and return its report as a dict of INFO_KEYS."""
+    info = (ctypes.c_int * (len(INFO_KEYS) + 1))()
+    rc = entry(*args, info)
+    if rc != 0:
+        raise RuntimeError(f"kernel launch report failed: cudaError {rc}")
+    return dict(zip(INFO_KEYS, info))
+
+
+def launch_info(B: int, L: int, k: int, *, canonical: bool = False,
+                mask_ambiguous: bool = False, packed: bool = True,
+                positions=None) -> dict:
+    """The launch extract_keys makes for a (B, L) batch on the current
+    CUDA device, without making it: threads a block, blocks, dynamic
+    shared bytes, registers a thread, spill bytes, resident blocks an SM."""
+    span = check_window(k, positions, canonical)
+    offs, cut = seed_args(positions, span)
+    return report_info(load().extract_info, int(packed),
+                       (L + 15) // 16 if packed else L, B, L, k, span,
+                       int(canonical), int(mask_ambiguous), offs, cut)
 
 
 def _shape(codes: torch.Tensor, span: int, packed_width: int):

@@ -27,7 +27,7 @@ import torch
 
 from ..encode import HI_BASES, SENTINEL_KEY, unpack_codes_i32
 from ..extract import check_window, window_keys
-from .extract import check_cut_layout, seed_args
+from .extract import check_cut_layout, report_info, seed_args
 from .fused_count import dedup_runlen
 
 SOURCE = "kmer_tpu_torch/csrc/fused_extract.cu"
@@ -52,6 +52,9 @@ def load():
         lib.fused_extract_count_launch.argtypes = [
             vp, i, i, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, vp, vp,
             vp]
+        lib.fused_extract_count_info.restype = i
+        lib.fused_extract_count_info.argtypes = [i, i, i, i, i, i, i, i, i,
+                                                 i, i, vp, vp, vp]
         check_cut_layout(lib)
         _lib = lib
     return _lib
@@ -72,6 +75,22 @@ def _shape(codes: torch.Tensor, span: int, seg: int, packed_width: int):
     if P < 1:
         raise ValueError(f"row width {L} < window span {span}")
     return B, L, P, -(-P // seg) * seg
+
+
+def launch_info(B: int, L: int, k: int, *, canonical: bool = False,
+                mask_ambiguous: bool = False, seg: int = 2,
+                packed: bool = True, positions=None) -> dict:
+    """The launch fused_extract_count makes for a (B, L) batch on the
+    current CUDA device, without making it (ops/kernels/extract.INFO_KEYS:
+    threads a block, blocks, shared bytes, registers, spills, resident
+    blocks an SM)."""
+    span = check_window(k, positions, canonical)
+    P = L - span + 1
+    offs, cut = seed_args(positions, span)
+    return report_info(load().fused_extract_count_info, int(packed),
+                       (L + 15) // 16 if packed else L, B, L, k, span, P,
+                       -(-P // seg) * seg, int(canonical),
+                       int(mask_ambiguous), seg, offs, cut)
 
 
 def fused_extract_count_ref(codes: torch.Tensor, lengths: torch.Tensor,

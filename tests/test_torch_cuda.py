@@ -36,16 +36,23 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("k,canon,amb,seg,packed",
-                         [(21, True, False, 2, True),
-                          (21, False, True, 8, False),
-                          (16, True, False, 2, True),
-                          (31, True, True, 4, False),
-                          (5, False, False, 16, True),
-                          (1, True, False, 2, True)])
-def test_kernel_equals_plain(cuda, k, canon, amb, seg, packed):
+@pytest.mark.parametrize("k,canon,amb,seg,packed,L",
+                         [(21, True, False, 2, True, 78),
+                          (21, False, True, 8, False, 78),
+                          (16, True, False, 2, True, 78),
+                          (31, True, True, 4, False, 78),
+                          (5, False, False, 16, True, 78),
+                          (1, True, False, 2, True, 78),
+                          # two-word keys, rows of 176 and 77 bases
+                          (32, True, False, 2, True, 176),
+                          (32, False, True, 4, False, 77),
+                          (55, True, True, 16, False, 176),
+                          (55, True, False, 2, True, 77),
+                          (63, False, False, 8, True, 176),
+                          (63, True, True, 2, False, 77)])
+def test_kernel_equals_plain(cuda, k, canon, amb, seg, packed, L):
     rng = np.random.default_rng(k + seg)
-    B, L = 300, 78                    # P = 79 - k: odd and even segments
+    B = 300                           # P = L + 1 - k: odd and even segments
     codes = rng.integers(0, 5 if amb else 4, (B, L), dtype=np.uint8)
     lengths = rng.integers(0, L + 1, B).astype(np.int32)
     lengths[:3] = 0                   # zero-length padding rows
@@ -61,7 +68,7 @@ def test_kernel_equals_plain(cuda, k, canon, amb, seg, packed):
                                           **kw)
     torch.cuda.synchronize()
     assert fe.launches == before + 1
-    assert torch.equal(keys.cpu(), want_keys)
+    assert _same_keys(keys, want_keys)
     assert torch.equal(counts.cpu(), want_counts)
 
 
@@ -522,7 +529,12 @@ def test_devmerge_count_cuda_equals_cpu(cuda, tmp_path):
     (8192, 160, 21, True, False, True),      # the main path's shape
     (300, 78, 1, False, True, False), (300, 78, 16, True, False, True),
     (300, 78, 17, False, True, False), (999, 77, 31, True, True, False),
-    (37, 40, 31, False, False, True)])
+    (37, 40, 31, False, False, True),
+    # two-word keys, rows of 176 and 77 bases
+    (300, 176, 32, True, False, True), (301, 77, 32, False, True, False),
+    (300, 176, 55, True, True, False), (8192, 160, 55, True, False, True),
+    (303, 77, 55, False, False, True), (300, 176, 63, False, True, False),
+    (299, 77, 63, True, False, True)])
 def test_extract_kernel_equals_plain(cuda, B, L, k, canon, amb, packed):
     rng = np.random.default_rng(B + k)
     codes = rng.integers(0, 5 if amb else 4, (B, L), dtype=np.uint8)
@@ -538,7 +550,160 @@ def test_extract_kernel_equals_plain(cuda, B, L, k, canon, amb, packed):
     got = ek.extract_keys(*(t.to(cuda) for t in host), k, **kw)
     torch.cuda.synchronize()
     assert ek.launches == before + 1
-    assert torch.equal(got.cpu(), want)
+    assert _same_keys(got, want)
+
+
+def _planted(n, seed):
+    """16 packed rows, row a holding one key of n bases at window 16 + a
+    (every alignment in a packed word), and the key's value and reverse
+    complement's."""
+    L = 48 + n + 16
+    rng = np.random.default_rng(seed)
+    key = rng.integers(0, 4, n, dtype=np.uint8)
+    codes = rng.integers(0, 4, (16, L), dtype=np.uint8)
+    for a in range(16):
+        codes[a, 16 + a:16 + a + n] = key
+    value = int("".join(map(str, key)), 4)
+    rc = int("".join(str(3 - c) for c in key[::-1]), 4)
+    return codes, value, rc
+
+
+def _value(keys, n, row, o, position_major=False):
+    """The key value of one lane of an int64 plane, or of a (hi, lo) pair
+    with lo's flip undone."""
+    at = (o, row) if position_major else (row, o)
+    if n <= 31:
+        return int(keys[at])
+    r = 2 * (n - 31)
+    low = int(keys[1][at]) & (2 ** 64 - 1)
+    return int(keys[0][at]) << r | (low ^ (1 << 63) if r == 64 else low)
+
+
+@pytest.mark.parametrize("n", [1, 21, 31, 32, 55, 63])
+@pytest.mark.parametrize("canon", [False, True])
+def test_cut_kernels_planted_alignments(cuda, n, canon):
+    """K1 and K7 cut a planted key back at each of the 16 alignments of a
+    packed word, and equal their plain versions on the whole batch."""
+    codes, value, rc = _planted(n, n + canon)
+    L = codes.shape[1]
+    want = min(value, rc) if canon else value
+    lens = torch.full((16,), L, dtype=torch.int32)
+    host = [torch.from_numpy(pack_batch_codes(codes).view(np.int32)), lens,
+            lens]
+    kw = dict(canonical=canon, packed_width=L)
+    dev = [t.to(cuda) for t in host]
+    k7 = ek.extract_keys(*dev, n, **kw)
+    k1, counts = fe.fused_extract_count(*dev, n, **kw)
+    torch.cuda.synchronize()
+    k7 = tuple(p.cpu() for p in k7) if n > 31 else k7.cpu()
+    k1 = tuple(p.cpu() for p in k1) if n > 31 else k1.cpu()
+    for a in range(16):
+        assert _value(k7, n, a, 16 + a) == want
+        assert _value(k1, n, a, 16 + a, position_major=True) == want
+    assert _same_keys(k7, ek.extract_keys(*host, n, **kw))
+    want1, want_counts = fe.fused_extract_count(*host, n, **kw)
+    assert _same_keys(k1, want1) and torch.equal(counts.cpu(), want_counts)
+
+
+def _launch_strided(which, store, packed, L, k, canon, amb, lengths, limits,
+                    seg=2):
+    """K1 or K7 through its C entry on rows `store.shape[1]` words (or
+    codes) apart, wider than the row: the wrappers take only contiguous
+    rows of their width."""
+    B = store.shape[0]
+    P = L - k + 1
+    P_pad = -(-P // seg) * seg
+    shape = (P_pad, B) if which == "k1" else (B, P)
+    hi = torch.empty(shape, dtype=torch.int64, device=store.device)
+    lo = torch.empty_like(hi) if k > 31 else None
+    stream = torch.cuda.current_stream().cuda_stream
+    lo_ptr = None if lo is None else lo.data_ptr()
+    if which == "k1":
+        counts = torch.empty(shape, dtype=torch.int8, device=store.device)
+        rc = fe.load().fused_extract_count_launch(
+            store.data_ptr(), int(packed), store.shape[1], lengths.data_ptr(),
+            limits.data_ptr(), hi.data_ptr(), lo_ptr, counts.data_ptr(), B, L,
+            k, k, P, P_pad, int(canon), int(amb), seg, None, None, stream)
+    else:
+        rc = ek.load().extract_launch(
+            store.data_ptr(), int(packed), store.shape[1], lengths.data_ptr(),
+            limits.data_ptr(), hi.data_ptr(), lo_ptr, B, L, k, k, int(canon),
+            int(amb), None, None, stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    return (hi.cpu(), lo.cpu()) if lo is not None else hi.cpu()
+
+
+@pytest.mark.parametrize("k", [21, 32, 63])
+@pytest.mark.parametrize("packed", [True, False])
+def test_cut_kernels_wide_row_stride(cuda, k, packed):
+    """Rows further apart than their width (row_stride > ceil(L / 16)
+    words, or > L codes), with noise past each row and, packed, in the
+    last word's bits past L: the keys equal the plain version's of the
+    rows alone."""
+    rng = np.random.default_rng(k + packed)
+    B, L = 200, 77
+    codes = rng.integers(0, 5, (B, L), dtype=np.uint8)
+    if packed:
+        codes &= 3
+        W = (L + 15) // 16
+        store = rng.integers(0, 1 << 32, (B, W + 3), dtype=np.uint64
+                             ).astype(np.uint32)
+        store[:, :W] = pack_batch_codes(codes)
+        store[:, W - 1] |= rng.integers(0, 1 << 6, B, dtype=np.uint32)
+        store = store.view(np.int32)
+    else:
+        store = rng.integers(0, 256, (B, L + 5), dtype=np.uint8)
+        store[:, :L] = codes
+    lengths = rng.integers(0, L + 1, B).astype(np.int32)
+    limits = rng.integers(1, L + 1, B).astype(np.int32)
+    args = [torch.from_numpy(codes), torch.from_numpy(lengths),
+            torch.from_numpy(limits)]
+    dev = [torch.from_numpy(np.ascontiguousarray(store)).to(cuda)] + [
+        t.to(cuda) for t in args[1:]]
+    amb = not packed
+    kw = dict(canonical=True, mask_ambiguous=amb)
+    got7 = _launch_strided("k7", dev[0], packed, L, k, True, amb, *dev[1:])
+    assert _same_keys(got7, ek.extract_keys(*args, k, **kw))
+    got1 = _launch_strided("k1", dev[0], packed, L, k, True, amb, *dev[1:])
+    assert _same_keys(got1, fe.fused_extract_count(*args, k, **kw)[0])
+
+
+@pytest.mark.parametrize("k", [21, 55])
+def test_cut_kernels_u8_low_bits(cuda, k):
+    """Without the ambiguity mask a u8 code >= 4 reads as its low two bits
+    (4..7 and 255 here), in K1 and K7 alike."""
+    rng = np.random.default_rng(k)
+    B, L = 257, 160
+    codes = rng.integers(0, 4, (B, L), dtype=np.uint8)
+    odd = rng.random((B, L)) < 0.05
+    codes[odd] = rng.choice(np.array([4, 5, 6, 7, 255], np.uint8),
+                            int(odd.sum()))
+    lengths = rng.integers(k, L + 1, B).astype(np.int32)
+    host = [torch.from_numpy(codes), torch.from_numpy(lengths),
+            torch.from_numpy(lengths)]
+    dev = [t.to(cuda) for t in host]
+    for canon in (False, True):
+        assert _same_keys(ek.extract_keys(*dev, k, canonical=canon),
+                          ek.extract_keys(*host, k, canonical=canon))
+        got, counts = fe.fused_extract_count(*dev, k, canonical=canon)
+        want, want_counts = fe.fused_extract_count(*host, k, canonical=canon)
+        assert _same_keys(got, want)
+        assert torch.equal(counts.cpu(), want_counts)
+
+
+def test_cut_kernels_fill_the_card(cuda):
+    """At the main path's batch (8192 rows of 160 bases, k = 21, seg 2) K1
+    runs in one wave and K7 launches at least as many threads as the card
+    has slots, both with no spills."""
+    props = torch.cuda.get_device_properties(cuda)
+    sms = props.multi_processor_count
+    k1 = fe.launch_info(8192, 160, 21, canonical=True)
+    k7 = ek.launch_info(8192, 160, 21, canonical=True)
+    assert k1["blocks"] <= k1["blocks_per_sm"] * sms
+    assert (k7["threads"] * k7["blocks"]
+            >= sms * props.max_threads_per_multi_processor)
+    assert k1["spill_bytes"] == k7["spill_bytes"] == 0
 
 
 def _rows(cuda, seed, shape, W, hi=5, dead=0.2, sort=False):
