@@ -41,7 +41,12 @@ few) to stdout:
      version on the card, bit for bit (records in lane order and the
      total), on K1's output at the main shape and K3's at the parity
      shape, and at edge cases (no live lane, every lane live, a ragged
-     last tile, a one-uint64 gapped record, no lanes at all); both timed;
+     last tile, a one-uint64 gapped record, no lanes at all) and the
+     look-back's (one lane; a tile and a lane either side of it; every
+     lane live over 40 tiles; one live lane in the last tile; live lanes
+     in every other tile; an int32 tail no multiple of 4), then sixteen
+     calls back to back on different inputs; timed beside
+     torch.masked_select of one key plane (a yardstick);
   8. kernel K5 (kmer_tpu_torch/csrc/histogram.cu) the same way, bit for
      bit, each case timed with its grid (clusters x blocks), shared bytes
      a block and registers a thread: bits = 8, 15 and 16 over a stream
@@ -91,8 +96,11 @@ few) to stdout:
      counts): on K7's output of one main batch (1,146,880 keys, m = 256,
      G = 4480; m = 16 for K2c), on W = 2 and W = 4 rows with many
      duplicates and sentinels, and at edge cases (m = 2, 128, the largest
-     K2b m, G = 1, all sentinels, one run filling a group); each timed,
-     K2b and K2c beside torch.sort of one word at the same shape as a
+     K2b m, G = 1, all sentinels, one run filling a group); K2a alone at
+     m = 1, 3, 33, 128, 1000 and 4096 for W = 1 to 4, a run filling a
+     group, a run over a tile's end and groups of sentinels only; each
+     timed (K2a also at W = 2 on the k = 55 unfused step's groups), K2b
+     and K2c beside torch.sort of one word at the same shape as a
      sort-only yardstick;
  18. the unfused route at full depth, right after phase 4: phase 4's run
      with KMER_TPU_STEP=legacy (K7, the grouped torch.sort and K2a a
@@ -1060,6 +1068,41 @@ def phase_compact_kernel(dev, seed: int) -> dict:
         keys, counts = k1_out(MAIN_B, MAIN_L, k)
         cases[f"k1_pair_k{k}"] = (*keys, counts, dict(r_len=k - 31,
                                                       n_bases=k))
+    # what only the look-back can get wrong: one lane, a tile and a lane
+    # either side of it, every lane live over many tiles, one live lane in
+    # the last tile, live lanes in every other tile, an int32 stream whose
+    # tail is no multiple of 4
+    T = ck.TILE
+
+    def lanes(n, share, dtype=np.int8):
+        c = (rng.random(n) < share) * rng.integers(1, 100, n)
+        return (torch.from_numpy(rng.integers(0, 1 << 62, n)).to(dev),
+                torch.from_numpy(c.astype(dtype)).to(dev), {})
+
+    cases["one_lane"] = lanes(1, 1.0)
+    for name, n in (("tile_minus_1", T - 1), ("tile", T),
+                    ("tile_plus_1", T + 1)):
+        cases[name] = lanes(n, 0.5)
+    cases["all_live_40_tiles"] = lanes(40 * T, 1.0)
+    keys, counts, _ = lanes(10 * T + 37, 0.0)
+    counts[-5] = 3
+    cases["one_live_in_last_tile"] = (keys, counts, {})
+    keys, counts, _ = lanes(21 * T, 0.7)
+    counts.view(21, T)[1::2] = 0
+    cases["every_other_tile"] = (keys, counts, {})
+    cases["int32_tail"] = lanes(12345, 0.6, np.int32)
+    expect = {"k1_no_live_lane": 0, "k3_no_lanes": 0, "all_live": 70_000,
+              "one_lane": 1, "all_live_40_tiles": 40 * T,
+              "one_live_in_last_tile": 1}
+
+    def k4_err(got, want):
+        t = int(want[2][0])
+        err = abs(int(got[2][0]) - t)
+        if t:
+            err = max(err, int((got[0][:t] - want[0][:t]).abs().max()),
+                      int((got[1][:t] - want[1][:t]).abs().max()))
+        return err, t
+
     max_err = 0
     for name, case in cases.items():
         *planes, counts, kw = case
@@ -1067,49 +1110,72 @@ def phase_compact_kernel(dev, seed: int) -> dict:
         got = ck.compact(planes, counts, **kw)
         want = ck.compact_ref(planes, counts, **kw)
         torch.cuda.synchronize()
-        t = int(want[2][0])
-        err = abs(int(got[2][0]) - t)
-        if t:
-            err = max(err, int((got[0][:t] - want[0][:t]).abs().max()),
-                      int((got[1][:t] - want[1][:t]).abs().max()))
+        err, t = k4_err(got, want)
         launched = ck.launches - before
         max_err = max(max_err, err)
         _say(f"compact_check case={name} lanes={counts.numel()} total={t} "
              f"launches={launched} max_abs_err={err}")
-        expect_total = {"k1_no_live_lane": 0, "k3_no_lanes": 0,
-                        "all_live": 70_000}.get(name)
+        expect_total = expect.get(name)
         if (err != 0 or launched != int(counts.numel() > 0)
                 or (expect_total is not None and t != expect_total)
                 or (expect_total is None and t == 0)):
             raise AssertionError(f"K4 != plain version ({name}: "
                                  f"max_abs_err={err}, total={t})")
+    # back to back on different inputs with no sync between: a status word
+    # or tile counter left over from the call before would show
+    seq = ["k1_main", "tile_plus_1", "all_live_40_tiles", "one_lane",
+           "unfused_int32", "k3_parity", "one_live_in_last_tile",
+           "k1_pair_k63"] * 2
+    outs = []
+    for name in seq:
+        *planes, counts, kw = cases[name]
+        outs.append(ck.compact(planes, counts, **kw))
+    torch.cuda.synchronize()
+    for name, got in zip(seq, outs):
+        *planes, counts, kw = cases[name]
+        err, _ = k4_err(got, ck.compact_ref(planes, counts, **kw))
+        max_err = max(max_err, err)
+        if err:
+            raise AssertionError(f"K4 back to back != plain version ({name})")
+    _say(f"compact_check case=back_to_back calls={len(seq)} "
+         f"max_abs_err={max_err}")
     rec = {"name": "compact", "route": "cuda", "source": ck.SOURCE,
            "replaces": ck.REPLACES, "max_abs_err": max_err}
-    for name, lane_bytes in (("k1_main", 9), ("k3_parity", 17),
-                             ("unfused_int32", 12)):
+    # bytes a lane in (its count and key planes) and a live lane's record
+    # out; two operations a lane (test, prefix)
+    for name, lane_bytes, record_bytes in (("k1_main", 9, 16),
+                                           ("k3_parity", 17, 24),
+                                           ("unfused_int32", 12, 16)):
         *planes, counts, kw = cases[name]
         ms, plain_ms = time_pair(
             functools.partial(ck.compact, planes, counts, **kw),
             functools.partial(ck.compact_ref, planes, counts, **kw))
         n = counts.numel()
-        _say(f"compact_time case={name} lanes={n} kernel_ms={ms} "
-             f"plain_ms={plain_ms} speedup={plain_ms / ms} "
+        live = int((counts > 0).sum())
+        b = bound(n * lane_bytes + live * record_bytes + 8, n * 2)
+        # the library yardstick: torch.masked_select of the one key plane
+        # (of two, for a pair) by counts > 0, CUB's select underneath; its
+        # device kernels' time a call (it syncs the host for its size)
+        yard = device_kernel_ms(lambda: [torch.masked_select(
+            planes[0], counts > 0) for _ in range(10)])
+        yard_ms = sum(v[0] for v in yard.values()) / 10
+        _say(f"compact_time case={name} lanes={n} live={live} "
+             f"kernel_ms={ms} plain_ms={plain_ms} yardstick_ms={yard_ms} "
+             f"bound_ms={b['bound_ms']} bound_by={b['bound_by']} "
+             f"speedup={plain_ms / ms} "
              f"in_GB_per_s={n * lane_bytes / (ms * 1e-3) / 1e9} "
-             f"(tolerance: exact, max_abs_err must be 0)")
-        rec.update({"k1_main": {"ms": ms, "plain_ms": plain_ms},
-                    "k3_parity": {"gapped_ms": ms, "gapped_plain_ms": plain_ms},
-                    "unfused_int32": {"int32_ms": ms,
-                                      "int32_plain_ms": plain_ms}}[name])
-    # K1's output: int8 counts and int64 keys in, a 16-byte record for
-    # each live lane out; two operations a lane (test, prefix)
-    *planes, counts, _ = cases["k1_main"]
-    live = int((counts > 0).sum())
-    n = counts.numel()
-    rec.update(bound(n * 9 + live * 16 + 8, n * 2), library_ms=None)
-    _say(f"compact_bound case=k1_main lanes={n} live={live} "
-         f"bound_ms={rec['bound_ms']} bound_by={rec['bound_by']} "
-         "library_ms=None (no single PyTorch call packs key and count "
-         "records)")
+             f"(yardstick: masked_select(keys, counts > 0) of one key "
+             f"plane, device kernels only; library_ms=None: no single "
+             f"PyTorch call packs key and count records; tolerance: exact, "
+             f"max_abs_err must be 0)")
+        if name == "k1_main":
+            rec.update(ms=ms, plain_ms=plain_ms, yardstick_ms=yard_ms, **b,
+                       library_ms=None)
+        else:
+            key = {"k3_parity": "gapped", "unfused_int32": "int32"}[name]
+            rec[key] = {"ms": ms, "plain_ms": plain_ms,
+                        "yardstick_ms": yard_ms,
+                        "bound_ms": b["bound_ms"]}
     return rec
 
 
@@ -1505,6 +1571,34 @@ def phase_grouped_kernels(dev, seed: int) -> tuple[dict, dict, dict]:
         for key, err in zip("abc", (err_a, err_b, err_c)):
             max_err[key] = max(max_err[key], err)
 
+    # K2a alone (K2b and K2c take powers of two): any m, W = 1 to 4, a run
+    # filling a whole group, a run over a tile's end, groups of sentinels
+    # only
+    only_a = {}
+    for m in (1, 3, 33, 128, 1000, 4096):
+        for W in (1, 2, 3, 4):
+            only_a[f"m{m}_w{W}"] = rows((max(1, 200_000 // (m * W)), m), W,
+                                        hi=3)
+    only_a["fill_group_w2"] = [torch.full((8, 4096), 5, device=dev)] * 2
+    over = torch.full((6, 4096), 9, device=dev)
+    over[:, 1000:3100] = 11                  # over the ends of 1024-row tiles
+    over[:, 3100:] = SENTINEL_KEY
+    only_a["run_over_tile_end"] = [over]
+    only_a["sentinel_groups_w3"] = rows((100, 1000), 3, dead=1.0)
+    for name, planes in only_a.items():
+        sorted_rows = gk.sort_groups(planes)
+        before = gk.run_lengths_launches
+        got = gk.run_lengths_grouped(sorted_rows)
+        err, la = check([got], [gk.run_lengths_grouped_ref(sorted_rows)],
+                        "run_lengths_launches", before)
+        live = int((got > 0).sum())
+        G, m = planes[0].shape
+        _say(f"grouped_check case=k2a_{name} W={len(planes)} G={G} m={m} "
+             f"live_runs={live} launches={la} max_abs_err={err}")
+        if err or la != 1 or (live > 0) != ("sentinel" not in name):
+            raise AssertionError(f"K2a != plain version ({name})")
+        max_err["a"] = max(max_err["a"], err)
+
     # timings at the route's shapes
     rows2d = cases["route"][0]
     G = n // 256
@@ -1552,6 +1646,25 @@ def phase_grouped_kernels(dev, seed: int) -> tuple[dict, dict, dict]:
         if sort_ms is not None:
             rec["sort_only_ms"] = sort_ms
         recs.append(rec)
+    # K2a at W = 2: the k = 55 unfused step's groups of 256 (K7's pairs,
+    # sentinel-padded to whole groups, each group sorted)
+    wide = [w.reshape(-1) for w in ek.extract_keys(
+        *main, WIDE_K, canonical=True, packed_width=MAIN_L)]
+    pad = -wide[0].numel() % 256
+    wide = gk.sort_groups([torch.cat([w, torch.full((pad,), SENTINEL_KEY,
+                                                    device=dev)]).view(-1, 256)
+                           for w in wide])
+    ms, plain_ms = time_pair(
+        functools.partial(gk.run_lengths_grouped, wide),
+        functools.partial(gk.run_lengths_grouped_ref, wide))
+    nw = wide[0].numel()
+    b = bound(nw * 16 + nw * 4, nw)
+    _say(f"grouped_time kernel=K2a shape={tuple(wide[0].shape)} W=2 "
+         f"kernel_ms={ms} plain_ms={plain_ms} speedup={plain_ms / ms} "
+         f"bound_ms={b['bound_ms']} bound_by={b['bound_by']} "
+         f"library_ms=None (tolerance: exact, max_abs_err must be 0)")
+    recs[0]["w2"] = {"shape": list(wide[0].shape), "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b["bound_ms"]}
     return tuple(recs)
 
 

@@ -26,6 +26,14 @@ rows [0, total) only, so the copy scales with the live lanes.
 compact dispatches on where its inputs lie: CPU tensors run the plain
 version, CUDA tensors launch the kernel (or raise).  A stream with no
 lanes launches nothing.
+
+The kernel is one launch with a decoupled look-back over tiles of TILE
+lanes.  Its scratch (a tile counter, then one status word a tile) stays
+allocated here, one for each device and stream, zeroed when it is made
+and grown as a longer stream needs; each call passes a new epoch that
+tags the status words it writes, so no reset runs between calls.  When
+the epochs run out the scratch is zeroed on the stream and the epochs
+start again at 1.
 """
 
 from __future__ import annotations
@@ -40,11 +48,14 @@ from ..encode import LO_FLIP, words_per_key
 
 SOURCE = "kmer_tpu_torch/csrc/compact.cu"
 REPLACES = "kmer_tpu/ops/pallas/compact.py:96"
-TILE = 4096                    # lanes per block (csrc/compact.cu)
+TILE = 2048                    # lanes per block (csrc/compact.cu)
+EPOCH_BITS = 22                # a status word's epoch field (csrc/compact.cu)
 # calls of compact that launched the kernel (the plain version on CPU
 # tensors does not count)
 launches = 0
 _lib = None
+# (device index, stream handle) -> [scratch (1 + tiles) int64, last epoch]
+_scratch: dict[tuple[int, int], list] = {}
 
 
 def load():
@@ -55,10 +66,35 @@ def load():
                          "kmer_compact", cuda=True)
         vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.compact_launch.restype = i
-        lib.compact_launch.argtypes = [vp, vp, vp, i, i64, vp, i, i, vp, vp,
-                                       vp, vp]
+        lib.compact_launch.argtypes = [vp, vp, vp, i, i64, vp, ctypes.c_uint32,
+                                       i, i, vp, vp, vp, vp]
+        lib.compact_layout.restype = None
+        lib.compact_layout.argtypes = [vp]
+        layout = (ctypes.c_int32 * 2)()
+        lib.compact_layout(ctypes.addressof(layout))
+        if tuple(layout) != (TILE, EPOCH_BITS):
+            raise RuntimeError(f"csrc/compact.cu has (TILE, EPOCH_BITS) = "
+                               f"{tuple(layout)}, this wrapper "
+                               f"{(TILE, EPOCH_BITS)}")
         _lib = lib
     return _lib
+
+
+def _scratch_and_epoch(n: int, dev: torch.device, stream) -> tuple:
+    """The scratch of (dev, stream), grown to hold n lanes' tiles, and the
+    epoch of this call."""
+    key = (dev.index, stream.cuda_stream)
+    words = 1 + -(-n // TILE)
+    entry = _scratch.get(key)
+    if entry is None or entry[0].numel() < words:
+        entry = [torch.zeros(max(words, 1024), dtype=torch.int64,
+                             device=dev), 0]
+        _scratch[key] = entry
+    entry[1] += 1
+    if entry[1] == 1 << EPOCH_BITS:
+        entry[0].zero_()
+        entry[1] = 1
+    return entry[0], entry[1]
 
 
 def _mode(planes, r_len: int, n_bases: int) -> int:
@@ -131,17 +167,19 @@ def compact(planes, counts: torch.Tensor, *, r_len: int = 0,
     keys = torch.empty((n, 2) if mode == 2 else (n,), dtype=torch.int64,
                        device=dev)
     out_counts = torch.empty(n, dtype=torch.int64, device=dev)
-    total = torch.zeros(1, dtype=torch.int64, device=dev)
     if n == 0:
-        return keys, out_counts, total
-    scratch = torch.empty(-(-n // TILE), dtype=torch.int32, device=dev)
+        return keys, out_counts, torch.zeros(1, dtype=torch.int64,
+                                             device=dev)
+    total = torch.empty(1, dtype=torch.int64, device=dev)  # the last tile's
     lib = load()
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream()
+        scratch, epoch = _scratch_and_epoch(n, dev, stream)
         rc = lib.compact_launch(
             planes[0].data_ptr(), planes[-1].data_ptr(), counts.data_ptr(),
-            counts.element_size(), n, scratch.data_ptr(), mode, 2 * r_len,
-            keys.data_ptr(), out_counts.data_ptr(), total.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            counts.element_size(), n, scratch.data_ptr(), epoch, mode,
+            2 * r_len, keys.data_ptr(), out_counts.data_ptr(),
+            total.data_ptr(), stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(f"compact kernel launch failed: cudaError {rc}")
     global launches

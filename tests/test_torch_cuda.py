@@ -779,6 +779,115 @@ def test_compact_kernel_int32_counts(cuda, n):
     assert launched == 1 and t == int((counts > 0).sum())
 
 
+def _k4_edge(dev, name):
+    """(planes, counts, kwargs) of a case only K4's look-back can get
+    wrong: lanes around a tile, live lanes over many tiles, in the last
+    tile only or in every other tile, an int32 tail no multiple of 4."""
+    T = ck.TILE
+    rng = np.random.default_rng(len(name))
+
+    def lanes(n, share, dtype=np.int8):
+        c = ((rng.random(n) < share) * rng.integers(1, 100, n)).astype(dtype)
+        return ([torch.from_numpy(rng.integers(0, 1 << 62, n)).to(dev)],
+                torch.from_numpy(c).to(dev), {})
+
+    sizes = {"one_lane": (1, 1.0), "tile_minus_1": (T - 1, 0.5),
+             "tile": (T, 0.5), "tile_plus_1": (T + 1, 0.5),
+             "all_live_40_tiles": (40 * T, 1.0)}
+    if name in sizes:
+        return lanes(*sizes[name])
+    if name == "all_live_40_tiles_int32":
+        return lanes(40 * T, 1.0, np.int32)
+    if name == "int32_tail":
+        return lanes(12345, 0.6, np.int32)
+    if name == "one_live_in_last_tile":
+        planes, counts, kw = lanes(10 * T + 37, 0.0)
+        counts[-5] = 3
+        return planes, counts, kw
+    if name == "every_other_tile":
+        planes, counts, kw = lanes(21 * T, 0.7)
+        counts.view(21, T)[1::2] = 0
+        return planes, counts, kw
+    hi = torch.from_numpy(rng.integers(0, 1 << 62, 5 * T + 3)).to(dev)
+    lo = torch.from_numpy(rng.integers(-(1 << 63), 1 << 63, 5 * T + 3,
+                                       dtype=np.int64)).to(dev)
+    _, counts, _ = lanes(5 * T + 3, 0.8)
+    if name == "pair_one_word":
+        return ([hi & ((1 << 20) - 1), lo & ((1 << 30) - 1)], counts,
+                dict(r_len=15, n_bases=25))
+    return [hi, lo], counts, dict(r_len=32, n_bases=63)
+
+
+@pytest.mark.parametrize("name", ["one_lane", "tile_minus_1", "tile",
+                                  "tile_plus_1", "all_live_40_tiles",
+                                  "all_live_40_tiles_int32",
+                                  "one_live_in_last_tile",
+                                  "every_other_tile", "int32_tail",
+                                  "pair_one_word", "pair_r32"])
+def test_compact_kernel_look_back_edges(cuda, name):
+    planes, counts, kw = _k4_edge(cuda, name)
+    launched, t = _compact_both(planes, counts, **kw)
+    assert launched == 1 and t == int((counts > 0).sum())
+
+
+def test_compact_kernel_back_to_back(cuda):
+    """Streams of lanes compacted one after another with no sync between,
+    on the current CUDA stream and on a second one: a status word or tile
+    counter left by a call would corrupt the next."""
+    names = ["all_live_40_tiles", "tile_plus_1", "every_other_tile",
+             "one_lane", "int32_tail", "pair_r32", "all_live_40_tiles"]
+    cases = [_k4_edge(cuda, name) for name in names]
+    side = torch.cuda.Stream()
+    outs = []
+    for i, (planes, counts, kw) in enumerate(cases):
+        with torch.cuda.stream(side if i % 3 == 2 else
+                               torch.cuda.current_stream()):
+            outs.append(ck.compact(planes, counts, **kw))
+    torch.cuda.synchronize()
+    for (planes, counts, kw), got in zip(cases, outs):
+        want = ck.compact_ref(planes, counts, **kw)
+        t = int(want[2][0])
+        assert int(got[2][0]) == t
+        assert torch.equal(got[0][:t], want[0][:t])
+        assert torch.equal(got[1][:t], want[1][:t])
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 4])
+@pytest.mark.parametrize("m", [1, 3, 33, 128, 1000, 4096])
+def test_run_lengths_kernel_any_m(cuda, m, W):
+    planes = _rows(cuda, m * 4 + W, (max(1, 100_000 // (m * W)), m), W, hi=3,
+                   sort=True)
+    assert torch.equal(gk.run_lengths_grouped(planes),
+                       gk.run_lengths_grouped_ref(planes))
+
+
+@pytest.mark.parametrize("name", ["fill_group", "over_tile_end",
+                                  "sentinel_groups", "unaligned_view"])
+def test_run_lengths_kernel_flat_edges(cuda, name):
+    """A run filling its group, a run over the end of a 1024-row tile,
+    groups of sentinels only, planes that are not 16-byte aligned."""
+    if name == "fill_group":
+        planes = [torch.full((6, 4096), 5, dtype=torch.int64, device=cuda)]
+    elif name == "over_tile_end":
+        x = torch.full((6, 4096), 9, dtype=torch.int64, device=cuda)
+        x[:, 1000:3100] = 11
+        x[:, 3100:] = sk.SENTINEL
+        planes = [x, x.clone()]
+    elif name == "sentinel_groups":
+        planes = _rows(cuda, 3, (100, 1000), 3, dead=1.0, sort=True)
+    else:
+        rows = _rows(cuda, 4, (700, 128), 2, hi=3, sort=True)
+        planes = []
+        for r in rows:
+            flat = torch.empty(1 + r.numel(), dtype=torch.int64, device=cuda)
+            flat[1:] = r.reshape(-1)
+            planes.append(flat[1:].view(700, 128))
+    got = gk.run_lengths_grouped(planes)
+    assert torch.equal(got, gk.run_lengths_grouped_ref(planes))
+    if name == "fill_group":
+        assert got[:, 0].tolist() == [4096] * 6 and not got[:, 1:].any()
+
+
 @pytest.mark.parametrize("env,extra", [
     (dict(KMER_TPU_STEP="legacy"), {}),
     (dict(KMER_TPU_STEP="legacy", KMER_TPU_GROUPED="pallas"), {}),
