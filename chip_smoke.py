@@ -20,7 +20,10 @@ few) to stdout:
   3. kernel K3 (kmer_tpu_torch/csrc/fused_gapped.cu) the same way, at the
      parity path's shape (B=256, L=416, l=r=27, c in [80, 140], packed
      rows) and at edge cases (asymmetric windows, u8 rows with ambiguous
-     codes, short lengths and limits, c_max > L, L < c_min, seg 2-16);
+     codes, short lengths and limits, c_max > L, L < c_min, seg 2-16, a
+     ragged flat tail, rows much shorter than a warp's piece, rows of
+     12,288 bases packed and u8, too many wide rows to stage); the timed
+     launch's geometry;
   4. the k=21 path end to end through kmer_tpu_torch.count_fasta(...,
      device="cuda"), canonical, the default KmerConfig, on a seeded E.
      coli-sized corpus (1M reads of 150 bases from a 4.6 Mbase genome,
@@ -556,6 +559,7 @@ def phase_gapped_kernel(dev, seed: int) -> dict:
     from kmer_tpu_torch.ops.kernels import fused_gapped as fg
     rng = np.random.default_rng(seed + 1)
     asym = dict(l_len=13, r_len=9, c_min=30, c_max=40)
+    one_chunk = dict(l_len=31, r_len=31, c_min=12240, c_max=12288)
     cases = [  # (B, L, windows, packed, ambiguous, short, seg)
         (GAP_B, GAP_L, GAP, True, False, False, 2),
         (1024, 160, asym, True, False, True, 4),
@@ -564,10 +568,25 @@ def phase_gapped_kernel(dev, seed: int) -> dict:
         (512, 120, GAP, False, True, True, 16),      # c_max > L
         (300, 64, asym, False, True, True, 16),
         (64, 70, GAP, True, False, False, 2),        # L < c_min: no lanes
+        # a ragged flat tail (B T_pad no multiple of a 512-lane piece)
+        (5, 100, dict(l_len=5, r_len=4, c_min=10, c_max=90), True, False,
+         True, 2),
+        # rows much shorter than a piece: a piece spans hundreds of rows
+        (700, 12, dict(l_len=3, r_len=2, c_min=11, c_max=14), False, True,
+         True, 2),
+        # 12,288-base rows: packed, u8 staged, u8 with ambiguity words
+        (2, 12288, GAP, True, False, False, 2),
+        (2, 12288, GAP, False, False, False, 4),
+        (2, 12288, GAP, False, True, True, 16),
+        # one chunk size near the end of wide rows: too many rows to stage
+        (9, 12250, one_chunk, False, True, False, 4),
+        # seg 16 through the out slots, u8 rows with ambiguity
+        (GAP_B, GAP_L, GAP, False, True, False, 16),
     ]
     max_err = 0
     for B, L, win, packed, amb, short, seg in cases:
-        host = gapped_batch(rng, B, L, packed=packed, amb=amb, short=short)
+        host = gapped_batch(rng, B, L, packed=packed, amb=amb, short=short,
+                            full_len=L if L > GAP_L else GAP_LEN)
         kw = dict(win, mask_ambiguous=amb, seg=seg,
                   packed_width=L if packed else 0)
         on_dev = [t.to(dev) for t in host]
@@ -601,8 +620,12 @@ def phase_gapped_kernel(dev, seed: int) -> dict:
     host_ms, plain_host_ms = time_host_ms(kernel), time_host_ms(plain)
     T_pad = kernel()[0].shape[1]
     lanes = T_pad * GAP_B
+    info = fg.launch_info(GAP_B, GAP_L, **GAP, seg=SEG)
+    _say(f"launch kernel=K3 B={GAP_B} L={GAP_L} seg={SEG} "
+         + " ".join(f"{key}={v}" for key, v in info.items())
+         + f" threads_launched={info['threads'] * info['blocks']}")
     # packed codes, lengths and limits in, (hi, lo, count) out; ~8
-    # integer operations a lane (two table reads, validity, collapse)
+    # integer operations a lane (two window cuts, validity, collapse)
     b = bound(main[0].numel() * 4 + GAP_B * 8 + lanes * 17, lanes * 8)
     _say(f"gapped_kernel_time B={GAP_B} L={GAP_L} T_pad={T_pad} "
          f"kernel_ms={ms} plain_ms={plain_ms} speedup={plain_ms / ms} "

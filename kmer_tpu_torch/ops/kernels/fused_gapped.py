@@ -31,9 +31,11 @@ from .fused_count import dedup_runlen
 
 SOURCE = "kmer_tpu_torch/csrc/fused_gapped.cu"
 REPLACES = "kmer_tpu/ops/pallas/fused_gapped.py:360"
-# widest row the kernel takes: its tables and codes live in one block's
-# shared memory, 17 bytes a base at most (two int64 tables + the code)
-# against Hopper's 227 KB; the count driver splits longer reads
+# widest row the wrapper takes (the count driver splits longer reads, so
+# it sets the batches' row width); the kernel cuts its windows from the
+# packed rows in device memory, or from u8 rows a warp packs into shared
+# memory (read in place where they would not fit), so no shared-memory
+# table bounds the row
 MAX_ROW = 12288
 # kernel launches made by fused_gapped_count (the plain version on CPU
 # tensors does not count)
@@ -52,8 +54,26 @@ def load():
         lib.fused_gapped_count_launch.argtypes = [
             vp, i, i, vp, vp, vp, vp, vp, i, i, i, i, i, i, i64, i64, i, i,
             vp]
+        lib.fused_gapped_info.restype = i
+        lib.fused_gapped_info.argtypes = [i, i, i, i, i, i, i, i64, i64, i,
+                                          i, vp]
         _lib = lib
     return _lib
+
+
+def launch_info(B: int, L: int, *, l_len: int, r_len: int, c_min: int,
+                c_max: int, seg: int = 2, mask_ambiguous: bool = False,
+                packed: bool = True) -> dict:
+    """The launch fused_gapped_count makes for a (B, L) batch on the
+    current CUDA device, without making it: threads a block, blocks,
+    dynamic shared bytes, registers a thread, spill bytes, resident blocks
+    an SM."""
+    from .extract import report_info
+    T = gapped_lane_count(L, c_min, c_max)
+    T_pad = -(-T // seg) * seg
+    return report_info(load().fused_gapped_info, int(packed), B, L, l_len,
+                       r_len, c_min, c_max, T, T_pad, int(mask_ambiguous),
+                       seg)
 
 
 def _shape(codes: torch.Tensor, l_len: int, r_len: int, c_min: int,
@@ -79,7 +99,7 @@ def _shape(codes: torch.Tensor, l_len: int, r_len: int, c_min: int,
                          f"words, got {codes.shape[1]}")
     if L > MAX_ROW:
         raise ValueError(f"row width {L} > {MAX_ROW}, the widest row the "
-                         "gapped kernel's shared-memory tables take")
+                         "gapped kernel takes")
     T = gapped_lane_count(L, c_min, c_max)
     return B, L, T, -(-T // seg) * seg
 

@@ -131,6 +131,57 @@ def test_gapped_kernel_equals_plain(cuda, llen, rlen, cmin, cmax, L, amb,
     assert int((want[2] > 0).sum()) > 0
 
 
+@pytest.mark.parametrize("B,L,win,amb,seg,packed,full", [
+    # a ragged flat tail: B * T_pad no multiple of a warp's 512-lane piece
+    (5, 100, (5, 4, 10, 90), False, 2, True, False),
+    # rows much shorter than a piece: one piece spans hundreds of rows
+    (700, 12, (3, 2, 11, 14), True, 2, False, False),
+    (999, 90, (27, 27, 90, 140), False, 2, True, False),
+    # rows of 12,288 bases: packed (read from L1), u8 staged, u8 with
+    # ambiguity words (past the staging cap, read from the rows)
+    (2, 12288, (27, 27, 80, 140), False, 2, True, True),
+    (2, 12288, (27, 27, 80, 140), False, 4, False, True),
+    (2, 12288, (27, 27, 80, 140), True, 16, False, False),
+    # one chunk size near the row's end: a piece spans many wide rows
+    (9, 12250, (31, 31, 12240, 12288), True, 4, False, False),
+    # seg 16 through the out slots, u8 rows with ambiguity
+    (64, 416, (27, 27, 80, 140), True, 16, False, False),
+    (64, 416, (27, 27, 80, 140), False, 8, True, True),
+])
+def test_gapped_kernel_edges(cuda, B, L, win, amb, seg, packed, full):
+    rng = np.random.default_rng(B + L + seg)
+    codes = rng.integers(0, 4, (B, L), dtype=np.uint8)
+    if amb:
+        codes[rng.random((B, L)) < 0.01] = 4
+    if full:
+        lengths = np.full(B, L, np.int32)
+        limits = np.full(B, L, np.int32)
+    else:
+        lengths = rng.integers(0, L + 1, B).astype(np.int32)
+        limits = rng.integers(1, L + 1, B).astype(np.int32)
+        lengths[-1], limits[-1] = L, L      # one full row, clean, has lanes
+        codes[-1] &= 3
+    host = [torch.from_numpy(pack_batch_codes(codes).view(np.int32)
+                             if packed else codes),
+            torch.from_numpy(lengths), torch.from_numpy(limits)]
+    llen, rlen, cmin, cmax = win
+    kw = dict(l_len=llen, r_len=rlen, c_min=cmin, c_max=cmax,
+              mask_ambiguous=amb, seg=seg, packed_width=L if packed else 0)
+    on_dev = [t.to(cuda) for t in host]
+    before = fg.launches
+    got = fg.fused_gapped_count(*on_dev, **kw)
+    want = fg.fused_gapped_count_ref(*on_dev, **kw)
+    torch.cuda.synchronize()
+    assert fg.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int((want[2] > 0).sum()) > 0
+    info = fg.launch_info(B, L, l_len=llen, r_len=rlen, c_min=cmin,
+                          c_max=cmax, seg=seg, mask_ambiguous=amb,
+                          packed=packed)
+    assert info["blocks"] >= 1 and info["blocks_per_sm"] >= 1
+
+
 def test_gapped_kernel_no_lanes(cuda):
     """A row narrower than c_min has no lanes: an empty result and no
     launch."""
