@@ -99,12 +99,18 @@ few) to stdout:
      counts): on K7's output of one main batch (1,146,880 keys, m = 256,
      G = 4480; m = 16 for K2c), on W = 2 and W = 4 rows with many
      duplicates and sentinels, and at edge cases (m = 2, 128, the largest
-     K2b m, G = 1, all sentinels, one run filling a group); K2a alone at
-     m = 1, 3, 33, 128, 1000 and 4096 for W = 1 to 4, a run filling a
-     group, a run over a tile's end and groups of sentinels only; each
-     timed (K2a also at W = 2 on the k = 55 unfused step's groups), K2b
-     and K2c beside torch.sort of one word at the same shape as a
-     sort-only yardstick;
+     K2b m, G = 1, all sentinels, one run filling a group); each body of
+     K2b and K2c at its edges (the column body at m = 1, 16 and 32, G
+     odd, W = 4; the warp body at m = 32, 64 and 1024; the block body at
+     m = 512, W = 4; planes that are not 16-byte aligned; rows that tie
+     in every word but the last), each with the body its launch takes;
+     K2a alone at m = 1, 3, 33, 128, 1000 and 4096 for W = 1 to 4, a run
+     filling a group, a run over a tile's end and groups of sentinels
+     only; each timed (also at W = 2 on the k = 55 unfused step's
+     groups: K2a and K2b at (3392, 256), K2c at (16, 54272)), K2b and
+     K2c beside torch.sort of one word at the same shape as a sort-only
+     yardstick, with each timed launch's body, geometry, registers and
+     spills;
  18. the unfused route at full depth, right after phase 4: phase 4's run
      with KMER_TPU_STEP=legacy (K7, the grouped torch.sort and K2a a
      batch): its table equals phase 4's, K7 and K2a launch once a batch,
@@ -1539,6 +1545,10 @@ def phase_grouped_kernels(dev, seed: int) -> tuple[dict, dict, dict]:
         return [torch.where(gone, SENTINEL_KEY, p) for p in planes]
 
     big = gk.max_group_rows(1)
+    unaligned = [p.reshape(-1)[1:1 + 515 * 32].view(515, 32)
+                 for p in rows((516, 32), 2)]
+    tie_last = rows((333, 16), 4, hi=2, dead=0.0)
+    tie_last[:3] = [torch.zeros_like(tie_last[0])] * 3
     # name -> (planes in the (G, m) row layout, m)
     cases = {
         "route": ([route.view(n // 256, 256)], 256),
@@ -1551,6 +1561,16 @@ def phase_grouped_kernels(dev, seed: int) -> tuple[dict, dict, dict]:
         "g1": (rows((1, 1024), 3), 1024),
         "all_sentinels": (rows((64, 256), 2, dead=1.0), 256),
         "one_run": ([torch.full((16, 1024), 7, device=dev)], 1024),
+        # each body of K2b/K2c at its edges
+        "m1_g_odd": (rows((50_001, 1), 2), 1),
+        "m16_g_odd": (rows((4099, 16), 1, hi=5), 16),
+        "m16_w4": (rows((2000, 16), 4, hi=3), 16),
+        "m32_w2": (rows((3001, 32), 2, hi=9), 32),
+        "m64": (rows((4000, 64), 1, hi=30), 64),
+        "m1024_w1": (rows((300, 1024), 1, hi=200), 1024),
+        "m512_w3": (rows((64, 512), 3, hi=4), 512),
+        "unaligned_m32_w2": (unaligned, 32),
+        "tie_last_w4": (tie_last, 16),
     }
     max_err = {"a": 0, "b": 0, "c": 0}
 
@@ -1584,9 +1604,13 @@ def phase_grouped_kernels(dev, seed: int) -> tuple[dict, dict, dict]:
         err_c, lc = check(cs + [cc], ws + [wc], "strided_launches",
                           before)
         live = int((gc > 0).sum())
-        _say(f"grouped_check case={name} W={W} G={planes[0].shape[0]} "
-             f"m={m} k2c_m={mc} live_runs={live} launches={la},{lb},{lc} "
-             f"max_abs_err={err_a},{err_b},{err_c}")
+        G = planes[0].shape[0]
+        bodies = (gk.launch_info(G, m, W)["body"],
+                  gk.launch_info(cols[0].shape[1], mc, W,
+                                 strided=True)["body"])
+        _say(f"grouped_check case={name} W={W} G={G} m={m} k2c_m={mc} "
+             f"bodies={bodies[0]},{bodies[1]} live_runs={live} "
+             f"launches={la},{lb},{lc} max_abs_err={err_a},{err_b},{err_c}")
         want_live = name != "all_sentinels"
         if (max(err_a, err_b, err_c) or (la, lb, lc) != (1, 1, 1)
                 or (live > 0) != want_live):
@@ -1631,6 +1655,18 @@ def phase_grouped_kernels(dev, seed: int) -> tuple[dict, dict, dict]:
     def stages(m):                 # bitonic stages of an m-row group
         return int(math.log2(m)) * (int(math.log2(m)) + 1) // 2
 
+    def odd_even(m):               # Batcher's odd-even merge sort of m rows
+        p = int(math.log2(m))
+        return (p * p - p + 4) * 2 ** p // 4 - 1 if p else 0
+
+    def launch(shape, W, strided):
+        G, m = (shape[1], shape[0]) if strided else shape
+        info = gk.launch_info(G, m, W, strided=strided)
+        _say(f"launch kernel=K2{'c' if strided else 'b'} shape={shape} "
+             f"W={W} " + " ".join(f"{k}={v}" for k, v in info.items())
+             + f" threads_launched={info['threads'] * info['blocks']}")
+        return info
+
     recs = []
     for key, kernel, plain, shape_note, sort_only, replaces, name, m in (
             ("a", functools.partial(gk.run_lengths_grouped, sorted_route),
@@ -1651,10 +1687,13 @@ def phase_grouped_kernels(dev, seed: int) -> tuple[dict, dict, dict]:
         if key == "a":
             # sorted keys in, int32 counts out; one compare a lane
             b = bound(n * 8 + n * 4, n)
-        else:
-            # keys in, sorted keys and int32 counts out; the network's
-            # compare-exchanges of one word
+        elif key == "b":
+            # keys in, sorted keys and int32 counts out; the bitonic
+            # network's compare-exchanges of one word
             b = bound(2 * n * 8 + n * 4, n // 2 * stages(m))
+        else:
+            # the same bytes; the odd-even network's compare-exchanges
+            b = bound(2 * n * 8 + n * 4, n // m * odd_even(m))
         sort_ms = time_ms(sort_only) if sort_only else None
         _say(f"grouped_time kernel=K2{key} shape={shape_note} W=1 "
              f"kernel_ms={ms} plain_ms={plain_ms} speedup={plain_ms / ms} "
@@ -1668,15 +1707,18 @@ def phase_grouped_kernels(dev, seed: int) -> tuple[dict, dict, dict]:
                "plain_ms": plain_ms, **b, "library_ms": None}
         if sort_ms is not None:
             rec["sort_only_ms"] = sort_ms
+            rec["launch"] = launch(tuple((rows2d if key == "b" else cols)[0]
+                                         .shape), 1, key == "c")
         recs.append(rec)
     # K2a at W = 2: the k = 55 unfused step's groups of 256 (K7's pairs,
     # sentinel-padded to whole groups, each group sorted)
     wide = [w.reshape(-1) for w in ek.extract_keys(
         *main, WIDE_K, canonical=True, packed_width=MAIN_L)]
     pad = -wide[0].numel() % 256
-    wide = gk.sort_groups([torch.cat([w, torch.full((pad,), SENTINEL_KEY,
-                                                    device=dev)]).view(-1, 256)
-                           for w in wide])
+    wide_raw = [torch.cat([w, torch.full((pad,), SENTINEL_KEY,
+                                         device=dev)]).view(-1, 256)
+                for w in wide]
+    wide = gk.sort_groups(wide_raw)
     ms, plain_ms = time_pair(
         functools.partial(gk.run_lengths_grouped, wide),
         functools.partial(gk.run_lengths_grouped_ref, wide))
@@ -1688,6 +1730,31 @@ def phase_grouped_kernels(dev, seed: int) -> tuple[dict, dict, dict]:
          f"library_ms=None (tolerance: exact, max_abs_err must be 0)")
     recs[0]["w2"] = {"shape": list(wide[0].shape), "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b["bound_ms"]}
+    # K2b and K2c at W = 2 on the same keys unsorted: (3392, 256) and
+    # (16, 54272)
+    cols2 = [w.reshape(m_t, -1) for w in wide_raw]
+    for rec, strided, planes, m in ((recs[1], False, wide_raw, 256),
+                                    (recs[2], True, cols2, m_t)):
+        fn = gk.grouped_count_strided if strided else gk.grouped_count
+        ref = (gk.grouped_count_strided_ref if strided
+               else gk.grouped_count_ref)
+        ms, plain_ms = time_pair(functools.partial(fn, planes),
+                                 functools.partial(ref, planes))
+        axis = 0 if strided else 1
+        sort_ms = time_ms(functools.partial(torch.sort, planes[0], dim=axis))
+        nw = planes[0].numel()
+        ops = (nw // 2 * stages(m) if not strided
+               else nw // m * odd_even(m))
+        b = bound(2 * nw * 16 + nw * 4, 2 * ops)
+        shape = tuple(planes[0].shape)
+        _say(f"grouped_time kernel=K2{'c' if strided else 'b'} "
+             f"shape={shape} W=2 kernel_ms={ms} plain_ms={plain_ms} "
+             f"speedup={plain_ms / ms} bound_ms={b['bound_ms']} "
+             f"bound_by={b['bound_by']} sort_only_ms={sort_ms} "
+             f"library_ms=None (tolerance: exact, max_abs_err must be 0)")
+        rec["w2"] = {"shape": list(shape), "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b["bound_ms"], "sort_only_ms": sort_ms,
+                     "launch": launch(shape, 2, strided)}
     return tuple(recs)
 
 

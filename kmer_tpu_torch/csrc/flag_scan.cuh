@@ -1,7 +1,8 @@
 // Warp and block primitives over one flag a lane, shared by
 // csrc/compact.cu (K4: "is this lane live", each live lane's rank among
-// the live lanes) and the run lengths of csrc/grouped_count.cu (K2a: "does
-// a run start here", each start's distance to the next start).
+// the live lanes) and the run lengths of csrc/grouped_count.cu (K2a and
+// K2b's warp body: "does a run start here", each start's distance to the
+// next start).
 //
 // - ballot_rank: a warp ballot of a flag and the number of set flags on
 //   the lanes below this one (__popc of the ballot under %lanemask_lt);

@@ -43,6 +43,11 @@ REPLACES_RUN_LENGTHS = "kmer_tpu/ops/pallas/fused_count.py:175"
 REPLACES_GROUPED = "kmer_tpu/ops/pallas/fused_count.py:208"
 REPLACES_STRIDED = "kmer_tpu/ops/pallas/fused_count.py:241"
 MAX_WORDS = 4
+# K2b/K2c's bodies, by the index csrc/grouped_count.cu's launch report
+# gives: a thread per strided column of m <= 32 rows, a warp per span of
+# contiguous groups of m <= 1024 rows, a block per group tile in shared
+# memory for every other shape
+BODIES = ("column", "warp", "block")
 # shared memory a block may take (csrc/grouped_count.cu SMEM_MAX)
 SMEM_BYTES = 232448
 # kernel launches by entry point (the plain versions on CPU tensors do not
@@ -67,8 +72,29 @@ def load():
         lib.grouped_sort_count_launch.argtypes = ([vp] * 8
                                                   + [i, i64, i, i64, i64, vp,
                                                      vp])
+        lib.grouped_sort_info.restype = i
+        lib.grouped_sort_info.argtypes = [i, i64, i, i64, i64, vp]
         _lib = lib
     return _lib
+
+
+def launch_info(G: int, m: int, n_words: int = 1, *,
+                strided: bool = False) -> dict:
+    """The launch grouped_count (strided=False) or grouped_count_strided
+    (strided=True) makes for G groups of m rows of n_words words on the
+    current CUDA device, without making it: the body (one of BODIES),
+    threads a block, blocks, dynamic shared bytes, registers a thread,
+    spill bytes, resident blocks an SM."""
+    _check_pow2(m, n_words)
+    info = (ctypes.c_int * 8)()
+    es, gs = (G, 1) if strided else (1, m)
+    rc = load().grouped_sort_info(n_words, G, m, es, gs, info)
+    if rc != 0:
+        raise RuntimeError(f"grouped sort launch report failed: cudaError "
+                           f"{rc}")
+    out = dict(zip(("threads", "blocks", "smem", "registers", "spill_bytes",
+                    "blocks_per_sm"), info[:6]))
+    return {"body": BODIES[info[7]], **out}
 
 
 def max_group_rows(n_words: int) -> int:

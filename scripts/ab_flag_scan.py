@@ -13,7 +13,7 @@ scatter-only entry added (for a K4 of two launches); a store floor (the
 same records written as constants, no loads); and with --variants this
 tree's rejected K4 and K2a variants (text substitutions of compact.cu and
 grouped_count.cu).  It prints each kernel's registers and spills,
-compares the SASS of K2b/K2c (grouped_sort_kernel) of the two trees,
+compares the SASS of K2b/K2c (the *sort_kernel functions) of the two trees,
 checks this tree's kernels and every variant against the plain versions
 at the timed shapes and at edge cases, then times with CUDA events, the
 trees in turns (other, this, variants..., variants..., this, other):
@@ -347,7 +347,7 @@ def main():
     libs = build_all(args.other, args.variants)
     a, b = sass(libs["other_grouped"]), sass(libs["grouped"])
     for f in sorted(a):
-        if "grouped_sort_kernel" in f:
+        if "sort_kernel" in f:
             say(f"sass {f.split('(')[0][-40:]} same_as_other={a[f] == b.get(f)}"
                 f" lines={len(a[f])}")
     dev = torch.device("cuda", 0)

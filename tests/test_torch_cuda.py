@@ -803,6 +803,90 @@ def test_grouped_kernels_equal_plain(cuda, G, m, W):
             assert torch.equal(g, w)
 
 
+def _sort_check(fn, ref, counter, planes):
+    """One launch of K2b or K2c on `planes`, bit for bit against the plain
+    version on the same tensors."""
+    before = getattr(gk, counter)
+    got_s, got_c = fn(planes)
+    want_s, want_c = ref(planes)
+    torch.cuda.synchronize()
+    assert getattr(gk, counter) == before + 1
+    assert torch.equal(got_c, want_c)
+    for g, w in zip(got_s, want_s):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("W", [1, 2, 3, 4])
+def test_grouped_column_body(cuda, m, W):
+    """K2c's column body (a thread per strided column, two where G is even
+    and they fit): G = 1, odd and even; m = 1 also through K2b."""
+    for G in (1, 129, 2 * 4096 + 2):
+        planes = _rows(cuda, G + m + W, (m, G), W, hi=4)
+        info = gk.launch_info(G, m, W, strided=True)
+        assert info["body"].startswith("column") == (m * W <= 64)
+        _sort_check(gk.grouped_count_strided, gk.grouped_count_strided_ref,
+                    "strided_launches", planes)
+        if m == 1:
+            _sort_check(gk.grouped_count, gk.grouped_count_ref,
+                        "grouped_launches", [p.view(G, 1) for p in planes])
+
+
+@pytest.mark.parametrize("m", [2, 16, 32, 64, 128, 256, 512, 1024])
+@pytest.mark.parametrize("W", [1, 2, 3, 4])
+def test_grouped_warp_body(cuda, m, W):
+    """K2b's warp body (a warp per span of 32 R rows, R = max(2, m / 32)):
+    G with a partial last span, and G = 1."""
+    R = max(2, m // 32)
+    for G in (1, 3 * 32 * R // m * 4 + 1 if m < 32 * R else 37):
+        planes = _rows(cuda, G * m + W, (G, m), W, hi=6)
+        info = gk.launch_info(G, m, W)
+        assert (info["body"] == "warp") == (R * W <= 32)
+        _sort_check(gk.grouped_count, gk.grouped_count_ref,
+                    "grouped_launches", planes)
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 4])
+@pytest.mark.parametrize("strided", [False, True])
+def test_grouped_block_body(cuda, W, strided):
+    """The block body's groups of 1024 rows up to max_group_rows(W), in
+    both layouts."""
+    m = 1024
+    while m <= gk.max_group_rows(W):
+        G = 3
+        planes = _rows(cuda, m + W, (m, G) if strided else (G, m), W,
+                       hi=50)
+        if strided or m * W > 1024:
+            assert gk.launch_info(G, m, W, strided=strided)["body"] == \
+                "block"
+        fn, ref, counter = ((gk.grouped_count_strided,
+                             gk.grouped_count_strided_ref, "strided_launches")
+                            if strided else (gk.grouped_count,
+                                             gk.grouped_count_ref,
+                                             "grouped_launches"))
+        _sort_check(fn, ref, counter, planes)
+        m *= 2
+
+
+@pytest.mark.parametrize("m,W,strided", [(16, 1, True), (8, 2, True),
+                                         (32, 1, True), (64, 2, False),
+                                         (256, 1, False), (2, 3, False),
+                                         (2048, 1, False), (128, 2, True)])
+def test_grouped_kernels_unaligned(cuda, m, W, strided):
+    """Planes that start 8 bytes past a 16-byte boundary (slices of a
+    larger tensor) take the scalar accesses."""
+    G = 130
+    base = _rows(cuda, m + G, (G * m + 1,), W)
+    planes = [p[1:].view((m, G) if strided else (G, m)) for p in base]
+    assert all(p.data_ptr() % 16 == 8 for p in planes)
+    fn, ref, counter = ((gk.grouped_count_strided,
+                         gk.grouped_count_strided_ref, "strided_launches")
+                        if strided else (gk.grouped_count,
+                                         gk.grouped_count_ref,
+                                         "grouped_launches"))
+    _sort_check(fn, ref, counter, planes)
+
+
 def test_grouped_kernel_edges(cuda):
     """All sentinels, one run filling a group, the strided route at
     m = 16 over K7-sized input."""
