@@ -142,7 +142,24 @@ few) to stdout:
  23. `card -k 55 --canonical` and `card --seed-mask <span-55 mask>
      --canonical`: each estimate within 15% of the exact distinct count
      of phases 21 and 22;
- 24. one JSON line with every kernel of the paths (with its bound and,
+24. streaming two-pass with checkpoint/resume (pipeline/streaming), each
+     run paused mid-pass-1, its counter dropped, the card's cache emptied
+     and pass 1 resumed by a fresh counter, then pass 2; each prints its
+     pass-1 and pass-2 walls and stage breakdowns, its launches, drains
+     and spill bytes, and deletes its spill directory after its check:
+     (a) the per-batch spill path on phase 4's corpus (device_merge="off",
+     16 partitions, three ingest chunks of 2**26 bases, paused past the
+     first): its table equals phase 4's, K1 launches once a batch;
+     (c) phase 6's gapped corpus through the per-batch path (K3) and the
+     device merge (K3 -> K6): both equal phase 6's table;
+     (b) BASELINE.json's "large corpus streaming" at 10M reads of 150
+     bases (one seeded 4.6 Mbase genome at 0.2% errors, written a slice
+     of 1M reads at a time, ~1.6 GB) through the device merge: first
+     count_fasta(..., device_merge="on") in memory, then the streaming
+     run (six ingest chunks, a drain-commit each, paused in the second):
+     equal tables, the total sum(len - k + 1), K1 once a batch, K6 at
+     least once a drain, peak device memory beside the state's bytes;
+ 25. one JSON line with every kernel of the paths (with its bound and,
      where one PyTorch call computes the same function, that call's
      time; K1 and K7 with a row for each of their two-word and spaced
      variants), then the result line {"ok": true, "device": {...}} last.
@@ -173,6 +190,7 @@ import hashlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -190,6 +208,12 @@ ORACLE_READS = 50_000
 GAP = dict(l_len=27, r_len=27, c_min=80, c_max=140)
 GAP_B, GAP_L, GAP_LEN = 256, 416, 400
 GAP_RECORDS, GAP_ORACLE_RECORDS = 4000, 300
+# streaming two-pass: 16 spill partitions; the per-batch path at 1M reads
+# in three ingest chunks of 2**26 bases; the device-merge path at
+# BASELINE.json's 10M reads ("large corpus streaming"), written in slices
+# of 1M reads, in six chunks of the default 2**28 bases
+STREAM_PARTS, STREAM_CHUNK_BASES = 16, 1 << 26
+BIG_READS, BIG_SLICE_READS = 10_000_000, 1_000_000
 # keys of 32 to 63 bases and spaced seeds: k = 55, and two palindromic
 # masks, span 31 with 24 selected (one key word) and span 55 with 42
 # selected (a (hi, lo) pair); phase 20 also checks the edges of the rolled
@@ -2023,6 +2047,7 @@ def _counters():
     from kmer_tpu_torch.ops.kernels import compact as ck
     from kmer_tpu_torch.ops.kernels import extract as ek
     from kmer_tpu_torch.ops.kernels import fused_extract as fe
+    from kmer_tpu_torch.ops.kernels import fused_gapped as fg
     from kmer_tpu_torch.ops.kernels import grouped_count as gk
     from kmer_tpu_torch.ops.kernels import histogram as hk
     from kmer_tpu_torch.ops.kernels import sort as sk
@@ -2030,7 +2055,8 @@ def _counters():
             "k1_spaced": (fe, "spaced_launches"),
             "k7": (ek, "launches"), "k7_wide": (ek, "wide_launches"),
             "k7_spaced": (ek, "spaced_launches"),
-            "k2a": (gk, "run_lengths_launches"), "k4": (ck, "launches"),
+            "k2a": (gk, "run_lengths_launches"), "k3": (fg, "launches"),
+            "k4": (ck, "launches"),
             "k5": (hk, "launches"), "k6": (sk, "launches")}
 
 
@@ -2124,6 +2150,221 @@ def phase_wide_card(dev, path: str, label: str, cfg, exact_distinct: int,
         raise AssertionError(f"card {label}: estimate {est} not within 15% "
                              f"of {exact_distinct}, or total/launches wrong")
     return got["k5"]
+
+
+def write_genome_reads(path: str, n_reads: int, read_len: int,
+                       genome_len: int, seed: int, error_rate: float,
+                       slice_reads: int = BIG_SLICE_READS) -> None:
+    """A FASTA of n_reads reads sampled from one seeded random genome,
+    written a slice of reads at a time so that only one slice's
+    temporaries are in memory: uniform start positions, substitutions at
+    error_rate (a base replaced by one of the other three) and a
+    reverse-complement strand for half the reads, as
+    io.generator.genome_reads_fasta samples them (its draws differ).
+    Headers are ">r" and a 10-digit read number."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, genome_len, dtype=np.uint8)
+    ascii_codes = np.frombuffer(b"ACGT", np.uint8)
+    head = 13                                       # ">r" 10 digits "\n"
+    cols = np.arange(read_len, dtype=np.int32)
+    with open(path, "wb") as f:
+        for first in range(0, n_reads, slice_reads):
+            n = min(slice_reads, n_reads - first)
+            starts = rng.integers(0, genome_len - read_len + 1, n,
+                                  dtype=np.int32)
+            codes = genome[starts[:, None] + cols[None, :]]
+            flat = codes.reshape(-1)
+            hit = rng.integers(0, flat.size, rng.binomial(flat.size,
+                                                          error_rate))
+            flat[hit] = (flat[hit] + rng.integers(1, 4, hit.size,
+                                                  dtype=np.uint8)) % 4
+            flip = rng.random(n) < 0.5
+            codes[flip] = (3 - codes[flip])[:, ::-1]
+            rec = np.empty((n, head + read_len + 1), np.uint8)
+            rec[:, 0], rec[:, 1], rec[:, 12] = ord(">"), ord("r"), ord("\n")
+            num = np.arange(first, first + n, dtype=np.int64)
+            for j in range(10):
+                rec[:, 11 - j] = 48 + (num // 10 ** j) % 10
+            rec[:, head:head + read_len] = ascii_codes[codes]
+            rec[:, -1] = ord("\n")
+            f.write(rec.tobytes())
+
+
+class _drain_probe:
+    """For a block: counts the device merge's drains of a live state
+    (pipeline/count.DeviceMerge.drain)."""
+
+    def __enter__(self):
+        from kmer_tpu_torch.pipeline import count as pc
+        self.cls, self.orig, self.drains = pc.DeviceMerge, \
+            pc.DeviceMerge.drain, 0
+        probe = self
+
+        def counted(dm):
+            probe.drains += dm.words is not None
+            return probe.orig(dm)
+        self.cls.drain = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.drain = self.orig
+
+
+def stream_run(dev, path: str, cfg, spill: str, pause_after: int):
+    """StreamingCounter over `path` on `dev`: pass 1 paused after
+    `pause_after` batches, the counter dropped and the card's cache
+    emptied, pass 1 resumed by a fresh counter, then pass 2; every
+    kernel's count set to 0 just before pass 1 and read just after it.
+    The spill directory is deleted after the final table is read.
+    Returns (the final table, a record of the run)."""
+    from kmer_tpu_torch import StreamingCounter
+    from kmer_tpu_torch.utils import stagetime
+    pass1: dict[str, float] = {}
+    pass2: dict[str, float] = {}
+
+    def run_pass1():
+        sc = StreamingCounter(path, cfg, spill, device=dev)
+        with stagetime.collect(pass1):
+            sc.run_pass1(max_batches=pause_after)
+        paused = dict(batch=sc.state["pass1_next_batch"],
+                      cursor=sc.state["pass1_cursor"],
+                      done=sc.state["pass1_done"])
+        del sc
+        torch.cuda.empty_cache()
+        sc = StreamingCounter(path, cfg, spill, device=dev)
+        with stagetime.collect(pass1):
+            sc.run_pass1()
+        return sc, paused
+
+    with _merge_probe() as probe, _drain_probe() as drains:
+        (sc, paused), launches = _run_counted(run_pass1)
+    if paused["done"] or paused["batch"] != pause_after:
+        raise AssertionError(f"the pause did not stop pass 1 at batch "
+                             f"{pause_after}: {paused}")
+    with stagetime.collect(pass2):
+        sc.run_pass2()
+    t0 = time.perf_counter()
+    table = sc.final_table()
+    rec = dict(batches=sc.state["pass1_next_batch"], paused=paused,
+               launches={c: n for c, n in launches.items() if n},
+               drains=drains.drains, merges=len(probe.states),
+               spill_bytes=sum(sc.state["part_bytes"]),
+               pass1_s=pass1["total"], pass2_s=pass2["total"],
+               final_table_s=time.perf_counter() - t0,
+               pass1_stages_s=pass1, pass2_stages_s=pass2,
+               memory=probe.line() if probe.states else None)
+    shutil.rmtree(spill)
+    return table, rec
+
+
+def _stream_say(label: str, rec: dict, **extra) -> None:
+    _say(f"{label} " + json.dumps({**extra, **{k: v for k, v in rec.items()
+                                              if not k.endswith("stages_s")}},
+                                  sort_keys=True))
+    _say(f"{label}_pass1_stages_s "
+         + json.dumps(rec["pass1_stages_s"], sort_keys=True))
+    _say(f"{label}_pass2_stages_s "
+         + json.dumps(rec["pass2_stages_s"], sort_keys=True))
+
+
+def phase_stream_batches(dev, path: str, want_table, host_wall: float,
+                         tmp: str) -> None:
+    """Phase 24a: the per-batch spill path on phase 4's corpus (k = 21,
+    canonical, device_merge="off", three ingest chunks), paused past the
+    first chunk and resumed: its table equals phase 4's, K1 launches once
+    a batch."""
+    from kmer_tpu_torch import KmerConfig
+    cfg = KmerConfig(k=K, canonical=True, device_merge="off",
+                     partitions=STREAM_PARTS,
+                     ingest_chunk_bases=STREAM_CHUNK_BASES)
+    first_chunk = STREAM_CHUNK_BASES // READ_LEN // cfg.batch_reads
+    table, rec = stream_run(dev, path, cfg, os.path.join(tmp, "spill_a"),
+                            pause_after=first_chunk + 8)
+    if not (table == want_table
+            and rec["launches"].get("k1") == rec["batches"]
+            and rec["paused"]["cursor"] > 0):
+        raise AssertionError(f"streaming (per batch) table != phase 4's, or "
+                             f"K1 launches != batches, or the pause was not "
+                             f"past a chunk: {rec}")
+    _stream_say("stream_batches", rec, equal_to_phase4=True,
+                reads=N_READS, distinct=table.num_distinct,
+                phase4_host_merge_wall_s=host_wall,
+                pass1_over_phase4=rec["pass1_s"] / host_wall)
+
+
+def phase_stream_devmerge(dev, tmp: str, seed: int) -> None:
+    """Phase 24b: BASELINE.json's 10M-read streaming corpus through the
+    device merge (six chunks, a drain-commit each), paused mid-pass-1 and
+    resumed; its table equals the in-memory device merge's on the same
+    corpus, the total is sum(len - k + 1), K6 launches at least once a
+    drain and K1 once a batch."""
+    from kmer_tpu_torch import KmerConfig, count_fasta
+    from kmer_tpu_torch.utils import stagetime
+    t0 = time.perf_counter()
+    big = os.path.join(tmp, "big.fasta")
+    write_genome_reads(big, BIG_READS, READ_LEN, GENOME_LEN, seed + 1,
+                       ERROR_RATE)
+    _say(f"stream_corpus reads={BIG_READS} read_len={READ_LEN} "
+         f"genome_len={GENOME_LEN} error_rate={ERROR_RATE} seed={seed + 1} "
+         f"bytes={os.path.getsize(big)} make_s={time.perf_counter() - t0}")
+    cfg = KmerConfig(k=K, canonical=True, device_merge="on",
+                     partitions=STREAM_PARTS)
+    total = BIG_READS * (READ_LEN - K + 1)
+    times: dict[str, float] = {}
+    with _merge_probe() as probe:
+        with stagetime.collect(times):
+            want, got = _run_counted(lambda: count_fasta(big, cfg,
+                                                         device=dev))
+    if want.total != total:
+        raise AssertionError(f"in-memory 10M table total {want.total} != "
+                             f"{total}")
+    _say(f"big_devmerge_in_memory reads={BIG_READS} kmers={total} "
+         f"distinct={want.num_distinct} launches="
+         f"{json.dumps({c: n for c, n in got.items() if n})} "
+         f"wall_s={times['total']} kmers_per_s={total / times['total']} "
+         f"{probe.line()}")
+    _say("big_devmerge_in_memory_stages_s " + json.dumps(times,
+                                                          sort_keys=True))
+    torch.cuda.empty_cache()
+    chunk_batches = cfg.ingest_chunk_bases // READ_LEN // cfg.batch_reads
+    table, rec = stream_run(dev, big, cfg, os.path.join(tmp, "spill_b"),
+                            pause_after=chunk_batches + chunk_batches // 2)
+    os.remove(big)
+    launches = rec["launches"]
+    if not (table == want and table.total == total
+            and launches.get("k1") == rec["batches"]
+            and launches.get("k6", 0) >= rec["drains"] >= 6):
+        raise AssertionError(f"streaming (device merge) 10M table != the "
+                             f"in-memory one, or launches wrong: {rec}")
+    _stream_say("stream_devmerge", rec, equal_to_in_memory=True,
+                reads=BIG_READS, kmers=total, distinct=table.num_distinct,
+                in_memory_wall_s=times["total"],
+                pass1_over_in_memory=rec["pass1_s"] / times["total"],
+                pass2_over_pass1=rec["pass2_s"] / rec["pass1_s"],
+                kmers_per_s_both_passes=total / (rec["pass1_s"]
+                                                 + rec["pass2_s"]))
+
+
+def phase_stream_gapped(dev, gpath: str, want_table, tmp: str) -> None:
+    """Phase 24c: phase 6's gapped corpus through the per-batch path (K3)
+    and the device merge (K3 -> K6), each paused and resumed: both equal
+    phase 6's table."""
+    from kmer_tpu_torch import KmerConfig
+    cfg = KmerConfig(gapped=True, batch_reads=GAP_B, max_read_len=512,
+                     partitions=STREAM_PARTS)
+    batches = -(-GAP_RECORDS // GAP_B)
+    for route in ("off", "on"):
+        table, rec = stream_run(dev, gpath, cfg.replace(device_merge=route),
+                                os.path.join(tmp, f"spill_c_{route}"),
+                                pause_after=batches // 3)
+        launches = rec["launches"]
+        if not (table == want_table and launches.get("k3") == batches
+                and (route == "off") == ("k6" not in launches)):
+            raise AssertionError(f"streaming gapped ({route}) table != phase "
+                                 f"6's, or launches wrong: {rec}")
+        _stream_say(f"stream_gapped_devmerge_{route}", rec,
+                    equal_to_phase6=True, chunks=want_table.total)
+
 
 
 def build_all() -> None:
@@ -2236,6 +2477,12 @@ def main(argv=None) -> int:
         card_launches.append(phase_wide_card(
             dev, path, f"seed_mask={WIDE_MASK}", spaced_cfg,
             sp_table.num_distinct, "k1_spaced"))
+
+        # phase 24: streaming two-pass with a pause and a resume
+        phase_stream_batches(dev, path, table, wall, tmp)
+        phase_stream_gapped(dev, gpath, gtable, tmp)
+        del k55_table, sp_table, gtable
+        phase_stream_devmerge(dev, tmp, args.seed)
     # K5's launches: the dense k=8 run's, then each `card` run's (k = 21,
     # 55 and the mask)
     k5["card_launches"] = card_launches

@@ -6,7 +6,8 @@ contiguous k-mers, k <= 63, and of spaced seeds (seed_mask), canonical or
 not, and of the reference's gapped L+R chunks, with its byte-exact
 parity dump; on-device compaction (compact=True); the device-resident
 table (device_merge="on"); the unfused count step (KMER_TPU_STEP); dense
-mode (k <= 12); and the HyperLogLog distinct-k-mer estimate.  Native
+mode (k <= 12); the HyperLogLog distinct-k-mer estimate; and streaming
+two-pass counting with checkpoint/resume (StreamingCounter).  Native
 ingest to 2-bit codes, hand-written Hopper kernels (ops/kernels:
 fused_extract, extract, grouped_count, fused_gapped, compact, histogram,
 sort), and host aggregation into a KmerTable whose keys, TSV and .npz
@@ -22,6 +23,8 @@ match kmer_tpu's bit for bit.
     assert parity_md5("tests/data/sample.fasta") == SAMPLE_FASTA_MD5
     [(estimate, total)] = estimate_distinct_multi_k("reads.fasta", [21],
                                                     KmerConfig(k=21))
+    big = stream_count_fasta("reads.fasta", KmerConfig(k=21),
+                             spill_dir="spill")     # rerun to resume
 """
 
 from .config import KmerConfig
@@ -29,6 +32,7 @@ from .ops.count import sort_words
 from .pipeline.count import count_codes, count_fasta, count_files
 from .pipeline.parity import SAMPLE_FASTA_MD5, parity_dump, parity_md5
 from .pipeline.sketch import estimate_distinct_files, estimate_distinct_multi_k
+from .pipeline.streaming import StreamingCounter, stream_count_fasta
 from .pipeline.table import KmerTable
 
 __version__ = "0.5.0"
@@ -36,4 +40,4 @@ __version__ = "0.5.0"
 __all__ = ["KmerConfig", "KmerTable", "count_fasta", "count_files",
            "count_codes", "parity_dump", "parity_md5", "SAMPLE_FASTA_MD5",
            "estimate_distinct_files", "estimate_distinct_multi_k",
-           "sort_words"]
+           "StreamingCounter", "stream_count_fasta", "sort_words"]

@@ -1,6 +1,8 @@
 """Command-line interface.
 
   count     FASTA/FASTQ -> sorted "kmer\\tcount" TSV on stdout
+            (--two-pass: streaming, checkpointed in a spill directory)
+  histo     k-mer multiplicity spectrum (streaming with --two-pass)
   parity    FASTA -> the reference's exact sorted chunk dump on stdout
   card      estimate DISTINCT k-mers (HyperLogLog) without a table
 
@@ -25,58 +27,19 @@ def main(argv: list[str] | None = None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     pc = sub.add_parser("count", help="count k-mers")
-    pc.add_argument("fasta", nargs="+",
-                    help="input FASTA/FASTQ file(s), auto-detected")
-    pc.add_argument("-k", type=int, default=21)
-    pc.add_argument("--canonical", action="store_true")
-    pc.add_argument("--skip-invalid", action="store_true",
-                    help="accept N/IUPAC bases and drop windows containing "
-                         "them (default: error)")
-    pc.add_argument("--min-qual", type=int, default=0,
-                    help="FASTQ only: mask bases below this Phred+33 "
-                         "quality and drop windows containing them "
-                         "(implies --skip-invalid)")
-    pc.add_argument("--batch-reads", type=int, default=2048)
-    pc.add_argument("--max-read-len", type=int, default=256)
+    _add_kmer_flags(pc)
     pc.add_argument("--min-count", type=int, default=1,
                     help="suppress k-mers with count below this")
     pc.add_argument("--max-count", type=int, default=None,
                     help="suppress k-mers with count above this")
     pc.add_argument("--out-npz", default=None,
                     help="also save the table as a .npz (KmerTable.load)")
-    pc.add_argument("--stats", action="store_true",
-                    help="JSONL per-batch stats on stderr")
-    pc.add_argument("--gapped", action="store_true",
-                    help="gapped L+R chunks (the reference's window "
-                         "semantics) instead of contiguous k-mers; -k is "
-                         "then ignored")
-    pc.add_argument("--l-len", type=int, default=27,
-                    help="gapped left window length")
-    pc.add_argument("--r-len", type=int, default=27,
-                    help="gapped right window length")
-    pc.add_argument("--c-min", type=int, default=80,
-                    help="gapped minimum chunk span")
-    pc.add_argument("--c-max", type=int, default=140,
-                    help="gapped maximum chunk span")
-    pc.add_argument("--seed-mask", default=None,
-                    help="spaced seed: 0/1 match mask (e.g. 1101011); the "
-                         "key is the bases at the '1' offsets per window "
-                         "(-k is then ignored; canonical needs a "
-                         "palindromic mask)")
-    pc.add_argument("--compact", action="store_true",
-                    help="on-device compaction: device->host transfer "
-                         "scales with distinct k-mers (sort mode)")
-    pc.add_argument("--device-merge", choices=("auto", "on", "off"),
-                    default="auto",
-                    help="device-resident table: the table stays on the "
-                         "device and only distinct rows are read back "
-                         "(auto: on when the probed device->host link is "
-                         "slow)")
     pc.add_argument("--mode", choices=["auto", "dense", "sort"],
                     default="auto",
                     help="dense: a 4^k table (k <= 12); auto: dense for "
                          "k <= 8 when the probed device->host link is "
                          "slow, else sort")
+    _add_two_pass(pc, "streaming two-pass spill mode (checkpointed)")
     _add_device(pc)
 
     pp = sub.add_parser("parity", help="reference-parity sorted chunk dump")
@@ -93,6 +56,13 @@ def main(argv: list[str] | None = None) -> int:
     pp.add_argument("--partitions", type=int, default=64,
                     help="spill partitions for --bounded")
     _add_device(pp)
+
+    ph = sub.add_parser("histo", help="k-mer multiplicity spectrum "
+                                      "(count\\tnum_distinct per line)")
+    _add_kmer_flags(ph)
+    _add_two_pass(ph, "streaming spectrum for corpora whose table exceeds "
+                      "host memory (requires --spill-dir)")
+    _add_device(ph)
 
     pe = sub.add_parser("card", help="estimate DISTINCT k-mers (F0 "
                                      "cardinality, HyperLogLog) without "
@@ -118,7 +88,8 @@ def main(argv: list[str] | None = None) -> int:
     _add_device(pe)
 
     args = ap.parse_args(argv)
-    run = {"count": _count, "parity": _parity, "card": _card}[args.cmd]
+    run = {"count": _count, "histo": _histo, "parity": _parity,
+           "card": _card}[args.cmd]
     try:
         return run(args)
     except (ValueError, OSError, NotImplementedError) as e:
@@ -132,34 +103,131 @@ def _add_device(p) -> None:
                         "plain torch versions")
 
 
-def _count(args) -> int:
+def _add_kmer_flags(p) -> None:
+    """The input and counting-config flags that count and histo share."""
+    p.add_argument("fasta", nargs="+",
+                   help="input FASTA/FASTQ file(s), auto-detected")
+    p.add_argument("-k", type=int, default=21)
+    p.add_argument("--canonical", action="store_true")
+    p.add_argument("--skip-invalid", action="store_true",
+                   help="accept N/IUPAC bases and drop windows containing "
+                        "them (default: error)")
+    p.add_argument("--min-qual", type=int, default=0,
+                   help="FASTQ only: mask bases below this Phred+33 "
+                        "quality and drop windows containing them "
+                        "(implies --skip-invalid)")
+    p.add_argument("--batch-reads", type=int, default=2048)
+    p.add_argument("--max-read-len", type=int, default=256)
+    p.add_argument("--stats", action="store_true",
+                   help="JSONL per-batch stats on stderr")
+    p.add_argument("--gapped", action="store_true",
+                   help="gapped L+R chunks (the reference's window "
+                        "semantics) instead of contiguous k-mers; -k is "
+                        "then ignored")
+    p.add_argument("--l-len", type=int, default=27,
+                   help="gapped left window length")
+    p.add_argument("--r-len", type=int, default=27,
+                   help="gapped right window length")
+    p.add_argument("--c-min", type=int, default=80,
+                   help="gapped minimum chunk span")
+    p.add_argument("--c-max", type=int, default=140,
+                   help="gapped maximum chunk span")
+    p.add_argument("--seed-mask", default=None,
+                   help="spaced seed: 0/1 match mask (e.g. 1101011); the "
+                        "key is the bases at the '1' offsets per window "
+                        "(-k is then ignored; canonical needs a "
+                        "palindromic mask)")
+    p.add_argument("--compact", action="store_true",
+                   help="on-device compaction: device->host transfer "
+                        "scales with distinct k-mers (sort mode)")
+    p.add_argument("--device-merge", choices=("auto", "on", "off"),
+                   default="auto",
+                   help="device-resident table: the table stays on the "
+                        "device and only distinct rows are read back "
+                        "(auto: on when the probed device->host link is "
+                        "slow)")
+
+
+def _add_two_pass(p, two_pass_help: str) -> None:
+    p.add_argument("--two-pass", action="store_true", help=two_pass_help)
+    p.add_argument("--spill-dir", default=None,
+                   help="spill/checkpoint directory for --two-pass; rerun "
+                        "with the same directory to resume")
+    p.add_argument("--partitions", type=int, default=16,
+                   help="key-prefix spill partitions for --two-pass")
+
+
+def _build_cfg(args):
+    """The KmerConfig of the count and histo flags (histo has no --mode:
+    auto)."""
     from .config import KmerConfig
-    from .pipeline.count import count_files
     if args.gapped and args.seed_mask:
         raise ValueError("--seed-mask and --gapped are exclusive")
     if args.gapped and args.canonical:
         raise ValueError("--canonical applies to contiguous k-mers (gapped "
                          "chunks have no reverse-complement contract)")
-    kw = dict(batch_reads=args.batch_reads,
+    kw = dict(batch_reads=args.batch_reads, partitions=args.partitions,
               skip_invalid=args.skip_invalid or args.min_qual > 0,
               min_qual=args.min_qual, stats=args.stats, compact=args.compact,
               device_merge=args.device_merge)
     if args.gapped:
-        cfg = KmerConfig(gapped=True, l_len=args.l_len, r_len=args.r_len,
-                         c_min=args.c_min, c_max=args.c_max,
-                         max_read_len=max(args.max_read_len, args.c_max),
-                         **kw)
+        return KmerConfig(gapped=True, l_len=args.l_len, r_len=args.r_len,
+                          c_min=args.c_min, c_max=args.c_max,
+                          max_read_len=max(args.max_read_len, args.c_max),
+                          **kw)
+    span = len(args.seed_mask) if args.seed_mask else args.k
+    return KmerConfig(k=args.k, canonical=args.canonical,
+                      mode=getattr(args, "mode", "auto"),
+                      max_read_len=max(args.max_read_len, span),
+                      seed_mask=args.seed_mask, **kw)
+
+
+def _streaming_counter(args, cfg):
+    """The --two-pass run of one input file, both passes done."""
+    from .pipeline.streaming import StreamingCounter
+    if args.compact:
+        raise ValueError("--compact applies to the single-host in-memory "
+                         "pipeline (not --two-pass)")
+    if not args.spill_dir:
+        raise ValueError("--two-pass requires --spill-dir")
+    if len(args.fasta) != 1:
+        raise ValueError("--two-pass takes exactly one input file")
+    sc = StreamingCounter(args.fasta[0], cfg.replace(mode="sort"),
+                          args.spill_dir, device=args.device)
+    sc.run()
+    return sc
+
+
+def _count(args) -> int:
+    from .pipeline.count import count_files
+    cfg = _build_cfg(args)
+    filtered = args.min_count > 1 or args.max_count is not None
+    if args.two_pass:
+        sc = _streaming_counter(args, cfg)
+        if not (filtered or args.out_npz):
+            sc.write_tsv(sys.stdout)
+            return 0
+        table = sc.final_table()
     else:
-        span = len(args.seed_mask) if args.seed_mask else args.k
-        cfg = KmerConfig(k=args.k, canonical=args.canonical, mode=args.mode,
-                         max_read_len=max(args.max_read_len, span),
-                         seed_mask=args.seed_mask, **kw)
-    table = count_files(args.fasta, cfg, device=args.device)
-    if args.min_count > 1 or args.max_count is not None:
+        table = count_files(args.fasta, cfg, device=args.device)
+    if filtered:
         table = table.filter_count_range(args.min_count, args.max_count)
     if args.out_npz:
         table.save(args.out_npz)
     table.write_tsv(sys.stdout)
+    return 0
+
+
+def _histo(args) -> int:
+    from .pipeline.count import count_files
+    cfg = _build_cfg(args)
+    if args.two_pass:
+        histo = _streaming_counter(args, cfg).multiplicity_histogram()
+    else:
+        histo = count_files(args.fasta, cfg,
+                            device=args.device).multiplicity_histogram()
+    for mult, ndis in sorted(histo.items()):
+        sys.stdout.write(f"{mult}\t{ndis}\n")
     return 0
 
 

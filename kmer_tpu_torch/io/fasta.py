@@ -173,13 +173,17 @@ def parse_seqs(path: str, allow_ambiguous: bool = False,
 
 
 def iter_parse_chunks(path: str, *, max_bases: int = 256 << 20,
-                      allow_ambiguous: bool = False, min_qual: int = 0):
+                      allow_ambiguous: bool = False, start_cursor: int = 0,
+                      min_qual: int = 0):
     """Yield (codes, offsets, next_cursor) windows of whole records.
 
     Peak host memory is ~max_bases plus one record, independent of the
     corpus size.  A plain (or BGZF) file that fits one window takes the
-    multithreaded whole-file parse instead.  next_cursor is the
-    uncompressed byte offset after the window."""
+    multithreaded whole-file parse instead, from cursor 0 only.
+    next_cursor is the uncompressed byte offset after the window, at a
+    record boundary: passed back as start_cursor it resumes the parse
+    there without re-reading the bytes before it (pipeline/streaming's
+    checkpoints)."""
     fmt = detect_format(path)
     if fmt == "fastq":
         _check_min_qual(allow_ambiguous, min_qual)
@@ -192,17 +196,17 @@ def iter_parse_chunks(path: str, *, max_bases: int = 256 << 20,
         # qualifies when the UNCOMPRESSED size fits (-1 = plain gzip)
         usize = int(lib.bgzf_usize(path.encode()))
         plain, size = usize >= 0, usize
-    if plain and size <= max_bases:
+    if start_cursor == 0 and plain and size <= max_bases:
         codes, offsets = _parse_whole(path, fmt, allow_ambiguous, min_qual)
         if len(offsets) > 1:            # the chunked path yields nothing
             yield codes, offsets, size  # for empty files; match it
         return
     yield from _iter_chunks_native(lib, path, fmt, max_bases,
-                                   allow_ambiguous, min_qual)
+                                   allow_ambiguous, start_cursor, min_qual)
 
 
 def _iter_chunks_native(lib, path, fmt, max_bases, allow_ambiguous,
-                        min_qual):
+                        start_cursor, min_qual):
     if fmt == "fastq":
         def fn(h, amb, *rest):
             return lib.fastq_chunk(h, amb, min_qual, *rest)
@@ -211,10 +215,10 @@ def _iter_chunks_native(lib, path, fmt, max_bases, allow_ambiguous,
     amb = 1 if allow_ambiguous else 0
     cap = max_bases + (16 << 20)          # slack for one straddling record
     rec_cap = max(max_bases // 32, 1 << 16)
-    cursor = 0
+    cursor = start_cursor
     h = lib.ingest_open(path.encode(), cursor)
     if not h:
-        raise ValueError(f"{path}: cannot open")
+        raise ValueError(f"{path}: cannot open (offset {cursor})")
     try:
         err = ctypes.create_string_buffer(256)
         eof = ctypes.c_int(0)
@@ -337,13 +341,16 @@ def batch_from_spans(codes: np.ndarray, spans_chunk: np.ndarray, *,
 
 def iter_batches(codes: np.ndarray, offsets: np.ndarray, *,
                  batch_reads: int, max_len: int, overlap: int,
-                 packed: bool = False) -> Iterator[Batch]:
+                 start_batch: int = 0, packed: bool = False
+                 ) -> Iterator[Batch]:
     """Yield fixed-shape batches.  The final batch is padded to full B
     with zero-length rows, so every device step sees one shape.
-    `packed` emits 2-bit uint32-packed rows (pure-ACGT codes only)."""
+    `start_batch` skips the first batches without building them (a
+    checkpoint's resume).  `packed` emits 2-bit uint32-packed rows
+    (pure-ACGT codes only)."""
     spans = segment_records(offsets, max_len, overlap)
     n = len(spans)
-    for i in range(0, max(n, 1), batch_reads):
+    for i in range(start_batch * batch_reads, max(n, 1), batch_reads):
         yield batch_from_spans(codes, spans[i:i + batch_reads],
                                batch_reads=batch_reads, max_len=max_len,
                                packed=packed)

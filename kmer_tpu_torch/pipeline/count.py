@@ -51,7 +51,8 @@ import numpy as np
 import torch
 
 from ..config import KmerConfig
-from ..io.fasta import iter_batches, iter_parse_chunks, parse_seqs
+from ..io.fasta import (iter_batches, iter_parse_chunks, parse_seqs,
+                        segment_records)
 from ..ops import count as count_ops
 from ..ops import devmerge
 from ..ops.encode import HI_BASES, key_planes, pair_r_len, plane_bits
@@ -280,14 +281,16 @@ class DeviceMerge:
     merge can drop a key.  KMER_TPU_DEVMERGE_ROWS fixes C (raised to one
     group's lanes): every overflow drains.
 
-    A drain reads the distinct rows through the wire tiers and appends
-    to_part(keys (d, W) int64, counts (d,) int64) to `parts`; each part
-    is sorted and unique, so a run with one drain needs no host merge.
-    bits: the key words' value bits, which the merge's sort trims its
-    passes to (ops/kernels/sort; default 64 each)."""
+    A drain reads the distinct rows through the wire tiers and hands
+    to_part(keys (d, W) int64, counts (d,) int64) to `sink`, by default
+    parts.append; each part is sorted and unique, so a run with one
+    drain needs no host merge (streaming's sink appends each part to its
+    spill files instead).  bits: the key words' value bits, which the
+    merge's sort trims its passes to (ops/kernels/sort; default 64
+    each)."""
 
     def __init__(self, n_words: int, device, to_part, *, l_len: int = 0,
-                 r_len: int = 0, bits=None):
+                 r_len: int = 0, bits=None, sink=None):
         self.W, self.device, self.to_part = n_words, device, to_part
         self.wire = dict(l_len=l_len, r_len=r_len)
         self.bits = bits
@@ -299,6 +302,7 @@ class DeviceMerge:
         self.pend: list = []
         self.pend_lanes = 0
         self.parts: list = []
+        self.sink = sink if sink is not None else self.parts.append
 
     @property
     def capacity(self) -> int:
@@ -362,7 +366,7 @@ class DeviceMerge:
         self.pend, self.pend_lanes = [], 0
 
     def drain(self) -> None:
-        """Read the distinct rows into `parts` and reset the state."""
+        """Hand the distinct rows to the sink and reset the state."""
         if self.words is None:
             return
         self._sync()
@@ -373,7 +377,7 @@ class DeviceMerge:
                 got = devmerge.fetch_state(self.words, self.counts,
                                            self.distinct)
         if len(got[1]):
-            self.parts.append(self.to_part(*got))
+            self.sink(self.to_part(*got))
         self._reset(self.capacity)
 
     def finish(self) -> list:
@@ -456,14 +460,14 @@ def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(dev, non_blocking=True)
 
 
-def device_batches(codes: np.ndarray, offsets: np.ndarray, cfg: KmerConfig,
-                   packed: bool, span: int | None = None):
-    """The fixed-shape device batches of one parsed chunk, at the tight
-    width: the chunk's longest record rounded up to 32, floored at the
-    window span (c_max for gapped chunks, or `span`) and capped at the
-    gapped kernel's widest row.  Longer records split with overlap
-    seams (span - 1 bases), so the table does not depend on the
-    width."""
+def batch_width(offsets: np.ndarray, cfg: KmerConfig,
+                span: int | None = None) -> int:
+    """The tight row width of one parsed chunk: its longest record
+    rounded up to 32, floored at the window span (c_max for gapped
+    chunks, or `span`), capped at cfg.max_read_len and at the gapped
+    kernel's widest row.  It depends on the chunk alone, so a chunk
+    parsed again from the same cursor gets the same width and the same
+    batches."""
     span = span or cfg.window_span
     max_len = cfg.max_read_len
     if len(offsets) > 1:
@@ -471,22 +475,44 @@ def device_batches(codes: np.ndarray, offsets: np.ndarray, cfg: KmerConfig,
         max_len = min(max_len, -(-max(longest, span) // 32) * 32)
     if cfg.gapped:
         max_len = min(max_len, fused_gapped.MAX_ROW)
+    return max_len
+
+
+def count_batches(offsets: np.ndarray, cfg: KmerConfig) -> int:
+    """How many device batches device_batches makes of one chunk (one,
+    all padding, for a chunk without records)."""
+    n = len(segment_records(offsets, batch_width(offsets, cfg), cfg.overlap))
+    return max(-(-n // cfg.batch_reads), 1)
+
+
+def device_batches(codes: np.ndarray, offsets: np.ndarray, cfg: KmerConfig,
+                   packed: bool, span: int | None = None,
+                   start_batch: int = 0):
+    """The fixed-shape device batches of one parsed chunk, at its
+    batch_width, from batch `start_batch` on.  Longer records split with
+    overlap seams (span - 1 bases), so the table does not depend on the
+    width."""
+    span = span or cfg.window_span
     return iter_batches(codes, offsets, batch_reads=cfg.batch_reads,
-                        max_len=max_len, overlap=span - 1, packed=packed)
+                        max_len=batch_width(offsets, cfg, span),
+                        overlap=span - 1, start_batch=start_batch,
+                        packed=packed)
 
 
 def dispatch_batches(codes: np.ndarray, offsets: np.ndarray,
                      cfg: KmerConfig, dev: torch.device, step,
-                     log: StatsLogger, span: int | None = None):
-    """Ship each device batch of a parsed chunk to `dev` and yield (the
-    host batch, step(codes, lengths, limits, packed_width)).  Batches
-    cross 2-bit packed; the ambiguity code needs a third bit, so
-    skip-invalid mode ships u8 rows.  Each batch's log line times its
-    dispatch plus what the caller does with the yielded value."""
+                     log: StatsLogger, span: int | None = None,
+                     start_batch: int = 0):
+    """Ship each device batch of a parsed chunk, from batch `start_batch`
+    on, to `dev` and yield (the host batch, step(codes, lengths, limits,
+    packed_width)).  Batches cross 2-bit packed; the ambiguity code
+    needs a third bit, so skip-invalid mode ships u8 rows.  Each batch's
+    log line times its dispatch plus what the caller does with the
+    yielded value."""
     packed = cfg.packed_transfer and not cfg.skip_invalid
     n = 0
     for batch in stagetime.stage_iter("batch_prep", device_batches(
-            codes, offsets, cfg, packed, span)):
+            codes, offsets, cfg, packed, span, start_batch)):
         with Timer() as t:
             with stagetime.stage("dispatch"):
                 bc = batch.codes.view(np.int32) if packed else batch.codes
@@ -523,16 +549,23 @@ def count_codes(codes: np.ndarray, offsets: np.ndarray, cfg: KmerConfig,
     return table
 
 
-def _count_sort(codes, offsets, cfg: KmerConfig, dev: torch.device,
-                log: StatsLogger) -> tuple[KmerTable, int]:
+def sort_step(cfg: KmerConfig, dev: torch.device, compact: bool):
+    """The sort-mode count step of `cfg` on `dev` and how the host reads
+    a batch of it: (step, batch_pairs).  step(codes, lengths, limits,
+    packed_width) launches the step on the batch's device tensors and
+    starts its readback; batch_pairs(readback), after its wait(), gives
+    the batch's unsorted (fused key, int64 count) pairs.  compact: the
+    step packs its live lanes on the device (cfg.compact for count_codes;
+    streaming's pass 1 ignores it, as kmer_tpu's does)."""
     k = cfg.n_bases
     # lo's bases of a (hi, lo) key (gapped, or 32 to 63 bases); 0 for one
     # int64
     r_len = cfg.r_len if cfg.gapped else pair_r_len(k)
     win = dict(c_min=cfg.c_min, c_max=cfg.c_max, l_len=cfg.l_len,
                r_len=cfg.r_len)
-    copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
-    if cfg.gapped and cfg.compact:
+    copy_stream = (torch.cuda.Stream(dev) if compact and dev.type == "cuda"
+                   else None)
+    if cfg.gapped and compact:
         def step(codes_d, lengths_d, limits_d, pw):
             return _CompactReadback(gapped_step_compact(
                 codes_d, lengths_d, limits_d, **win,
@@ -543,7 +576,7 @@ def _count_sort(codes, offsets, cfg: KmerConfig, dev: torch.device,
             return _Readback(gapped_step_sort(
                 codes_d, lengths_d, limits_d, **win,
                 mask_ambiguous=cfg.skip_invalid, packed_width=pw))
-    elif cfg.compact:
+    elif compact:
         def step(codes_d, lengths_d, limits_d, pw):
             return _CompactReadback(count_step_compact(
                 codes_d, lengths_d, limits_d, k=k, canonical=cfg.canonical,
@@ -559,7 +592,7 @@ def _count_sort(codes, offsets, cfg: KmerConfig, dev: torch.device,
                 positions=cfg.seed_positions)
             return _Readback((*key_planes(keys), counts))
 
-    if cfg.compact:
+    if compact:
         def batch_pairs(rb):
             return rb.pairs()                  # records as they came
     elif r_len:
@@ -568,6 +601,13 @@ def _count_sort(codes, offsets, cfg: KmerConfig, dev: torch.device,
     else:
         def batch_pairs(rb):
             return device_run_pairs(*rb.host())
+    return step, batch_pairs
+
+
+def _count_sort(codes, offsets, cfg: KmerConfig, dev: torch.device,
+                log: StatsLogger) -> tuple[KmerTable, int]:
+    k = cfg.n_bases
+    step, batch_pairs = sort_step(cfg, dev, cfg.compact)
 
     # buffered flush schedule: batch pairs are bulk-merged (one sort over
     # many batches) on a background thread once flush_pairs accumulate;
@@ -639,10 +679,12 @@ def _count_sort(codes, offsets, cfg: KmerConfig, dev: torch.device,
     return KmerTable.empty(k), n_batches
 
 
-def _count_devmerge(codes, offsets, cfg: KmerConfig, dev: torch.device,
-                    log: StatsLogger) -> tuple[KmerTable, int]:
-    """Sort mode with the table on the device (DeviceMerge): no
-    per-batch readback; the distinct rows cross once a drain."""
+def devmerge_route(cfg: KmerConfig, dev: torch.device, sink=None):
+    """The device-merge route of `cfg` on `dev`: (step, DeviceMerge).
+    step(codes, lengths, limits, packed_width) returns the batch's (key
+    planes, counts) on the device, for DeviceMerge.add; each drain hands
+    a sorted unique (fused key, int64 count) part to `sink` (default:
+    the DeviceMerge's parts)."""
     k = cfg.n_bases
     if cfg.gapped:
         win = dict(c_min=cfg.c_min, c_max=cfg.c_max, l_len=cfg.l_len,
@@ -658,7 +700,7 @@ def _count_devmerge(codes, offsets, cfg: KmerConfig, dev: torch.device,
             return gapped_run_pairs(keys[:, 0], keys[:, 1], counts,
                                     cfg.r_len, k)
         dm = DeviceMerge(2, dev, to_part, l_len=cfg.l_len, r_len=cfg.r_len,
-                         bits=(2 * cfg.l_len, 2 * cfg.r_len))
+                         bits=(2 * cfg.l_len, 2 * cfg.r_len), sink=sink)
     else:
         r_len = pair_r_len(k)
 
@@ -675,13 +717,21 @@ def _count_devmerge(codes, offsets, cfg: KmerConfig, dev: torch.device,
                 return gapped_run_pairs(keys[:, 0], keys[:, 1], counts,
                                         r_len, k)
             dm = DeviceMerge(2, dev, to_part, l_len=HI_BASES, r_len=r_len,
-                             bits=plane_bits(k))
+                             bits=plane_bits(k), sink=sink)
         else:
             def to_part(keys, counts):
                 return (np.ascontiguousarray(keys[:, 0]).view(np.uint64),
                         counts)
-            dm = DeviceMerge(1, dev, to_part, bits=plane_bits(k))
+            dm = DeviceMerge(1, dev, to_part, bits=plane_bits(k), sink=sink)
+    return step, dm
 
+
+def _count_devmerge(codes, offsets, cfg: KmerConfig, dev: torch.device,
+                    log: StatsLogger) -> tuple[KmerTable, int]:
+    """Sort mode with the table on the device (DeviceMerge): no
+    per-batch readback; the distinct rows cross once a drain."""
+    k = cfg.n_bases
+    step, dm = devmerge_route(cfg, dev)
     n_batches = 0
     for _, (words, counts) in dispatch_batches(codes, offsets, cfg, dev,
                                                step, log):
@@ -774,21 +824,30 @@ def count_files(paths, cfg: KmerConfig | None = None, *, device="cuda",
         return acc.result()
 
 
-def iter_chunks(paths, cfg: KmerConfig):
+def iter_chunks(paths, cfg: KmerConfig, start_cursor: int = 0,
+                cursors: bool = False):
     """(codes, offsets) of each parsed ingest chunk of each file: chunked
     by cfg.ingest_chunk_bases and parsed on a background thread, or each
-    whole file when that is 0."""
+    whole file when that is 0.  cursors: yield (codes, offsets, cursor),
+    the cursor the uncompressed byte offset after the chunk (-1 after a
+    whole-file parse).  start_cursor: where the first file's parse
+    starts, a cursor an earlier parse of it yielded."""
     for p in paths:
         if cfg.ingest_chunk_bases > 0:
             chunks = stagetime.stage_iter("ingest", prefetch_iter(
                 iter_parse_chunks(p, max_bases=cfg.ingest_chunk_bases,
                                   allow_ambiguous=cfg.skip_invalid,
+                                  start_cursor=start_cursor,
                                   min_qual=cfg.min_qual)))
+        elif start_cursor:
+            raise ValueError("a resume cursor needs chunked ingest "
+                             "(ingest_chunk_bases > 0)")
         else:
             with stagetime.stage("ingest"):
                 codes, offsets = parse_seqs(p,
                                             allow_ambiguous=cfg.skip_invalid,
                                             min_qual=cfg.min_qual)
             chunks = [(codes, offsets, -1)]
-        for codes, offsets, _cursor in chunks:
-            yield codes, offsets
+        start_cursor = 0
+        for codes, offsets, cursor in chunks:
+            yield (codes, offsets, cursor) if cursors else (codes, offsets)

@@ -190,6 +190,14 @@ class KmerTable:
             keep &= self.counts <= max_count
         return KmerTable(self.k, self.keys[keep], self.counts[keep])
 
+    def multiplicity_histogram(self) -> dict[int, int]:
+        """{count: number of distinct keys with that count}, the k-mer
+        spectrum (`histo`)."""
+        if self.num_distinct == 0:
+            return {}
+        vals, freq = np.unique(self.counts, return_counts=True)
+        return {int(v): int(f) for v, f in zip(vals, freq)}
+
     def save(self, path: str) -> None:
         """Persist as .npz (k, keys, counts): the same fields as
         kmer_tpu's, so either package loads the other's files."""

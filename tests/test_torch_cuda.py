@@ -1202,3 +1202,58 @@ def test_wide_and_spaced_card_cuda_equal_cpu(cuda, tmp_path):
                                                          device="cuda")
                 == kmer_tpu_torch.estimate_distinct_multi_k(
                     str(path), [45], cfg, device="cpu"))
+
+
+@pytest.mark.parametrize("kw,rows", [
+    (dict(k=21, canonical=True, device_merge="off"), None),
+    (dict(k=21, canonical=True, device_merge="on"), "512"),
+    (dict(k=45, canonical=True, device_merge="on"), None),
+    (dict(gapped=True, l_len=12, r_len=13, c_min=30, c_max=40,
+          device_merge="off"), None),
+    (dict(gapped=True, l_len=12, r_len=13, c_min=30, c_max=40,
+          device_merge="on"), "512")])
+def test_streaming_cuda_equals_cpu(cuda, tmp_path, monkeypatch, kw, rows):
+    """StreamingCounter on the card: the per-batch route (K1 or K3 a
+    batch) and the device merge (K6; a fixed tiny capacity forces drains
+    between commits), paused mid-pass-1 and resumed by a fresh counter,
+    equals the CPU's uninterrupted run."""
+    if rows:
+        monkeypatch.setenv("KMER_TPU_DEVMERGE_ROWS", rows)
+    path = tmp_path / "g.fasta"
+    path.write_text(genome_reads_fasta(300, 150, genome_len=3000, seed=4,
+                                       error_rate=0.01))
+    cfg = kmer_tpu_torch.KmerConfig(batch_reads=32, max_read_len=96,
+                                    partitions=5, ingest_chunk_bases=9000,
+                                    **kw)
+    want = kmer_tpu_torch.stream_count_fasta(
+        str(path), cfg, spill_dir=str(tmp_path / "cpu"), device="cpu")
+    spill = str(tmp_path / "cuda")
+    sc = kmer_tpu_torch.StreamingCounter(str(path), cfg, spill,
+                                         device="cuda")
+    fe.launches = fg.launches = sk.launches = 0
+    from kmer_tpu_torch.pipeline.count import count_batches, iter_chunks
+    _, offsets = next(iter_chunks([str(path)], cfg))
+    sc.run_pass1(max_batches=count_batches(offsets, cfg) + 1)
+    assert sc.state["pass1_cursor"] > 0 and not sc.state["pass1_done"]
+    sc = kmer_tpu_torch.StreamingCounter(str(path), cfg, spill,
+                                         device="cuda")
+    sc.run()
+    batches = sc.state["pass1_next_batch"]
+    assert sc.final_table() == want and want.total > 0
+    assert (fg.launches if cfg.gapped else fe.launches) == batches
+    assert (sk.launches > 0) == (kw["device_merge"] == "on")
+
+
+@pytest.mark.parametrize("cmd", ["count", "histo"])
+def test_two_pass_cli_cuda_equals_cpu(cuda, tmp_path, capsys, cmd):
+    from kmer_tpu_torch.cli import main
+    path = tmp_path / "g.fasta"
+    path.write_text(genome_reads_fasta(300, 150, genome_len=3000, seed=5))
+    args = [cmd, str(path), "-k", "21", "--canonical", "--batch-reads",
+            "64", "--two-pass", "--partitions", "4"]
+    outs = []
+    for dev in ("cpu", "cuda"):
+        assert main(args + ["--spill-dir", str(tmp_path / dev),
+                            "--device", dev]) == 0
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] and outs[0].count("\n") > 3
