@@ -159,7 +159,32 @@ few) to stdout:
      run (six ingest chunks, a drain-commit each, paused in the second):
      equal tables, the total sum(len - k + 1), K1 once a batch, K6 at
      least once a drain, peak device memory beside the state's bytes;
- 25. one JSON line with every kernel of the paths (with its bound and,
+ 25. the saved-table surface through kmer_tpu_torch.cli.main in process,
+     stdout captured, each run's launches printed:
+     (a) phase 4's corpus written as BGZF by io/bgzf.write_bgzf on
+     every CPU core (its seconds), then `count --device cuda
+     --device-merge on -k 21 --canonical --threads 8 --batch-reads 8192
+     --out-npz` (phase 4's batches): block-parallel BGZF ingest, the
+     saved table equal to phase 4's, K1 once a batch and K6; the CLI's
+     stages (utils/stagetime, save_npz and write_tsv among them) and
+     what they leave unattributed;
+     (b) `count --profile-dir` on the 50,000-read file: the trace file
+     holds device events of K1's kernel by name, the three kernels with
+     the most device time in it, and the TSV equals the untraced run's;
+     (c) the 50,000-read file counted whole and as two halves at k = 21
+     and k = 55, each saved with --out-npz: `tools union` of the halves
+     writes the whole table's TSV; `intersect`, `subtract`,
+     `kmers-subtract` and `compare` equal a numpy oracle over the halves' keys
+     (np.intersect1d, the arithmetic by hand); `dump --histo` equals
+     `histo`; `dump --top 10` a numpy top 10 of the whole TSV;
+     (d) `query` of 1000 k-mers of the whole table, then their reverse
+     complements and 1000 random k-mers with --canonical: the table's
+     counts, 0 where absent; the stages of (c)'s counts and tools;
+     (e) `generate --format fastq` counts to sum(len - k + 1), and
+     io/generator.random_reads_fastq(..., qual_range=(2, 41)) counted
+     at k = 9 with --min-qual 20 to the windows with no base below
+     Phred 20, from a numpy oracle on the same text;
+ 26. one JSON line with every kernel of the paths (with its bound and,
      where one PyTorch call computes the same function, that call's
      time; K1 and K7 with a row for each of their two-word and spaced
      variants), then the result line {"ok": true, "device": {...}} last.
@@ -172,21 +197,26 @@ Any failed check raises, so the script exits non-zero and prints no
 result line.  Without a CUDA device it fails at once.
 
 Bounds: the larger of the bytes a kernel must move (each input read
-once, each output written once) over HBM3's 3.35 TB/s (NVIDIA's data
-sheet) and the thread instructions its function needs over the card's
-issue ceiling: four warp instructions an SM a clock, one from each
-scheduler of its four partitions (the H100 white paper), whatever pipe
-they go to -- SMs x 128 x the maximum SM clock that nvidia-smi reads,
-33.5 T/s on an H100 SXM, half the data sheet's 67 TFLOP/s float32, which
-counts a fused multiply-add as two.
+once, each output written once) over the card's peak DRAM bandwidth
+(utils/profiling.detect_hbm_bw: HBM3's 3.35 TB/s on an H100 SXM,
+NVIDIA's data sheet; an unknown card fails the run) and the thread
+instructions its function needs over the card's issue ceiling: four warp
+instructions an SM a clock, one from each scheduler of its four
+partitions (the H100 white paper), whatever pipe they go to -- SMs x 128
+x the maximum SM clock that nvidia-smi reads, 33.5 T/s on an H100 SXM,
+half the data sheet's 67 TFLOP/s float32, which counts a fused
+multiply-add as two.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import concurrent.futures as cf
+import contextlib
 import functools
 import hashlib
+import io
 import json
 import math
 import os
@@ -228,13 +258,25 @@ EDGE_MASKS = ("1111" + "0" * 24 + "1111", "1" * 32,
               "10" * 31 + "1", "110100101011")
 GATHER_MASK = "1" * 10 + "0" * 80 + "1" * 10
 REPO = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12
 # thread instructions a second: an SM issues at most four warp
 # instructions a clock, one from each of its four schedulers (NVIDIA H100
 # white paper), whichever pipe takes them; main() sets it from the card's
 # SM count and maximum SM clock (132 x 128 x 1.98 GHz = 33.5 T/s on an
 # H100 SXM)
 OPS_PER_S = 132 * 128 * 1.98e9
+
+
+def hbm_bytes_per_s(dev=None) -> float:
+    """The card's peak DRAM bandwidth, bytes/s, from
+    utils/profiling.detect_hbm_bw; AssertionError for a card it does not
+    know."""
+    from kmer_tpu_torch.utils.profiling import detect_hbm_bw
+    bw = detect_hbm_bw(dev)
+    if bw is None:
+        raise AssertionError(f"{torch.cuda.get_device_name(dev)}: peak DRAM "
+                             "bandwidth unknown (utils/profiling."
+                             "PEAK_DRAM_BYTES_PER_S)")
+    return bw
 
 
 def issue_ops_per_s(dev) -> float:
@@ -248,7 +290,7 @@ def issue_ops_per_s(dev) -> float:
 def bound(n_bytes: float, n_ops: float) -> dict:
     """The least time the card could take: bytes over HBM bandwidth or
     thread instructions over the issue ceiling, whichever is larger."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_bytes = n_bytes / hbm_bytes_per_s() * 1e3
     t_ops = n_ops / OPS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -2367,6 +2409,298 @@ def phase_stream_gapped(dev, gpath: str, want_table, tmp: str) -> None:
 
 
 
+def _cli(argv: list[str], out: str | None = None, stdin: str | None = None):
+    """kmer_tpu_torch.cli.main(argv) in process, its stdout captured into
+    the file `out` (returned as None) or a string; any exit code but 0
+    fails the run.  The caller's KMER_TPU_PARSE_THREADS (which --threads
+    sets) is restored after."""
+    from kmer_tpu_torch.cli import main as cli_main
+    threads = os.environ.get("KMER_TPU_PARSE_THREADS")
+    old_stdin = sys.stdin
+    with contextlib.ExitStack() as stack:
+        sink = (stack.enter_context(open(out, "w")) if out
+                else io.StringIO())
+        stack.enter_context(contextlib.redirect_stdout(sink))
+        if stdin is not None:
+            sys.stdin = io.StringIO(stdin)
+        try:
+            rc = cli_main(argv)
+        finally:
+            sys.stdin = old_stdin
+            if threads is None:
+                os.environ.pop("KMER_TPU_PARSE_THREADS", None)
+            else:
+                os.environ["KMER_TPU_PARSE_THREADS"] = threads
+        text = None if out else sink.getvalue()
+    if rc != 0:
+        raise AssertionError(f"kmer_tpu_torch {' '.join(argv[:2])} exited "
+                             f"{rc}")
+    return text
+
+
+def _launched(launches: dict) -> dict:
+    return {name: n for name, n in launches.items() if n}
+
+
+def _pair_ids(table) -> np.ndarray:
+    """A table's keys as (M,) void16 ids (its (hi, lo) int64 rows), for
+    np.intersect1d."""
+    return np.ascontiguousarray(table_pairs(table)).view(
+        np.dtype((np.void, 16))).reshape(-1)
+
+
+def _tsv_columns(text: str, k: int) -> tuple[list[str], np.ndarray]:
+    """A k-mer TSV's (k-mers, int64 counts), in row order."""
+    lines = text.splitlines()
+    counts = np.fromstring(" ".join(ln[k + 1:] for ln in lines),
+                           dtype=np.int64, sep=" ")
+    return [ln[:k] for ln in lines], counts
+
+
+def _with_rest(times: dict) -> dict:
+    """A stagetime collector's stages with "unattributed": its total less
+    the stages' sum (CLI set-up, parsing of arguments, the table build
+    outside a marked section)."""
+    rest = times.get("total", 0.0) - sum(v for n, v in times.items()
+                                         if n != "total")
+    return {**times, "unattributed": rest}
+
+
+def _revcomp(s: str) -> str:
+    return s[::-1].translate(str.maketrans("ACGT", "TGCA"))
+
+
+def surface_bgzf(dev, path: str, want_table, host_wall: float,
+                 tmp: str) -> None:
+    """Phase 25a: phase 4's corpus as BGZF, counted with --threads 8 and
+    the device merge through the CLI."""
+    from kmer_tpu_torch import KmerConfig
+    from kmer_tpu_torch.io.bgzf import write_bgzf
+    from kmer_tpu_torch.pipeline.table import KmerTable
+    from kmer_tpu_torch.utils import stagetime
+    gz = path + ".gz"
+    threads = os.cpu_count()                # write_bgzf's threads
+    t0 = time.perf_counter()
+    with open(path, "rb") as f:
+        write_bgzf(gz, f.read())
+    write_s = time.perf_counter() - t0
+    npz = os.path.join(tmp, "bgzf_k21.npz")
+    times: dict[str, float] = {}     # the CLI's stages; "total" its wall
+    t0 = time.perf_counter()
+    with stagetime.collect(times):
+        _, launches = _run_counted(lambda: _cli(
+            ["count", gz, "--device", "cuda", "--device-merge", "on", "-k",
+             str(K), "--canonical", "--threads", "8", "--batch-reads",
+             str(KmerConfig().batch_reads), "--out-npz", npz],
+            out=os.path.join(tmp, "bgzf_k21.tsv")))
+    cli_wall = time.perf_counter() - t0
+    got = KmerTable.load(npz)
+    batches = -(-N_READS // KmerConfig().batch_reads)
+    if got != want_table:
+        raise AssertionError("BGZF --threads 8 table != phase 4's")
+    if launches["k1"] != batches or launches["k6"] < 1:
+        raise AssertionError(f"BGZF count launches {launches}: want K1 "
+                             f"{batches} and K6")
+    _say("surface_bgzf " + json.dumps({
+        "plain_bytes": os.path.getsize(path),
+        "bgzf_bytes": os.path.getsize(gz), "write_s": write_s,
+        "write_threads": threads, "cli_wall_s": cli_wall,
+        "phase4_wall_s": host_wall,
+        "distinct": got.num_distinct, "equal_to_phase4": True,
+        "launches": _launched(launches)}, sort_keys=True))
+    _say("surface_bgzf_stages_s " + json.dumps(_with_rest(times),
+                                               sort_keys=True))
+    for p in (gz, npz, os.path.join(tmp, "bgzf_k21.tsv")):
+        os.remove(p)
+
+
+def surface_profile(dev, small: str, tmp: str) -> None:
+    """Phase 25b: count --profile-dir on the 50,000-read file."""
+    base = ["count", small, "--device", "cuda", "-k", str(K), "--canonical"]
+    plain = _cli(base)
+    prof = os.path.join(tmp, "profile")
+    traced, launches = _run_counted(
+        lambda: _cli(base + ["--profile-dir", prof]))
+    if traced != plain:
+        raise AssertionError("count --profile-dir TSV != the untraced run's")
+    files = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        raise AssertionError(f"--profile-dir wrote {files}")
+    with open(os.path.join(prof, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    by_name: dict[str, float] = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    k1 = [n for n in by_name if "fused_cut_kernel" in n]
+    if not k1:
+        raise AssertionError("the trace holds no device event of K1's "
+                             f"fused_cut_kernel: {sorted(by_name)[:10]}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    _say("surface_profile " + json.dumps({
+        "trace_bytes": os.path.getsize(os.path.join(prof, files[0])),
+        "device_kernels": len(by_name), "k1_names": k1,
+        "k1_device_us": sum(by_name[n] for n in k1),
+        "top3_device_us": top, "tsv_equal": True,
+        "launches": _launched(launches)}, sort_keys=True))
+    shutil.rmtree(prof)
+
+
+def surface_tools(dev, small: str, tmp: str, k: int) -> None:
+    """Phases 25c and 25d at one k: the 50,000-read file whole and as two
+    halves through count --out-npz, then tools, dump and query."""
+    from kmer_tpu_torch.pipeline.table import KmerTable
+    from kmer_tpu_torch.utils import stagetime
+    with open(small) as f:
+        lines = f.read().splitlines(keepends=True)
+    half = len(lines) // 4 * 2
+    halves = [os.path.join(tmp, f"half{i}.fasta") for i in (1, 2)]
+    for p, part in zip(halves, (lines[:half], lines[half:])):
+        with open(p, "w") as f:
+            f.writelines(part)
+    npz = {name: os.path.join(tmp, f"{name}_k{k}.npz")
+           for name in ("whole", "h1", "h2")}
+    count = ["count", "--device", "cuda", "-k", str(k), "--canonical"]
+    count_stages: dict[str, float] = {}     # "total": the three CLI walls
+    with stagetime.collect(count_stages):
+        whole_tsv, launches = _run_counted(
+            lambda: _cli(count + [small, "--out-npz", npz["whole"]]))
+        a_tsv = _cli(count + [halves[0], "--out-npz", npz["h1"]])
+        # no oracle reads half 2's TSV
+        _cli(count + [halves[1], "--out-npz", npz["h2"]], out=os.devnull)
+    whole, a, b = (KmerTable.load(npz[n]) for n in ("whole", "h1", "h2"))
+
+    tools_stages: dict[str, float] = {}     # "total": the five CLI walls
+    with stagetime.collect(tools_stages):
+        # the union's TSV equal to the whole's is the table equal to it
+        if _cli(["tools", "union", npz["h1"], npz["h2"]]) != whole_tsv:
+            raise AssertionError(f"k={k}: tools union of the halves != the "
+                                 "whole table")
+        outs = {op: _cli(["tools", op, npz["h1"], npz["h2"]])
+                for op in ("intersect", "subtract", "kmers-subtract")}
+        cmp = json.loads(_cli(["tools", "compare", npz["h1"], npz["h2"]]))
+    # the oracle on half 1's rows, in its key order: kept rows, counts
+    va, vb = _pair_ids(a), _pair_ids(b)
+    common, ia, ib = np.intersect1d(va, vb, assume_unique=True,
+                                    return_indices=True)
+    in_b = np.isin(va, vb)
+    inter = np.zeros(len(va), np.int64)
+    inter[ia] = np.minimum(a.counts[ia], b.counts[ib])
+    diff = a.counts.copy()
+    diff[ia] -= b.counts[ib]
+    km_a, _ = _tsv_columns(a_tsv, k)
+    for op, keep, counts in (("intersect", in_b, inter),
+                             ("subtract", diff > 0, diff),
+                             ("kmers-subtract", ~in_b, a.counts)):
+        idx = np.flatnonzero(keep)
+        want = "".join(f"{km_a[i]}\t{c}\n"
+                       for i, c in zip(idx.tolist(), counts[idx].tolist()))
+        if outs[op] != want:
+            raise AssertionError(f"k={k}: tools {op} != numpy oracle "
+                                 f"({outs[op].count(chr(10))} vs "
+                                 f"{len(idx)} rows)")
+    shared, na, nb = len(common), len(va), len(vb)
+    want_cmp = {"k": k, "distinct_a": na, "distinct_b": nb,
+                "distinct_shared": shared,
+                "jaccard": shared / (na + nb - shared),
+                "containment_a_in_b": shared / na,
+                "containment_b_in_a": shared / nb}
+    if cmp != want_cmp:
+        raise AssertionError(f"k={k}: tools compare {cmp} != {want_cmp}")
+
+    # dump: the spectrum equals histo's, the top 10 a numpy top 10
+    histo = _cli(["histo", small, "--device", "cuda", "-k", str(k),
+                  "--canonical"])
+    if _cli(["dump", npz["whole"], "--histo"]) != histo:
+        raise AssertionError(f"k={k}: dump --histo != histo")
+    km_w, cw = _tsv_columns(whole_tsv, k)
+    top = np.argsort(-cw, kind="stable")[:10]
+    want_top = "".join(f"{km_w[i]}\t{cw[i]}\n" for i in top)
+    if _cli(["dump", npz["whole"], "--top", "10"]) != want_top:
+        raise AssertionError(f"k={k}: dump --top 10 != numpy top 10")
+
+    # query: k-mers of the table, their reverse complements, random ones;
+    # the TSV's k-mers are sorted (ACGT's ASCII order is the key order)
+    def lookup(q: str) -> int:
+        i = bisect.bisect_left(km_w, q)
+        return int(cw[i]) if i < len(km_w) and km_w[i] == q else 0
+
+    rng = np.random.default_rng(k)
+    kmers = [km_w[i] for i in rng.choice(len(km_w), 1000, replace=False)]
+    rand = ["".join("ACGT"[c] for c in row)
+            for row in rng.integers(0, 4, (1000, k))]
+    absent = 0
+    for qs, extra, want in (
+            (kmers, [], [lookup(q) for q in kmers]),
+            ([_revcomp(q) for q in kmers] + rand, ["--canonical"],
+             [lookup(q) for q in kmers]
+             + [lookup(min(q, _revcomp(q))) for q in rand])):
+        got = _cli(["query", npz["whole"], *extra], stdin="\n".join(qs))
+        if got != "".join(f"{q}\t{c}\n" for q, c in zip(qs, want)):
+            raise AssertionError(f"k={k}: query {extra} != the table")
+        absent = want[len(kmers):].count(0)
+    _say(f"surface_tools k={k} " + json.dumps({
+        "whole": whole.num_distinct, "half1": na, "half2": nb,
+        "shared": shared, "subtract": int((diff > 0).sum()),
+        "kmers_subtract": int(keep.sum()), "jaccard": cmp["jaccard"],
+        "query_absent_random": absent, "equal_to_oracle": True,
+        "launches_whole": _launched(launches)}, sort_keys=True))
+    _say(f"surface_tools_stages_s k={k} " + json.dumps({
+        "counts": _with_rest(count_stages),
+        "tools": _with_rest(tools_stages)}, sort_keys=True))
+    for p in list(npz.values()) + halves:
+        os.remove(p)
+
+
+def surface_fastq(dev, tmp: str, seed: int) -> None:
+    """Phase 25e: generated FASTQ through count, with and without
+    --min-qual (at k = 9 there: a window of 21 bases drawn from Phred 2
+    to 40 has all of them at 20 or more once in ~400,000)."""
+    from kmer_tpu_torch.io.generator import random_reads_fastq
+    n, L, kq = 20_000, 150, 9
+    fq = os.path.join(tmp, "gen.fastq")
+    with open(fq, "w") as f:
+        f.write(_cli(["generate", "--format", "fastq", "--seed", str(seed),
+                      "--n-records", str(n), "--read-len", str(L)]))
+    tsv, launches = _run_counted(lambda: _cli(
+        ["count", fq, "--device", "cuda", "-k", str(K)]))
+    total = int(_tsv_columns(tsv, K)[1].sum())
+    if total != n * (L - K + 1):
+        raise AssertionError(f"generated FASTQ total {total} != "
+                             f"{n * (L - K + 1)}")
+    text = random_reads_fastq(n, L, seed=seed, qual_range=(2, 41))
+    with open(fq, "w") as f:
+        f.write(text)
+    qual = np.frombuffer("".join(text.split("\n")[3::4]).encode(),
+                         np.uint8).reshape(n, L).astype(np.int64) - 33
+    win = np.lib.stride_tricks.sliding_window_view(qual >= 20, kq, axis=1)
+    want = int(win.all(axis=2).sum())
+    tsv, qlaunches = _run_counted(lambda: _cli(
+        ["count", fq, "--device", "cuda", "-k", str(kq), "--min-qual",
+         "20"]))
+    got = int(_tsv_columns(tsv, kq)[1].sum())
+    if got != want or want == 0:
+        raise AssertionError(f"--min-qual 20 total {got} != oracle {want}")
+    _say("surface_fastq " + json.dumps({
+        "reads": n, "read_len": L, "total": total, "min_qual_k": kq,
+        "min_qual20_total": got,
+        "equal_to_oracle": True, "launches": _launched(launches),
+        "launches_min_qual": _launched(qlaunches)}, sort_keys=True))
+    os.remove(fq)
+
+
+def phase_surface(dev, path: str, small: str, want_table, host_wall: float,
+                  tmp: str, seed: int) -> None:
+    """Phase 25: the saved-table surface through the CLI, in process."""
+    t0 = time.perf_counter()
+    surface_bgzf(dev, path, want_table, host_wall, tmp)
+    surface_profile(dev, small, tmp)
+    for k in (K, WIDE_K):
+        surface_tools(dev, small, tmp, k)
+    surface_fastq(dev, tmp, seed)
+    _say(f"surface_wall_s={time.perf_counter() - t0}")
+
+
 def build_all() -> None:
     """Build every kernel and native library at once, one compiler
     process each."""
@@ -2407,6 +2741,8 @@ def main(argv=None) -> int:
                 "--format=csv,noheader"]).splitlines()[0])
     global OPS_PER_S
     OPS_PER_S = issue_ops_per_s(dev)
+    _say(f"hbm_bytes_per_s={hbm_bytes_per_s(dev)} (utils/profiling."
+         "detect_hbm_bw: the bounds' byte rate)")
     _say(f"ops_per_s={OPS_PER_S} (SMs x 128 lanes x max SM clock: the "
          "issue ceiling, the bounds' operation rate)")
     _say("nvcc: " + _tool([build.nvcc(), "--version"]).splitlines()[-1])
@@ -2483,6 +2819,9 @@ def main(argv=None) -> int:
         phase_stream_gapped(dev, gpath, gtable, tmp)
         del k55_table, sp_table, gtable
         phase_stream_devmerge(dev, tmp, args.seed)
+
+        # phase 25: the saved-table surface through the CLI
+        phase_surface(dev, path, small, table, wall, tmp, args.seed)
     # K5's launches: the dense k=8 run's, then each `card` run's (k = 21,
     # 55 and the mask)
     k5["card_launches"] = card_launches

@@ -6,8 +6,13 @@ contiguous k-mers, k <= 63, and of spaced seeds (seed_mask), canonical or
 not, and of the reference's gapped L+R chunks, with its byte-exact
 parity dump; on-device compaction (compact=True); the device-resident
 table (device_merge="on"); the unfused count step (KMER_TPU_STEP); dense
-mode (k <= 12); the HyperLogLog distinct-k-mer estimate; and streaming
-two-pass counting with checkpoint/resume (StreamingCounter).  Native
+mode (k <= 12); the HyperLogLog distinct-k-mer estimate; streaming
+two-pass counting with checkpoint/resume (StreamingCounter); and the
+saved-table surface: KmerTable's set operations and lookups (merge,
+union, intersect, subtract, compare, filter_min_count, get, get_many,
+top) behind the CLI's dump, query and tools, the FASTA/FASTQ generators
+behind generate, BGZF writing (io/bgzf), and torch.profiler traces and
+the roofline model (utils/profiling, count --profile-dir).  Native
 ingest to 2-bit codes, hand-written Hopper kernels (ops/kernels:
 fused_extract, extract, grouped_count, fused_gapped, compact, histogram,
 sort), and host aggregation into a KmerTable whose keys, TSV and .npz
@@ -25,6 +30,9 @@ match kmer_tpu's bit for bit.
                                                     KmerConfig(k=21))
     big = stream_count_fasta("reads.fasta", KmerConfig(k=21),
                              spill_dir="spill")     # rerun to resume
+    table.save("a.npz")
+    shared = KmerTable.load("a.npz").intersect(KmerTable.load("b.npz"))
+    table.get_many(["ACGTACGTACGTACGTACGTA"], canonical=True)
 """
 
 from .config import KmerConfig

@@ -5,15 +5,22 @@
   histo     k-mer multiplicity spectrum (streaming with --two-pass)
   parity    FASTA -> the reference's exact sorted chunk dump on stdout
   card      estimate DISTINCT k-mers (HyperLogLog) without a table
+  dump      saved table (.npz) -> TSV / spectrum / top-N
+  query     look up counts in a saved table (.npz)
+  tools     set operations on saved tables (union/intersect/subtract/
+            compare)
+  generate  seeded random FASTA/FASTQ corpora
 
 The flags are kmer_tpu's for the options this port carries, plus
 --device.  The output is byte for byte the one `python -m kmer_tpu`
-writes for the same input and flags.
+writes for the same input and flags, and .npz tables move freely between
+the two.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 
@@ -85,16 +92,86 @@ def main(argv: list[str] | None = None) -> int:
     pe.add_argument("--buckets-log2", type=int, default=10,
                     help="HLL precision b: 2^b buckets, relative error "
                          "~1.04/sqrt(2^b) (default 10: ~3.3%%)")
+    _add_host_flags(pe)
     _add_device(pe)
 
+    pd = sub.add_parser("dump", help="dump a saved table (.npz) as "
+                                     "sorted kmer\\tcount TSV "
+                                     "(kmc_dump-style)")
+    pd.add_argument("table", help="KmerTable .npz path")
+    pd.add_argument("--min-count", type=int, default=1)
+    pd.add_argument("--max-count", type=int, default=None)
+    pd.add_argument("--histo", action="store_true",
+                    help="print the multiplicity spectrum instead")
+    pd.add_argument("--top", type=int, default=None,
+                    help="print only the N most frequent k-mers")
+
+    pq = sub.add_parser("query", help="look up k-mer counts in a saved "
+                                      "table (.npz from count --out-npz)")
+    pq.add_argument("table", help="KmerTable .npz path")
+    pq.add_argument("kmers", nargs="*",
+                    help="k-mers to look up (default: read one per line "
+                         "from stdin)")
+    pq.add_argument("--canonical", action="store_true",
+                    help="map queries to min(kmer, revcomp) first (use "
+                         "when the table was built with --canonical)")
+
+    pt = sub.add_parser("tools", help="set operations on saved tables "
+                                      "(KMC-tools style)")
+    pt.add_argument("op", choices=["union", "intersect", "subtract",
+                                   "kmers-subtract", "compare"],
+                    help="union: sum counts; intersect: keys in both, "
+                         "min counts; subtract: count difference, <=0 "
+                         "dropped; kmers-subtract: drop keys present "
+                         "in B; compare: Jaccard/containment summary "
+                         "(JSON, no table output)")
+    pt.add_argument("table_a", help="KmerTable .npz (operand A)")
+    pt.add_argument("table_b", nargs="+",
+                    help="KmerTable .npz operand(s); union folds ALL "
+                         "of them (merge per-shard outputs in one go), "
+                         "the other ops take exactly one B")
+    pt.add_argument("-o", "--out-npz", default=None,
+                    help="save the result as .npz (default: TSV on "
+                         "stdout only)")
+    pt.add_argument("--min-count", type=int, default=1)
+    pt.add_argument("--max-count", type=int, default=None)
+
+    pg = sub.add_parser("generate", help="seeded random FASTA/FASTQ to stdout")
+    pg.add_argument("--style", choices=["reference", "reads", "genome"],
+                    default="reference",
+                    help="genome: reads sampled from one random genome "
+                         "(realistic k-mer multiplicity structure)")
+    pg.add_argument("--format", choices=["fasta", "fastq"], default="fasta",
+                    help="fastq implies --style reads")
+    pg.add_argument("--seed", type=int, default=0)
+    pg.add_argument("--n-records", type=int, default=200)
+    pg.add_argument("--read-len", type=int, default=150)
+    pg.add_argument("--genome-len", type=int, default=100_000)
+    pg.add_argument("--error-rate", type=float, default=0.0)
+
     args = ap.parse_args(argv)
+    if getattr(args, "threads", None):
+        os.environ["KMER_TPU_PARSE_THREADS"] = str(args.threads)
     run = {"count": _count, "histo": _histo, "parity": _parity,
-           "card": _card}[args.cmd]
+           "card": _card, "dump": _dump, "query": _query, "tools": _tools,
+           "generate": _generate}[args.cmd]
     try:
         return run(args)
-    except (ValueError, OSError, NotImplementedError) as e:
+    except (ValueError, OSError, EOFError, NotImplementedError) as e:
+        # EOFError: a truncated gzip input
         print(f"kmer_tpu_torch: error: {e}", file=sys.stderr)
         return 1
+
+
+def _add_host_flags(p) -> None:
+    """The host-side flags of count, histo and card."""
+    p.add_argument("--threads", type=int, default=None,
+                   help="host parser threads (MT whole-file parse + "
+                        "BGZF block inflate; default: up to 8 cores)")
+    p.add_argument("--profile-dir", default=None,
+                   help="capture a torch.profiler trace of the counting "
+                        "into this directory (count only; a Chrome trace "
+                        "JSON)")
 
 
 def _add_device(p) -> None:
@@ -146,6 +223,7 @@ def _add_kmer_flags(p) -> None:
                         "device and only distinct rows are read back "
                         "(auto: on when the probed device->host link is "
                         "slow)")
+    _add_host_flags(p)
 
 
 def _add_two_pass(p, two_pass_help: str) -> None:
@@ -182,9 +260,11 @@ def _build_cfg(args):
                       seed_mask=args.seed_mask, **kw)
 
 
-def _streaming_counter(args, cfg):
-    """The --two-pass run of one input file, both passes done."""
+def _streaming_counter(args, cfg, profile_dir: str | None = None):
+    """The --two-pass run of one input file, both passes done (traced
+    into profile_dir when given)."""
     from .pipeline.streaming import StreamingCounter
+    from .utils.profiling import trace
     if args.compact:
         raise ValueError("--compact applies to the single-host in-memory "
                          "pipeline (not --two-pass)")
@@ -194,28 +274,40 @@ def _streaming_counter(args, cfg):
         raise ValueError("--two-pass takes exactly one input file")
     sc = StreamingCounter(args.fasta[0], cfg.replace(mode="sort"),
                           args.spill_dir, device=args.device)
-    sc.run()
+    with trace(profile_dir):
+        sc.run()
     return sc
 
 
 def _count(args) -> int:
     from .pipeline.count import count_files
+    from .utils.profiling import trace
     cfg = _build_cfg(args)
     filtered = args.min_count > 1 or args.max_count is not None
     if args.two_pass:
-        sc = _streaming_counter(args, cfg)
+        sc = _streaming_counter(args, cfg, args.profile_dir)
         if not (filtered or args.out_npz):
             sc.write_tsv(sys.stdout)
             return 0
         table = sc.final_table()
     else:
-        table = count_files(args.fasta, cfg, device=args.device)
+        with trace(args.profile_dir):
+            table = count_files(args.fasta, cfg, device=args.device)
     if filtered:
         table = table.filter_count_range(args.min_count, args.max_count)
-    if args.out_npz:
-        table.save(args.out_npz)
-    table.write_tsv(sys.stdout)
+    _write_table(table, args.out_npz)
     return 0
+
+
+def _write_table(table, out_npz: str | None) -> None:
+    """The table as .npz (when asked) and as TSV on stdout, each timed as
+    a stage (utils/stagetime: save_npz, write_tsv)."""
+    from .utils import stagetime
+    if out_npz:
+        with stagetime.stage("save_npz"):
+            table.save(out_npz)
+    with stagetime.stage("write_tsv"):
+        table.write_tsv(sys.stdout)
 
 
 def _histo(args) -> int:
@@ -266,6 +358,89 @@ def _parity(args) -> int:
     else:
         sys.stdout.buffer.write(parity_dump(args.fasta, cfg,
                                             device=args.device))
+    return 0
+
+
+def _dump(args) -> int:
+    from .pipeline.table import KmerTable
+    t = KmerTable.load(args.table)
+    if args.min_count > 1 or args.max_count is not None:
+        t = t.filter_count_range(args.min_count, args.max_count)
+    if args.histo:
+        for mult, ndis in sorted(t.multiplicity_histogram().items()):
+            sys.stdout.write(f"{mult}\t{ndis}\n")
+    elif args.top is not None:
+        for km, cnt in t.top(args.top):
+            sys.stdout.write(f"{km}\t{cnt}\n")
+    else:
+        t.write_tsv(sys.stdout)
+    return 0
+
+
+def _query(args) -> int:
+    from .pipeline.table import KmerTable
+    table = KmerTable.load(args.table)
+    kmers = args.kmers or [ln.strip() for ln in sys.stdin if ln.strip()]
+    counts = table.get_many(kmers, canonical=args.canonical)
+    for km, c in zip(kmers, counts.tolist()):
+        sys.stdout.write(f"{km}\t{c}\n")
+    return 0
+
+
+def _tools(args) -> int:
+    import numpy as np
+    from .pipeline.table import KmerTable
+    from .utils import stagetime
+    with stagetime.stage("load_npz"):
+        a = KmerTable.load(args.table_a)
+        bs = [KmerTable.load(p) for p in args.table_b]
+    for p, t in zip(args.table_b, bs):
+        if a.k != t.k:
+            raise ValueError(f"table k mismatch: {a.k} vs {t.k} ({p})")
+    if args.op != "union" and len(bs) != 1:
+        raise ValueError(f"{args.op} takes exactly one B table")
+    b = bs[0]
+    if args.op == "compare":
+        import json
+        with stagetime.stage("table_op"):
+            res = a.compare(b)
+        sys.stdout.write(json.dumps(res) + "\n")
+        return 0
+    with stagetime.stage("table_op"):
+        if args.op == "union":
+            allt = [a] + bs
+            t = KmerTable.from_pairs(
+                a.k, np.concatenate([x.keys for x in allt], axis=0),
+                np.concatenate([x.counts for x in allt]))
+        elif args.op == "intersect":
+            t = a.intersect(b)
+        elif args.op == "subtract":
+            t = a.subtract(b, counters=True)
+        else:
+            t = a.subtract(b, counters=False)
+    if args.min_count > 1 or args.max_count is not None:
+        t = t.filter_count_range(args.min_count, args.max_count)
+    _write_table(t, args.out_npz)
+    return 0
+
+
+def _generate(args) -> int:
+    from .io.generator import (genome_reads_fasta, random_reads_fasta,
+                               random_reads_fastq, reference_style_fasta)
+    if args.format == "fastq":
+        text = random_reads_fastq(args.n_records, args.read_len,
+                                  seed=args.seed)
+    elif args.style == "genome":
+        text = genome_reads_fasta(args.n_records, args.read_len,
+                                  genome_len=args.genome_len, seed=args.seed,
+                                  error_rate=args.error_rate)
+    elif args.style == "reference":
+        text = reference_style_fasta(n_records=args.n_records,
+                                     seed=args.seed)
+    else:
+        text = random_reads_fasta(args.n_records, args.read_len,
+                                  seed=args.seed)
+    sys.stdout.write(text)
     return 0
 
 

@@ -95,6 +95,11 @@ def _raise(path: str, rc: int, err) -> None:
 
 
 def _parse_threads() -> int:
+    """Threads of the whole-file parse: KMER_TPU_PARSE_THREADS (the CLI's
+    --threads) when set, else up to 8 cores."""
+    env = os.environ.get("KMER_TPU_PARSE_THREADS")
+    if env:
+        return max(1, int(env))
     return min(os.cpu_count() or 1, 8)
 
 

@@ -1,5 +1,6 @@
-"""Seeded FASTA corpus generators (numpy only): the same text as
-kmer_tpu.io.generator for the same arguments and seed."""
+"""Seeded FASTA and FASTQ corpus generators (numpy only): the same text
+as kmer_tpu.io.generator for the same arguments and seed, since each
+draws from the generator in the same order."""
 
 from __future__ import annotations
 
@@ -30,11 +31,42 @@ def reference_style_fasta(n_records: int = 200, lines_per_record: int = 5,
     return buf.getvalue()
 
 
-def random_reads_fasta(n_reads: int, read_len: int, seed: int = 0) -> str:
-    """n_reads uniform-random reads of read_len bp."""
+def random_reads_fasta(n_reads: int, read_len: int, seed: int = 0,
+                       wrap: int | None = None) -> str:
+    """n_reads uniform-random reads of read_len bp, each on one line or
+    on lines of `wrap` bases."""
+    return _to_fasta(random_codes(n_reads, read_len, seed), "read", wrap)
+
+
+def random_codes(n_reads: int, read_len: int, seed: int = 0) -> np.ndarray:
+    """The (n_reads, read_len) uint8 2-bit codes of random_reads_fasta's
+    reads, with no text."""
     rng = np.random.default_rng(seed)
-    codes = rng.integers(0, 4, (n_reads, read_len), dtype=np.uint8)
-    return _to_fasta(codes, "read")
+    return rng.integers(0, 4, (n_reads, read_len), dtype=np.uint8)
+
+
+def random_reads_fastq(n_reads: int, read_len: int, seed: int = 0,
+                       qual_range: tuple[int, int] | None = None) -> str:
+    """n_reads uniform-random FASTQ reads.  Quality is constant 'I'
+    (Phred 40) unless qual_range=(lo, hi) draws per-base Phred scores
+    uniformly from [lo, hi) (for --min-qual)."""
+    rng = np.random.default_rng(seed)
+    ascii_rows = _BASES[rng.integers(0, 4, (n_reads, read_len),
+                                     dtype=np.uint8)]
+    if qual_range is None:
+        quals = np.full((n_reads, read_len), ord("I"), np.uint8)
+    else:
+        lo, hi = qual_range
+        quals = (rng.integers(lo, hi, (n_reads, read_len)) + 33).astype(
+            np.uint8)
+    buf = _io.StringIO()
+    for i in range(n_reads):
+        buf.write(f"@read_{i:06d}\n")
+        buf.write(ascii_rows[i].tobytes().decode())
+        buf.write("\n+\n")
+        buf.write(quals[i].tobytes().decode())
+        buf.write("\n")
+    return buf.getvalue()
 
 
 def genome_reads_fasta(n_reads: int, read_len: int, genome_len: int = 100_000,
@@ -61,11 +93,18 @@ def genome_reads_fasta(n_reads: int, read_len: int, genome_len: int = 100_000,
     return _to_fasta(codes, "gread")
 
 
-def _to_fasta(codes: np.ndarray, prefix: str) -> str:
+def _to_fasta(codes: np.ndarray, prefix: str, wrap: int | None = None
+              ) -> str:
     ascii_rows = _BASES[codes]
     buf = _io.StringIO()
     for i in range(len(codes)):
         buf.write(f">{prefix}_{i:06d}\n")
-        buf.write(ascii_rows[i].tobytes().decode())
-        buf.write("\n")
+        row = ascii_rows[i].tobytes().decode()
+        if wrap:
+            for j in range(0, len(row), wrap):
+                buf.write(row[j:j + wrap])
+                buf.write("\n")
+        else:
+            buf.write(row)
+            buf.write("\n")
     return buf.getvalue()

@@ -71,7 +71,8 @@ def check_key_width(n_bases: int) -> None:
     """Key widths the table layer takes: 1..63 bases, W <= 4 words."""
     if not 1 <= n_bases <= MAX_KEY_BASES:
         raise ValueError(f"{n_bases}-base keys: the table layer takes 1 "
-                         f"to {MAX_KEY_BASES} bases (W <= 4 words)")
+                         f"to {MAX_KEY_BASES} bases (W <= 4 words); keys "
+                         "over 63 bases are ROADMAP Queue 1 item 18")
 
 
 def check_k(k: int) -> None:
@@ -127,20 +128,25 @@ def encode_seq(seq: str | bytes, allow_ambiguous: bool = False) -> np.ndarray:
     return codes
 
 
+def decode_codes(codes: np.ndarray) -> str:
+    """uint8 codes -> ACGT string."""
+    return _CODE_TO_ASCII[np.asarray(codes, dtype=np.uint8)].tobytes().decode()
+
+
 def key_words_from_codes(codes: np.ndarray, n_bases: int | None = None
                          ) -> np.ndarray:
-    """One code vector -> its (W,) uint32 key words, most significant
-    first (host-side helper)."""
-    codes = np.asarray(codes, dtype=np.uint64)
-    k = len(codes) if n_bases is None else n_bases
-    if len(codes) != k:
-        raise ValueError(f"{len(codes)} codes for a {k}-base key")
+    """Code vectors (..., n) -> their (..., W) uint32 key words, most
+    significant first (host-side helper)."""
+    codes = np.asarray(codes, dtype=np.uint32)
+    k = codes.shape[-1] if n_bases is None else n_bases
+    if codes.shape[-1] != k:
+        raise ValueError(f"{codes.shape[-1]} codes for a {k}-base key")
     W = words_per_key(k)
-    words = np.zeros(W, dtype=np.uint32)
+    words = np.zeros(codes.shape[:-1] + (W,), dtype=np.uint32)
     for j in range(k):
         bitpos = 2 * (k - 1 - j)
-        words[W - 1 - bitpos // 32] |= np.uint32(
-            (int(codes[j]) & 3) << (bitpos % 32))
+        words[..., W - 1 - bitpos // 32] |= (
+            (codes[..., j] & np.uint32(3)) << np.uint32(bitpos % 32))
     return words
 
 
@@ -191,6 +197,13 @@ def decode_key_words_to_lines(words: np.ndarray, n_bases: int) -> bytes:
     out[:, :n_bases] = _CODE_TO_ASCII[codes]
     out[:, n_bases] = ord("\n")
     return out.tobytes()
+
+
+def revcomp_str(seq: str) -> str:
+    """Reverse complement of an ACGT string (KeyError on any other
+    character, as kmer_tpu's)."""
+    comp = {"A": "T", "C": "G", "G": "C", "T": "A"}
+    return "".join(comp[b] for b in reversed(seq))
 
 
 def unpack_codes_i32(packed: torch.Tensor, L: int) -> torch.Tensor:

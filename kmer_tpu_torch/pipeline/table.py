@@ -18,7 +18,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..ops.encode import (check_key_width, decode_key_words, pairs_to_value,
+from ..ops.encode import (check_key_width, decode_key_words, encode_seq,
+                          key_words_from_codes, pairs_to_value, revcomp_str,
                           value_to_words, words_per_key)
 
 
@@ -50,6 +51,13 @@ def unfuse_words(fused: np.ndarray, k: int) -> np.ndarray:
     if W <= 2:
         return value_to_words(np.zeros_like(fused), fused, W)
     return value_to_words(fused[:, 0], fused[:, 1], W)
+
+
+def _void_view(keys: np.ndarray) -> np.ndarray:
+    """(M, W) uint32 -> (M,) void{4W} big-endian: byte order is word
+    order."""
+    be = np.ascontiguousarray(keys.astype(">u4"))
+    return be.view(np.dtype((np.void, be.shape[1] * 4))).reshape(-1)
 
 
 def reduce_fused(fused: np.ndarray, counts: np.ndarray
@@ -182,6 +190,84 @@ class KmerTable:
             return KmerTable.empty(k)
         return KmerTable.from_fused(k, fuse_words(keys, k), counts)
 
+    def _check_k(self, other: "KmerTable") -> None:
+        if self.k != other.k:
+            raise ValueError(f"table k mismatch: {self.k} vs {other.k}")
+
+    def merge(self, other: "KmerTable") -> "KmerTable":
+        """Every key of either table, counts added where a key is in
+        both."""
+        self._check_k(other)
+        if other.num_distinct == 0:
+            return self
+        if self.num_distinct == 0:
+            return other
+        return KmerTable.from_pairs(
+            self.k, np.concatenate([self.keys, other.keys], axis=0),
+            np.concatenate([self.counts, other.counts]))
+
+    def union(self, other: "KmerTable") -> "KmerTable":
+        """Sum-union (KMC tools' union): merge()."""
+        return self.merge(other)
+
+    def _probe(self, other: "KmerTable") -> tuple[np.ndarray, np.ndarray]:
+        """For each of self's keys: (hit, idx) into other's sorted keys,
+        by one searchsorted over the big-endian void views (other must
+        hold at least one key)."""
+        va, vb = _void_view(self.keys), _void_view(other.keys)
+        idx = np.minimum(np.searchsorted(vb, va), len(vb) - 1)
+        return vb[idx] == va, idx
+
+    def intersect(self, other: "KmerTable") -> "KmerTable":
+        """Keys in both tables, count = min(self, other)."""
+        self._check_k(other)
+        if self.num_distinct == 0 or other.num_distinct == 0:
+            return KmerTable.empty(self.k)
+        hit, idx = self._probe(other)
+        keep = np.flatnonzero(hit)
+        return KmerTable(self.k, self.keys[keep],
+                         np.minimum(self.counts[keep],
+                                    other.counts[idx[keep]]))
+
+    def subtract(self, other: "KmerTable",
+                 counters: bool = True) -> "KmerTable":
+        """counters=True (KMC's counters_subtract): self's count minus
+        other's, keys at <= 0 dropped.  counters=False (kmers_subtract):
+        every key present in `other` dropped, whatever its count."""
+        self._check_k(other)
+        if self.num_distinct == 0 or other.num_distinct == 0:
+            return self
+        hit, idx = self._probe(other)
+        if not counters:
+            keep = ~hit
+            return KmerTable(self.k, self.keys[keep], self.counts[keep])
+        new = self.counts - np.where(hit, other.counts[idx], 0)
+        keep = new > 0
+        return KmerTable(self.k, self.keys[keep], new[keep])
+
+    def compare(self, other: "KmerTable") -> dict:
+        """Exact Jaccard index and containment each way over DISTINCT
+        keys, with the shared and per-side tallies."""
+        self._check_k(other)
+        na, nb = self.num_distinct, other.num_distinct
+        if na == 0 or nb == 0:
+            inter = 0
+        else:
+            hit, _ = self._probe(other)
+            inter = int(hit.sum())
+        union = na + nb - inter
+        return {
+            "k": self.k,
+            "distinct_a": na, "distinct_b": nb, "distinct_shared": inter,
+            "jaccard": inter / union if union else 1.0,
+            "containment_a_in_b": inter / na if na else 1.0,
+            "containment_b_in_a": inter / nb if nb else 1.0,
+        }
+
+    def filter_min_count(self, min_count: int) -> "KmerTable":
+        """Drop k-mers with count < min_count."""
+        return self.filter_count_range(min_count)
+
     def filter_count_range(self, min_count: int = 1,
                            max_count: int | None = None) -> "KmerTable":
         """Keep k-mers with min_count <= count (<= max_count)."""
@@ -189,6 +275,38 @@ class KmerTable:
         if max_count is not None:
             keep &= self.counts <= max_count
         return KmerTable(self.k, self.keys[keep], self.counts[keep])
+
+    def get(self, kmer: str, canonical: bool = False) -> int:
+        """Count of one k-mer, 0 if absent; canonical=True (a table built
+        with canonical counting) looks up min(kmer, revcomp) instead."""
+        return int(self.get_many([kmer], canonical=canonical)[0])
+
+    def get_many(self, kmers: list[str],
+                 canonical: bool = False) -> np.ndarray:
+        """Counts of a list of k-mers, 0 where absent, by one searchsorted
+        (get()'s canonical=)."""
+        if not kmers:
+            return np.zeros((0,), np.int64)
+        for km in kmers:
+            if len(km) != self.k:
+                raise ValueError(
+                    f"expected a {self.k}-mer, got {len(km)} bases")
+        if canonical:
+            kmers = [min(km, revcomp_str(km)) for km in kmers]
+        q = key_words_from_codes(np.stack([encode_seq(km) for km in kmers]),
+                                 self.k)
+        if self.num_distinct == 0:
+            return np.zeros((len(kmers),), np.int64)
+        hit, idx = KmerTable(self.k, q, np.zeros(len(q)))._probe(self)
+        return np.where(hit, self.counts[idx], 0).astype(np.int64)
+
+    def top(self, n: int) -> list[tuple[str, int]]:
+        """The n most frequent k-mers, count-descending then key order."""
+        if self.num_distinct == 0:
+            return []
+        order = np.argsort(-self.counts, kind="stable")[:n]
+        return list(zip(decode_key_words(self.keys[order], self.k),
+                        self.counts[order].tolist()))
 
     def multiplicity_histogram(self) -> dict[int, int]:
         """{count: number of distinct keys with that count}, the k-mer
@@ -206,8 +324,12 @@ class KmerTable:
 
     @staticmethod
     def load(path: str) -> "KmerTable":
+        """A table saved by either package (keys over 63 bases, which
+        kmer_tpu can save, raise ValueError)."""
         with np.load(path) as z:
-            return KmerTable(int(z["k"]), z["keys"], z["counts"])
+            k = int(z["k"])
+            check_key_width(k)
+            return KmerTable(k, z["keys"], z["counts"])
 
     def __eq__(self, other) -> bool:
         """Equal keys and counts.  Any table with the same k/keys/counts

@@ -556,11 +556,12 @@ def main():
         say(f"ab {label} " + " ".join(
             f"{nm}={got[nm][0]:.5f},{got[nm][1]:.5f}" for nm in names))
 
+    hbm = cs.hbm_bytes_per_s(dev)
     for cname, (on_dev, kw) in timed.items():
         _, T_pad, _ = outputs(on_dev, kw)
         lanes = T_pad * on_dev[0].shape[0]
         turns(f"K3 {cname} lanes={lanes} out_MB={lanes * 17 / 1e6:.2f} "
-              f"bound_ms={lanes * 17 / cs.HBM_BYTES_PER_S * 1e3:.5f}",
+              f"bound_ms={lanes * 17 / hbm * 1e3:.5f}",
               {nm: k3_launcher(lib, on_dev, kw) for nm, lib in k3.items()})
     for cname in ("parity_packed_seg2", "u8_amb_512_seg2"):
         on_dev, kw = timed[cname]

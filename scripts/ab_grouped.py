@@ -522,6 +522,7 @@ def main():
     order = ["other"] + [k for k in sorts if k.startswith("other_no_")] + [
         "this"] + [k for k in sorts if k.startswith(("v_", "t_"))]
     route = ("route_w1", "k55_w2")
+    hbm = cs.hbm_bytes_per_s(dev)
     for case, (planes, m, strided) in timed.items():
         if not re.search(args.shapes, case):
             continue
@@ -530,7 +531,7 @@ def main():
                for nm in order
                if nm in ("other", "this") or nm.startswith("v_")
                or case.endswith(route)}
-        bound_ms = n * (16 * W + 4) / cs.HBM_BYTES_PER_S * 1e3
+        bound_ms = n * (16 * W + 4) / hbm * 1e3
         turns(f"{case} n={n} W={W} m={m} bound_ms={bound_ms:.5f}", fns)
         two = shaped(planes, m, strided)[0]
         yard = cs.time_ms(lambda: torch.sort(two, dim=0 if strided else 1))
@@ -548,7 +549,7 @@ def main():
             f"({n * 20 / got[1] / 1e9:.3f} TB/s) "
             f"stores_12B_a_row_ms={got[0]:.5f} "
             f"({n * 12 / got[0] / 1e9:.3f} TB/s) "
-            f"bound_20B_ms={n * 20 / cs.HBM_BYTES_PER_S * 1e3:.5f}")
+            f"bound_20B_ms={n * 20 / hbm * 1e3:.5f}")
     if args.walls:
         walls(dev, sorts["other"], sorts["this"])
     say("done")

@@ -2,8 +2,9 @@
 torch versions (K1 and K7 also for keys of 32 to 63 bases and for spaced
 seeds, K4 and K5 also on (hi, lo) pairs), and the whole count (sort, the
 unfused steps, compact, device merge and dense, at k <= 31, at 32 <= k <=
-63 and with seed masks), the parity dump and the HyperLogLog estimate on
-the card against the CPU.  Every test
+63 and with seed masks), the parity dump, the HyperLogLog estimate,
+BGZF ingest and `count --profile-dir` on the card against the CPU.  Every
+test
 here needs a GPU and skips without one.  This file imports neither jax nor kmer_tpu,
 so it also runs on a machine that has only the port:
 
@@ -1257,3 +1258,47 @@ def test_two_pass_cli_cuda_equals_cpu(cuda, tmp_path, capsys, cmd):
                             "--device", dev]) == 0
         outs.append(capsys.readouterr().out)
     assert outs[0] == outs[1] and outs[0].count("\n") > 3
+
+
+@pytest.mark.parametrize("two_pass", [False, True])
+def test_cli_profile_dir_traces_k1(cuda, tmp_path, capsys, two_pass):
+    """count --profile-dir on the card: a Chrome trace that names K1's
+    kernel among its device events, and the TSV of the untraced run."""
+    import glob
+    import json
+    from kmer_tpu_torch.cli import main
+    path = tmp_path / "g.fasta"
+    path.write_text(genome_reads_fasta(3000, 150, genome_len=20000, seed=3))
+    args = ["count", str(path), "-k", "21", "--canonical", "--device",
+            "cuda"]
+    if two_pass:
+        args += ["--two-pass", "--partitions", "4", "--spill-dir"]
+    assert main(args + ([str(tmp_path / "s1")] if two_pass else [])) == 0
+    want = capsys.readouterr().out
+    prof = tmp_path / "prof"
+    assert main(args + ([str(tmp_path / "s2")] if two_pass else [])
+                + ["--profile-dir", str(prof)]) == 0
+    assert capsys.readouterr().out == want and want.count("\n") > 1000
+    [trace] = glob.glob(str(prof / "*.pt.trace.json"))
+    with open(trace) as f:
+        kernels = {e["name"] for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"}
+    assert any("fused_cut_kernel" in name for name in kernels), kernels
+
+
+def test_bgzf_counts_as_plain_text_cuda(cuda, tmp_path, monkeypatch):
+    """A BGZF file the port writes counts on the card, its blocks inflated
+    by several threads, to the table of its plain text."""
+    from kmer_tpu_torch.io.bgzf import write_bgzf
+    text = genome_reads_fasta(4000, 150, genome_len=30000, seed=8,
+                              error_rate=0.01)
+    plain, gz = tmp_path / "g.fasta", tmp_path / "g.fasta.gz"
+    plain.write_text(text)
+    write_bgzf(str(gz), text, block=8192)
+    monkeypatch.setenv("KMER_TPU_PARSE_THREADS", "4")
+    kw = dict(k=21, canonical=True, device_merge="on")
+    fe.launches = 0
+    got = kmer_tpu_torch.count_fasta(str(gz), **kw)
+    assert fe.launches > 0
+    want = kmer_tpu_torch.count_fasta(str(plain), **kw)
+    assert got == want and got.total == 4000 * 130
