@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--only 26]
 
 Run from the root of a checkout.  Phases, each printing one line (or a
 few) to stdout:
@@ -184,10 +184,41 @@ few) to stdout:
      io/generator.random_reads_fastq(..., qual_range=(2, 41)) counted
      at k = 9 with --min-qual 20 to the windows with no base below
      Phred 20, from a numpy oracle on the same text;
- 26. one JSON line with every kernel of the paths (with its bound and,
+ 26. multi-GPU counting (kmer_tpu_torch.parallel) on one card: a mesh of
+     positions on cuda:0, its collectives tensor moves (or, in (e), a
+     one-rank NCCL group's calls); every part prints its seconds, its
+     launches, the bytes the exchange and the halo moved and the rows
+     each owner took with the largest over the mean (routing skew).
+     Four positions share one card, so no wall here is a scaling figure:
+     (a) count_fasta_multihost over a (4, 1) mesh, k = 21 canonical, on
+     phase 4's corpus: phase 4's table, K1 and K6's owner partition four
+     times a global batch, the wall beside phases 4 and 14;
+     (b) the 50,000-read file over a (2, 2) mesh (a seq halo) and a (1,
+     4) mesh whose 48-base shards are narrower than the 64-base halo of
+     k = 55 and the span-55 mask (several hops), at k = 21, 55 and the
+     mask: each table equals the single-device one;
+     (c) the gapped pairs step (K3) over a (2, 1) mesh on phase 6's
+     corpus (phase 6's table); KMER_TPU_MULTIHOST_STEP=legacy (K7, K6,
+     the exchange, K6) on the 50,000-read file, exact, its owners'
+     streams globally sorted; dense k = 8 (K1 + K5) over a (4, 1) mesh
+     by all-reduce and by reduce-scatter, each phase 11's table;
+     (d) 200,000 poly-A reads with substitutions only in their last
+     k - 4 bases, every key owned by owner 0, over a (4, 1) mesh: the
+     numpy oracle's table, owner 0 taking every routed row;
+     (e) a one-rank NCCL group: count_fasta_multihost and `count
+     --multihost` (cli.main) on the 50,000-read file through the group's
+     all_to_all_single, each equal to the single-device table;
+     (f) StreamingCounter over a (2, 1) mesh paused after 3 batches and
+     resumed over a (4, 1) mesh: the in-memory table;
+ 27. one JSON line with every kernel of the paths (with its bound and,
      where one PyTorch call computes the same function, that call's
      time; K1 and K7 with a row for each of their two-word and spaced
      variants), then the result line {"ok": true, "device": {...}} last.
+
+--only 26 runs phase 1, then phase 26 and the phases whose tables and
+walls it reads (4, 14, 6, 11), in about a quarter of the whole run, and
+prints "chip_smoke --only 26: done" in place of phase 27: a quick check
+of the multi-GPU path, not the whole script's result.
 
 Every device-merge run prints the card's peak memory
 (torch.cuda.max_memory_allocated) beside the state's own bytes:
@@ -1033,10 +1064,10 @@ class _merge_probe:
 
 
 def phase_devmerge(dev, path: str, cfg, want_table, host_wall: float,
-                   label: str) -> int:
+                   label: str) -> tuple[int, float]:
     """The run of `cfg` with device_merge="on" against its host-merge
     table and wall from the same run of this script; returns K6's
-    launches, one a merge."""
+    launches, one a merge, and the run's wall."""
     from kmer_tpu_torch import count_fasta
     from kmer_tpu_torch.ops.kernels import sort as sk
     from kmer_tpu_torch.utils import stagetime
@@ -1056,7 +1087,7 @@ def phase_devmerge(dev, path: str, cfg, want_table, host_wall: float,
          f"distinct={table.num_distinct} wall_s={wall} "
          f"host_merge_wall_s={host_wall} {probe.line()}")
     _say(f"{label}_devmerge_stages_s " + json.dumps(times, sort_keys=True))
-    return launches
+    return launches, wall
 
 
 def profile_devmerge(dev, path: str, cfg) -> None:
@@ -1445,9 +1476,9 @@ def phase_compact_end_to_end(dev, path: str, want_table) -> int:
     return launches
 
 
-def phase_dense(dev, path: str) -> int:
+def phase_dense(dev, path: str):
     """Dense k=8 (K5) and k=12 (host hybrid) against sort mode at the
-    same k; returns K5's launches in the k=8 run."""
+    same k; returns K5's launches in the k=8 run and its table."""
     from kmer_tpu_torch import KmerConfig, count_fasta
     from kmer_tpu_torch.ops.kernels import histogram as hk
     from kmer_tpu_torch.utils import stagetime
@@ -1470,7 +1501,7 @@ def phase_dense(dev, path: str) -> int:
                                  f"{table.total} != {want_total}, or K5 "
                                  f"launches {hk.launches}")
         if k == 8:
-            launches = hk.launches
+            launches, dense8 = hk.launches, table
         _say(f"dense k={k} path={'K5' if k == 8 else 'hybrid'} "
              f"distinct={table.num_distinct} total={table.total} "
              f"equal_to_sort=True k5_launches={hk.launches} "
@@ -1491,7 +1522,7 @@ def phase_dense(dev, path: str) -> int:
          f"equal_to_hybrid=True wall_s={stimes['total']} "
          f"kmers_per_s={want_total / stimes['total']}")
     _say("dense_k12_scatter_stages_s " + json.dumps(stimes, sort_keys=True))
-    return launches
+    return launches, dense8
 
 
 def phase_card(dev, path: str, small: str, exact_distinct: int) -> int:
@@ -2701,6 +2732,360 @@ def phase_surface(dev, path: str, small: str, want_table, host_wall: float,
     _say(f"surface_wall_s={time.perf_counter() - t0}")
 
 
+# phase 26: multi-GPU counting on one card -- a mesh of positions, each
+# on cuda:0, whose collectives are tensor moves (or a one-rank NCCL
+# group's calls); four positions share one card, so no time here is a
+# scaling figure
+SKEW_READS = 200_000
+
+
+def table_digest(table) -> str:
+    """md5 of a table's k, keys and counts (a table compared after its
+    arrays are freed)."""
+    h = hashlib.md5(str(table.k).encode())
+    h.update(np.ascontiguousarray(table.keys).tobytes())
+    h.update(np.ascontiguousarray(table.counts).tobytes())
+    return h.hexdigest()
+
+
+def _mesh(dev, n_data: int, n_seq: int):
+    from kmer_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(n_data, n_seq, devices=[dev] * (n_data * n_seq))
+
+
+def _mesh_line(mesh) -> str:
+    """What a mesh's collectives moved: routed bytes (all, and those that
+    changed position), halo bytes, rows each owner took and the largest
+    owner's rows over the mean (the routing skew)."""
+    st = mesh.stats
+    rows = st["owner_rows"]
+    skew = float(rows.max() / rows.mean()) if rows.sum() else 0.0
+    return (f"exchange_bytes={st['exchange_bytes']} "
+            f"exchange_cross_bytes={st['exchange_cross_bytes']} "
+            f"halo_bytes={st['halo_bytes']} owner_rows={rows.tolist()} "
+            f"owner_skew_max_over_mean={skew}")
+
+
+def mesh_full_width(dev, path: str, want_table, host_wall: float,
+                    devmerge_wall: float) -> None:
+    """Phase 26a: count_fasta_multihost over a (4, 1) mesh on the card,
+    k = 21 canonical, on phase 4's corpus: phase 4's table, K1 four times
+    a global batch (a quarter batch each), K6's owner partition as
+    often."""
+    from kmer_tpu_torch import KmerConfig
+    from kmer_tpu_torch.parallel.multihost import count_fasta_multihost
+    from kmer_tpu_torch.utils import stagetime
+    cfg = KmerConfig(k=K, canonical=True)
+    mesh = _mesh(dev, 4, 1)
+    times: dict[str, float] = {}
+
+    def run():
+        with stagetime.collect(times):
+            return count_fasta_multihost(path, cfg, mesh=mesh)
+    table, launches = _run_counted(run)
+    batches = -(-N_READS // cfg.batch_reads)
+    if not (table == want_table and launches["k1"] == 4 * batches
+            and launches["k6"] == 4 * batches):
+        raise AssertionError(f"(4, 1) mesh table != phase 4's, or launches "
+                             f"{_launched(launches)} != 4 x {batches}")
+    wall = times["total"]
+    _say(f"mesh_full_width mesh=(4, 1) device={dev} equal_to_phase4=True "
+         f"batches={batches} k1_launches={launches['k1']} "
+         f"partition_sort_k6_launches={launches['k6']} wall_s={wall} "
+         f"phase4_wall_s={host_wall} phase14_wall_s={devmerge_wall} "
+         f"wall_over_phase4={wall / host_wall} "
+         f"kmers_per_s={N_READS * (READ_LEN - K + 1) / wall} "
+         + _mesh_line(mesh))
+    _say("mesh_full_width_stages_s " + json.dumps(times, sort_keys=True))
+
+
+def mesh_seq_axis(dev, small: str) -> dict:
+    """Phase 26b: the 50,000-read file over a (2, 2) mesh (a seq halo) and
+    a (1, 4) mesh whose shards are narrower than the k = 55 and span-55
+    halos (several ring hops), at k = 21, k = 55 and the span-55 mask:
+    each table equals the single-device one.  Returns the k = 21 table."""
+    from kmer_tpu_torch import KmerConfig, count_fasta
+    from kmer_tpu_torch.parallel.multihost import count_fasta_multihost
+    from kmer_tpu_torch.pipeline.count import batch_width
+    from kmer_tpu_torch.io.fasta import scan_record_offsets
+    width = batch_width(scan_record_offsets(small), KmerConfig())
+    wants = {}
+    for label, cfg in (("k21", KmerConfig(k=K, canonical=True)),
+                       (f"k{WIDE_K}", KmerConfig(k=WIDE_K, canonical=True)),
+                       ("mask55", KmerConfig(seed_mask=WIDE_MASK,
+                                             canonical=True))):
+        want = wants[label] = count_fasta(small, cfg, device=dev)
+        span = cfg.window_span
+        for shape in ((2, 2), (1, 4)):
+            mesh = _mesh(dev, *shape)
+            t0 = time.perf_counter()
+            got, launches = _run_counted(
+                lambda: count_fasta_multihost(small, cfg, mesh=mesh))
+            secs = time.perf_counter() - t0
+            if not (got == want and launches["k1"] > 0 and launches["k6"]):
+                raise AssertionError(f"{label} over a {shape} mesh != the "
+                                     f"single-device table, or launches "
+                                     f"{_launched(launches)}")
+            unit = 16 * shape[1]
+            shard = -(-width // unit) * unit // shape[1]
+            halo = -(-(span - 1) // 16) * 16
+            _say(f"mesh_seq {label} mesh={shape} row_bases={width} "
+                 f"shard_bases={shard} halo_bases={halo} "
+                 f"hops={-(-halo // shard)} equal_to_single_device=True "
+                 f"launches={json.dumps(_launched(launches))} s={secs} "
+                 + _mesh_line(mesh))
+    return wants["k21"]
+
+
+def mesh_other_steps(dev, path: str, small: str, gpath: str, want_small,
+                     gapped_digest: str, dense8) -> None:
+    """Phase 26c: the gapped pairs step (K3) over a (2, 1) mesh on phase
+    6's corpus; the sorted-stream step (KMER_TPU_MULTIHOST_STEP=legacy:
+    K7, K6, exchange, K6) on the 50,000-read file, its owners' streams
+    concatenated globally sorted; dense k = 8 (K1 + K5) over a (4, 1) mesh
+    by all-reduce and by reduce-scatter, each equal to phase 11's table."""
+    from kmer_tpu_torch import KmerConfig, KmerTable
+    from kmer_tpu_torch.io.fasta import iter_batches, parse_seqs
+    from kmer_tpu_torch.parallel import distributed
+    from kmer_tpu_torch.parallel.mesh import split_batch
+    from kmer_tpu_torch.parallel.multihost import count_fasta_multihost
+    cfg = KmerConfig(gapped=True, batch_reads=GAP_B, max_read_len=512)
+    mesh = _mesh(dev, 2, 1)
+    t0 = time.perf_counter()
+    got, launches = _run_counted(
+        lambda: count_fasta_multihost(gpath, cfg, mesh=mesh))
+    secs = time.perf_counter() - t0
+    if table_digest(got) != gapped_digest or not launches["k3"]:
+        raise AssertionError("gapped (2, 1) mesh table != phase 6's, or K3 "
+                             f"launches {_launched(launches)}")
+    _say(f"mesh_gapped mesh=(2, 1) equal_to_phase6=True "
+         f"launches={json.dumps(_launched(launches))} s={secs} "
+         + _mesh_line(mesh))
+
+    k21 = KmerConfig(k=K, canonical=True)
+    mesh = _mesh(dev, 4, 1)
+    os.environ["KMER_TPU_MULTIHOST_STEP"] = "legacy"
+    try:
+        t0 = time.perf_counter()
+        got, launches = _run_counted(
+            lambda: count_fasta_multihost(small, k21, mesh=mesh))
+        secs = time.perf_counter() - t0
+    finally:
+        del os.environ["KMER_TPU_MULTIHOST_STEP"]
+    codes, offsets = parse_seqs(small)
+    b = next(iter_batches(codes, offsets, batch_reads=k21.batch_reads,
+                          max_len=160, overlap=K - 1, packed=True))
+    one = _mesh(dev, 4, 1)
+    out = distributed.make_distributed_count(one, k=K, canonical=True)(
+        split_batch(one, torch.from_numpy(b.codes.view(np.int32)),
+                    b.lengths, b.start_limits, b.packed_width))
+    stream = torch.cat([w[0][c > 0] for w, c in out])
+    ordered = bool((stream[1:] > stream[:-1]).all())
+    if not (got == want_small and launches["k7"] and launches["k6"]
+            and not launches["k1"] and ordered):
+        raise AssertionError(f"legacy mesh table != the single-device one, "
+                             f"stream sorted {ordered}, or launches "
+                             f"{_launched(launches)}")
+    _say(f"mesh_legacy mesh=(4, 1) equal_to_single_device=True "
+         f"first_batch_stream_rows={stream.numel()} globally_sorted=True "
+         f"launches={json.dumps(_launched(launches))} s={secs} "
+         + _mesh_line(mesh))
+
+    dcfg = KmerConfig(k=8, canonical=True, mode="dense")
+    t0 = time.perf_counter()
+    got, launches = _run_counted(
+        lambda: count_fasta_multihost(path, dcfg, mesh=_mesh(dev, 4, 1)))
+    secs = time.perf_counter() - t0
+
+    def scatter():
+        dense = distributed.make_distributed_dense(mesh, k=8, canonical=True,
+                                                   scatter=True)
+        codes, offsets = parse_seqs(path)
+        for b in iter_batches(codes, offsets, batch_reads=dcfg.batch_reads,
+                              max_len=160, overlap=7, packed=True):
+            dense.add(split_batch(mesh, torch.from_numpy(
+                b.codes.view(np.int32)), b.lengths, b.start_limits,
+                b.packed_width))
+        shards = dense.reduce()
+        return KmerTable.from_dense(torch.cat(shards).cpu().numpy(), 8), [
+            s.numel() for s in shards]
+    t1 = time.perf_counter()
+    (sgot, sizes), slaunch = _run_counted(scatter)
+    ssecs = time.perf_counter() - t1
+    if not (got == dense8 and sgot == dense8 and launches["k5"]
+            and slaunch["k5"]):
+        raise AssertionError(f"dense k=8 over a (4, 1) mesh != phase 11's "
+                             f"(all-reduce {got == dense8}, reduce-scatter "
+                             f"{sgot == dense8})")
+    _say(f"mesh_dense k=8 mesh=(4, 1) all_reduce_equal_to_phase11=True "
+         f"launches={json.dumps(_launched(launches))} s={secs} "
+         f"reduce_scatter_equal_to_phase11=True shard_rows={sizes} "
+         f"launches={json.dumps(_launched(slaunch))} s={ssecs}")
+
+
+def mesh_skewed(dev, tmp: str, seed: int) -> None:
+    """Phase 26d: poly-A reads with substitutions only in their last
+    k - 4 bases, so every window (and its canonical form) starts with
+    AAAA and routes to owner 0, over a (4, 1) mesh: the table equals the
+    numpy oracle, and owner 0 takes every routed row."""
+    from kmer_tpu_torch import KmerConfig
+    from kmer_tpu_torch.parallel.multihost import count_fasta_multihost
+    rng = np.random.default_rng(seed)
+    codes = np.zeros((SKEW_READS, READ_LEN), np.uint8)
+    tail = codes[:, READ_LEN - K + 4:]
+    hit = rng.random(tail.shape) < 0.3
+    tail[hit] = rng.integers(1, 4, int(hit.sum()))
+    text = np.frombuffer(b"ACGT", np.uint8)[codes]
+    lines = np.full((SKEW_READS, READ_LEN + 1), ord("\n"), np.uint8)
+    lines[:, :READ_LEN] = text
+    skew = os.path.join(tmp, "skew.fasta")
+    with open(skew, "wb") as f:
+        for i in range(0, SKEW_READS, 50_000):
+            block = lines[i:i + 50_000]
+            f.write(b"".join(b">r\n" + row.tobytes() for row in block))
+    mesh = _mesh(dev, 4, 1)
+    t0 = time.perf_counter()
+    got, launches = _run_counted(lambda: count_fasta_multihost(
+        skew, KmerConfig(k=K, canonical=True), mesh=mesh))
+    secs = time.perf_counter() - t0
+    want_v, want_c = oracle_table(skew, K)
+    rows = mesh.stats["owner_rows"]
+    if not (np.array_equal(table_values(got), want_v)
+            and np.array_equal(got.counts, want_c)
+            and rows[0] > 0 and rows[1:].sum() == 0):
+        raise AssertionError(f"skewed corpus: table != numpy oracle, or "
+                             f"owner rows {rows.tolist()}")
+    _say(f"mesh_skewed reads={SKEW_READS} mesh=(4, 1) distinct="
+         f"{got.num_distinct} total={got.total} equal_to_oracle=True "
+         f"launches={json.dumps(_launched(launches))} s={secs} "
+         + _mesh_line(mesh))
+
+
+def mesh_nccl(dev, small: str, want_small) -> None:
+    """Phase 26e: a one-rank NCCL group; count_fasta_multihost on the
+    50,000-read file and `count --multihost` through cli.main both go
+    through the group's collectives (all_to_all_single counted) and equal
+    the single-device table."""
+    import socket
+    import torch.distributed as dist
+    from kmer_tpu_torch.parallel.multihost import count_fasta_multihost
+    from kmer_tpu_torch import KmerConfig
+    calls = {"all_to_all_single": 0, "all_gather": 0}
+    real = {n: getattr(dist, n) for n in calls}
+
+    def spy(name):
+        def call(*a, **kw):
+            calls[name] += 1
+            return real[name](*a, **kw)
+        return call
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    init_s = time.perf_counter() - t0
+    backend = dist.get_backend()
+    try:
+        for n in calls:
+            setattr(dist, n, spy(n))
+        t0 = time.perf_counter()
+        got = count_fasta_multihost(small, KmerConfig(k=K, canonical=True),
+                                    device=dev)
+        secs = time.perf_counter() - t0
+        api_calls = dict(calls)
+        t0 = time.perf_counter()
+        tsv = _cli(["count", small, "-k", str(K), "--canonical",
+                    "--multihost", "--device", "cuda"])
+        cli_s = time.perf_counter() - t0
+    finally:
+        for n, fn in real.items():
+            setattr(dist, n, fn)
+        dist.destroy_process_group()
+    want_tsv = io.StringIO()
+    want_small.write_tsv(want_tsv)
+    if not (got == want_small and tsv == want_tsv.getvalue()
+            and api_calls["all_to_all_single"] > 0
+            and calls["all_to_all_single"] > api_calls["all_to_all_single"]):
+        raise AssertionError(f"one-rank NCCL group: table equal "
+                             f"{got == want_small}, TSV equal "
+                             f"{tsv == want_tsv.getvalue()}, calls {calls}")
+    _say(f"mesh_nccl world_size=1 backend={backend} init_s={init_s} "
+         f"equal_to_single_device=True s={secs} cli_tsv_equal=True "
+         f"cli_s={cli_s} api_calls={json.dumps(api_calls)} "
+         f"all_calls={json.dumps(calls)}")
+
+
+def mesh_streaming(dev, small: str, want_small, tmp: str) -> None:
+    """Phase 26f: StreamingCounter over a (2, 1) mesh paused after 3
+    batches, resumed by a fresh counter over a (4, 1) mesh: the
+    in-memory table."""
+    from kmer_tpu_torch import KmerConfig, StreamingCounter
+    cfg = KmerConfig(k=K, canonical=True)
+    spill = os.path.join(tmp, "mesh_spill")
+    t0 = time.perf_counter()
+
+    def run():
+        sc = StreamingCounter(small, cfg, spill, device=dev,
+                              mesh=_mesh(dev, 2, 1))
+        sc.run_pass1(max_batches=3)
+        paused = sc.state["pass1_next_batch"]
+        sc = StreamingCounter(small, cfg, spill, device=dev,
+                              mesh=_mesh(dev, 4, 1))
+        sc.run()
+        return sc.final_table(), paused, sc.state["pass1_next_batch"]
+    (got, paused, batches), launches = _run_counted(run)
+    secs = time.perf_counter() - t0
+    shutil.rmtree(spill)
+    if not (got == want_small and paused == 3 and launches["k1"]):
+        raise AssertionError(f"streaming over a mesh: table equal "
+                             f"{got == want_small}, paused at {paused}")
+    _say(f"mesh_streaming paused_at={paused} batches={batches} "
+         f"meshes=(2, 1)->(4, 1) equal_to_in_memory=True "
+         f"launches={json.dumps(_launched(launches))} s={secs}")
+
+
+def phase_mesh(dev, path: str, small: str, gpath: str, tmp: str, seed: int,
+               want_table, host_wall: float, devmerge_wall: float,
+               gapped_digest: str, dense8) -> None:
+    """Phase 26: multi-GPU counting on one card, each part timed."""
+    t0 = time.perf_counter()
+    parts = {}
+    for name, fn in (
+            ("a", lambda: mesh_full_width(dev, path, want_table, host_wall,
+                                          devmerge_wall)),
+            ("b", lambda: parts.setdefault("small", mesh_seq_axis(
+                dev, small))),
+            ("c", lambda: mesh_other_steps(dev, path, small, gpath,
+                                           parts["small"], gapped_digest,
+                                           dense8)),
+            ("d", lambda: mesh_skewed(dev, tmp, seed)),
+            ("e", lambda: mesh_nccl(dev, small, parts["small"])),
+            ("f", lambda: mesh_streaming(dev, small, parts["small"], tmp))):
+        t1 = time.perf_counter()
+        fn()
+        parts[f"{name}_s"] = time.perf_counter() - t1
+    _say("mesh_parts_s " + json.dumps({k: v for k, v in parts.items()
+                                       if k.endswith("_s")}, sort_keys=True)
+         + f" mesh_wall_s={time.perf_counter() - t0}")
+
+
+def mesh_only(dev, seed: int) -> int:
+    """--only 26: phase 26 and the phases whose tables and walls it reads,
+    as main runs them."""
+    from kmer_tpu_torch import KmerConfig
+    with tempfile.TemporaryDirectory() as tmp:
+        _, table, path, small, wall = phase_end_to_end(dev, seed, tmp)
+        _, devmerge_wall = phase_devmerge(
+            dev, path, KmerConfig(k=K, canonical=True), table, wall, "k21")
+        _, gtable, gpath, _ = phase_gapped_end_to_end(dev, seed, tmp)
+        _, dense8 = phase_dense(dev, path)
+        phase_mesh(dev, path, small, gpath, tmp, seed, table, wall,
+                   devmerge_wall, table_digest(gtable), dense8)
+    _say("chip_smoke --only 26: done")
+    return 0
+
+
 def build_all() -> None:
     """Build every kernel and native library at once, one compiler
     process each."""
@@ -2723,6 +3108,8 @@ def build_all() -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", type=int, choices=[26],
+                    help="phase 26 alone, with the phases it reads")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -2753,6 +3140,8 @@ def main(argv=None) -> int:
     from kmer_tpu_torch.utils.linkspeed import d2h_gbps
     _say(f"d2h_link_probe_GBps={d2h_gbps(dev)} (device_merge=\"auto\" is on "
          "below 0.5, mode=\"auto\" dense below 5)")
+    if args.only == 26:
+        return mesh_only(dev, args.seed)
 
     # phases 2-3, 7-8, 13, 16-17 and 20: each kernel against its plain
     # version
@@ -2773,7 +3162,7 @@ def main(argv=None) -> int:
             dev, args.seed, tmp)
         k7["launches"], k2a["launches"] = phase_unfused_end_to_end(
             dev, path, small, table, wall)
-        k6["launches"] = phase_devmerge(
+        k6["launches"], devmerge_wall = phase_devmerge(
             dev, path, KmerConfig(k=K, canonical=True), table, wall, "k21")
         profile_devmerge(dev, path, KmerConfig(k=K, canonical=True))
         phase_parity(dev)
@@ -2783,7 +3172,7 @@ def main(argv=None) -> int:
                                               max_read_len=512),
                        gtable, gwall, "gapped")
         k4["launches"] = phase_compact_end_to_end(dev, path, table)
-        k5["launches"] = phase_dense(dev, path)
+        k5["launches"], dense8 = phase_dense(dev, path)
         card_launches = [phase_card(dev, path, small, table.num_distinct)]
         k2b["launches"], k2c["launches"] = phase_unfused_small(dev, small)
 
@@ -2817,11 +3206,16 @@ def main(argv=None) -> int:
         # phase 24: streaming two-pass with a pause and a resume
         phase_stream_batches(dev, path, table, wall, tmp)
         phase_stream_gapped(dev, gpath, gtable, tmp)
+        gapped_digest = table_digest(gtable)
         del k55_table, sp_table, gtable
         phase_stream_devmerge(dev, tmp, args.seed)
 
         # phase 25: the saved-table surface through the CLI
         phase_surface(dev, path, small, table, wall, tmp, args.seed)
+
+        # phase 26: multi-GPU counting, a mesh of positions on one card
+        phase_mesh(dev, path, small, gpath, tmp, args.seed, table, wall,
+                   devmerge_wall, gapped_digest, dense8)
     # K5's launches: the dense k=8 run's, then each `card` run's (k = 21,
     # 55 and the mask)
     k5["card_launches"] = card_launches

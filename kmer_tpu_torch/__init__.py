@@ -12,7 +12,11 @@ saved-table surface: KmerTable's set operations and lookups (merge,
 union, intersect, subtract, compare, filter_min_count, get, get_many,
 top) behind the CLI's dump, query and tools, the FASTA/FASTQ generators
 behind generate, BGZF writing (io/bgzf), and torch.profiler traces and
-the roofline model (utils/profiling, count --profile-dir).  Native
+the roofline model (utils/profiling, count --profile-dir); and multi-GPU
+counting (parallel/): a mesh of (data, seq) positions in one process or
+over a torch.distributed group, routed (key, count) pairs at exact
+sizes, dense tables by all-reduce, count_fasta_multihost, count
+--multihost and StreamingCounter(mesh=).  Native
 ingest to 2-bit codes, hand-written Hopper kernels (ops/kernels:
 fused_extract, extract, grouped_count, fused_gapped, compact, histogram,
 sort), and host aggregation into a KmerTable whose keys, TSV and .npz
@@ -33,6 +37,14 @@ match kmer_tpu's bit for bit.
     table.save("a.npz")
     shared = KmerTable.load("a.npz").intersect(KmerTable.load("b.npz"))
     table.get_many(["ACGTACGTACGTACGTACGTA"], canonical=True)
+
+    from kmer_tpu_torch.parallel.mesh import make_mesh
+    from kmer_tpu_torch.parallel.multihost import (count_fasta_multihost,
+                                                   initialize)
+    initialize()                     # under torchrun: join the group
+    table = count_fasta_multihost("reads.fasta", KmerConfig(k=21))
+    four = count_fasta_multihost("reads.fasta", KmerConfig(k=21),
+                                 mesh=make_mesh(4, 1, ["cuda:0"] * 4))
 """
 
 from .config import KmerConfig

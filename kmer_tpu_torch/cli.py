@@ -47,6 +47,16 @@ def main(argv: list[str] | None = None) -> int:
                          "k <= 8 when the probed device->host link is "
                          "slow, else sort")
     _add_two_pass(pc, "streaming two-pass spill mode (checkpointed)")
+    pc.add_argument("--multihost", action="store_true",
+                    help="multi-process counting: run this same command "
+                         "in every process, under torchrun or with "
+                         "--coordinator/--num-processes/--process-id "
+                         "(parallel.multihost); process 0 writes the table")
+    pc.add_argument("--coordinator", default=None,
+                    help="torch.distributed rendezvous address (host:port) "
+                         "for --multihost")
+    pc.add_argument("--num-processes", type=int, default=None)
+    pc.add_argument("--process-id", type=int, default=None)
     _add_device(pc)
 
     pp = sub.add_parser("parity", help="reference-parity sorted chunk dump")
@@ -284,6 +294,8 @@ def _count(args) -> int:
     from .utils.profiling import trace
     cfg = _build_cfg(args)
     filtered = args.min_count > 1 or args.max_count is not None
+    if args.multihost:
+        return _count_multihost(args, cfg, filtered)
     if args.two_pass:
         sc = _streaming_counter(args, cfg, args.profile_dir)
         if not (filtered or args.out_npz):
@@ -296,6 +308,39 @@ def _count(args) -> int:
     if filtered:
         table = table.filter_count_range(args.min_count, args.max_count)
     _write_table(table, args.out_npz)
+    return 0
+
+
+def _count_multihost(args, cfg, filtered: bool) -> int:
+    """count --multihost: every process counts its slice over the process
+    group (NCCL on --device cuda, each process on cuda:LOCAL_RANK or
+    cuda:(process id % device count); gloo on --device cpu); process 0
+    writes the table."""
+    import torch.distributed as dist
+
+    from .parallel.mesh import process_device
+    from .parallel.multihost import count_fasta_multihost, initialize
+    from .utils.profiling import trace
+    if args.compact:
+        raise ValueError("--compact applies to the single-host in-memory "
+                         "pipeline (not --two-pass or --multihost)")
+    if args.two_pass:
+        raise ValueError("--two-pass and --multihost are not combined "
+                         "(yet); the multihost driver is already "
+                         "memory-bounded via chunked ingest + owner-sharded "
+                         "aggregation")
+    if len(args.fasta) != 1:
+        raise ValueError("--multihost takes exactly one input file")
+    initialize(coordinator_address=args.coordinator,
+               num_processes=args.num_processes, process_id=args.process_id,
+               device=args.device)
+    with trace(args.profile_dir):
+        table = count_fasta_multihost(args.fasta[0], cfg,
+                                      device=process_device(args.device))
+    if filtered:
+        table = table.filter_count_range(args.min_count, args.max_count)
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        _write_table(table, args.out_npz)
     return 0
 
 

@@ -210,6 +210,20 @@ def iter_parse_chunks(path: str, *, max_bases: int = 256 << 20,
                                    allow_ambiguous, start_cursor, min_qual)
 
 
+def scan_record_offsets(path: str, *, max_bases: int = 256 << 20,
+                        allow_ambiguous: bool = False) -> np.ndarray:
+    """The (n_records + 1,) int64 record offsets of parse_seqs(path)[1],
+    from one chunked pass that keeps no codes: peak memory is one chunk
+    plus 8 bytes a record.  The multi-process count derives its record
+    partition from it (parallel/multihost)."""
+    lens = [np.diff(offsets) for _, offsets, _ in iter_parse_chunks(
+        path, max_bases=max_bases, allow_ambiguous=allow_ambiguous)]
+    out = np.zeros(sum(len(x) for x in lens) + 1, np.int64)
+    if len(out) > 1:
+        np.cumsum(np.concatenate(lens), out=out[1:])
+    return out
+
+
 def _iter_chunks_native(lib, path, fmt, max_bases, allow_ambiguous,
                         start_cursor, min_qual):
     if fmt == "fastq":

@@ -604,58 +604,82 @@ def sort_step(cfg: KmerConfig, dev: torch.device, compact: bool):
     return step, batch_pairs
 
 
-def _count_sort(codes, offsets, cfg: KmerConfig, dev: torch.device,
-                log: StatsLogger) -> tuple[KmerTable, int]:
-    k = cfg.n_bases
-    step, batch_pairs = sort_step(cfg, dev, cfg.compact)
+class HostMerge:
+    """The sort-mode host aggregation of a stream of unsorted (fused key,
+    int64 count) parts: buffered parts are bulk-merged (one sort over
+    many batches, pipeline/table.reduce_fused) on a background thread
+    once FLUSH_PAIRS pairs accumulate, while the caller goes on with the
+    next batches; re-merging a growing table every batch would be
+    O(total^2).  A merge that barely compacts backs the threshold off x4,
+    which keeps the merge count logarithmic.  add() parts, then result()
+    once; close() (in a finally) stops the thread."""
 
-    # buffered flush schedule: batch pairs are bulk-merged (one sort over
-    # many batches) on a background thread once flush_pairs accumulate;
-    # re-merging a growing table every batch would be O(total^2)
-    parts: list[tuple[np.ndarray, np.ndarray]] = []
-    aggregated: set[int] = set()       # ids of sorted-unique parts
-    buffered = 0
-    flush_pairs = 8 << 20
-    merge_pool = cf.ThreadPoolExecutor(max_workers=1)
-    inflight: list[cf.Future] = []
+    FLUSH_PAIRS = 8 << 20
 
-    def do_merge(snapshot):
+    def __init__(self):
+        self.parts: list[tuple[np.ndarray, np.ndarray]] = []
+        self.aggregated: set[int] = set()     # ids of sorted-unique parts
+        self.buffered = 0
+        self.flush_pairs = self.FLUSH_PAIRS
+        self.pool = cf.ThreadPoolExecutor(max_workers=1)
+        self.inflight: list[cf.Future] = []
+
+    @staticmethod
+    def _merge(snapshot):
         n_in = sum(len(c) for _, c in snapshot)
         merged = reduce_fused(np.concatenate([f for f, _ in snapshot]),
                               np.concatenate([c for _, c in snapshot]))
         return merged, n_in
 
-    def harvest() -> None:
-        nonlocal buffered, flush_pairs
-        if inflight:
+    def _harvest(self) -> None:
+        if self.inflight:
             with stagetime.stage("host_merge"):
-                merged, n_in = inflight.pop().result()
-            aggregated.add(id(merged))
+                merged, n_in = self.inflight.pop().result()
+            self.aggregated.add(id(merged))
             if len(merged[1]) > 0.75 * n_in:
                 # barely compacted: later flushes would re-sort it, so
                 # back off hard (x4 keeps the merge count logarithmic)
-                flush_pairs *= 4
-            parts.insert(0, merged)
-            buffered += len(merged[1])
+                self.flush_pairs *= 4
+            self.parts.insert(0, merged)
+            self.buffered += len(merged[1])
 
-    def flush() -> None:
-        nonlocal parts, buffered
-        harvest()
-        if len(parts) > 1:
-            inflight.append(merge_pool.submit(do_merge, parts))
-            parts = []
-            buffered = 0
+    def add(self, part: tuple[np.ndarray, np.ndarray]) -> None:
+        self.parts.append(part)
+        self.buffered += len(part[1])
+        if self.buffered >= self.flush_pairs:
+            self._harvest()
+            if len(self.parts) > 1:
+                self.inflight.append(self.pool.submit(self._merge,
+                                                      self.parts))
+                self.parts = []
+                self.buffered = 0
+
+    def result(self) -> tuple[np.ndarray, np.ndarray] | None:
+        """The sorted unique (fused keys, counts) of every part, or None
+        when no part came."""
+        self._harvest()
+        if len(self.parts) > 1 or (self.parts and id(self.parts[0])
+                                   not in self.aggregated):
+            with stagetime.stage("host_merge"):
+                self.parts = [self._merge(self.parts)[0]]
+        return self.parts[0] if self.parts else None
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=True)
+
+
+def _count_sort(codes, offsets, cfg: KmerConfig, dev: torch.device,
+                log: StatsLogger) -> tuple[KmerTable, int]:
+    k = cfg.n_bases
+    step, batch_pairs = sort_step(cfg, dev, cfg.compact)
+    merge = HostMerge()
 
     def take(rb) -> None:
-        nonlocal buffered
         with stagetime.stage("readback"):
             rb.wait()
         with stagetime.stage("table_build"):
             part = batch_pairs(rb)
-        parts.append(part)
-        buffered += len(part[1])
-        if buffered >= flush_pairs:
-            flush()
+        merge.add(part)
 
     pending = None
     n_batches = 0
@@ -667,14 +691,11 @@ def _count_sort(codes, offsets, cfg: KmerConfig, dev: torch.device,
             n_batches += 1
         if pending is not None:
             take(pending)
-        harvest()
-        if len(parts) > 1 or (parts and id(parts[0]) not in aggregated):
-            with stagetime.stage("host_merge"):
-                parts = [do_merge(parts)[0]]
+        got = merge.result()
     finally:
-        merge_pool.shutdown(wait=True)
-    if parts:
-        fused, cts = parts[0]
+        merge.close()
+    if got is not None:
+        fused, cts = got
         return KmerTable(k, unfuse_words(fused, k), cts), n_batches
     return KmerTable.empty(k), n_batches
 

@@ -18,6 +18,11 @@ in memory and a crash loses at most one unit of work:
           spill.  Checkpoint unit: a drain-commit, at the end of every
           ingest chunk, at a pause and at the end; a crash in between
           counts again the batches since the last commit.
+          Over a mesh (StreamingCounter(mesh=), parallel/) each batch
+          runs the distributed step instead, and the host reduces and
+          spills its owners' routed pairs as a batch at a time.  The
+          batches are the same, so a run paused on one mesh shape
+          resumes on another, or on none.
   pass 2  per partition, the spilled records reduce to a sorted unique
           table, table_{p}.npz.  Checkpoint unit: a partition.
 
@@ -49,15 +54,20 @@ import json
 import os
 
 import numpy as np
+import torch
 
 from ..config import KmerConfig
 from ..ops.encode import words_per_key
 from ..ops.kernels import fused_gapped
+from ..parallel import distributed
+from ..parallel.distributed import route_dest
+from ..parallel.mesh import pad_columns, split_batch
 from ..utils import stagetime
 from ..utils.stats import StatsLogger, Timer
-from .count import (_devmerge_ok, count_batches, devmerge_route,
+from .count import (_devmerge_ok, _Readback, count_batches, devmerge_route,
                     dispatch_batches, iter_chunks, resolve_device, sort_step)
-from .table import KmerTable, reduce_fused, unfuse_words
+from .table import (KmerTable, fuse_words, reduce_fused, routed_pairs,
+                    unfuse_words)
 
 MANIFEST = "manifest.json"
 SPILL_FORMAT = "kmer_tpu_torch"
@@ -66,49 +76,37 @@ SPILL_FORMAT = "kmer_tpu_torch"
 SPILL_VERSION = 1
 
 
-def route_partition(keys: np.ndarray, n_bases: int, n_parts: int,
-                    route_bits: int = 16) -> np.ndarray:
+def route_partition(keys: np.ndarray, n_bases: int, n_parts: int
+                    ) -> np.ndarray:
     """Order-preserving partition id of each key.
 
     keys: (M, W) uint32, most significant word first, no sentinels.
-    Returns (M,) int64 part = top_bits * n_parts // 2**tb: monotone in
-    the key, so sorted keys give non-decreasing partition ids and the
-    partitions, concatenated in order, stay sorted.
+    Returns (M,) int64 part = top_bits * n_parts // 2**tb
+    (parallel/distributed.route_dest): monotone in the key, so sorted keys
+    give non-decreasing partition ids and the partitions, concatenated in
+    order, stay sorted.
     """
     keys = np.asarray(keys, dtype=np.uint32)
-    W = keys.shape[1]
-    if W != words_per_key(n_bases):
-        raise ValueError(f"{W} key words for {n_bases} bases")
-    tb = min(route_bits, 2 * n_bases)
-    avail0 = 2 * n_bases - 32 * (W - 1)      # value bits held in word 0
-    if avail0 >= tb:
-        h = (keys[:, 0] >> np.uint32(avail0 - tb)) & np.uint32((1 << tb) - 1)
-    else:
-        need = tb - avail0
-        hi = ((keys[:, 0].astype(np.uint64) & np.uint64((1 << avail0) - 1))
-              << np.uint64(need))
-        lo = keys[:, 1].astype(np.uint64) >> np.uint64(32 - need)
-        h = hi | lo
-    return (h.astype(np.int64) * n_parts) >> tb
+    if keys.shape[1] != words_per_key(n_bases):
+        raise ValueError(f"{keys.shape[1]} key words for {n_bases} bases")
+    return route_fused(fuse_words(keys, n_bases), n_bases, n_parts)
 
 
-def route_fused(fused: np.ndarray, n_bases: int, n_parts: int,
-                route_bits: int = 16) -> np.ndarray:
+def route_fused(fused: np.ndarray, n_bases: int, n_parts: int) -> np.ndarray:
     """route_partition of fused keys (fuse_words' layout: (M,) uint64
-    values, or (M, 2) [high, low] with 2 n_bases - 64 bits in high):
-    the same partition ids, without unfusing."""
-    tb = min(route_bits, 2 * n_bases)
+    values, or (M, 2) [high, low] with 2 n_bases - 64 bits in high), by
+    the one routing definition, parallel/distributed.route_dest: the
+    [high, low] halves are its (hi, lo) pair at r_len = 32."""
     if fused.ndim == 1:
-        h = fused >> np.uint64(2 * n_bases - tb)
+        words = (torch.from_numpy(fused.view(np.int64)),)
+        r_len = 0
     else:
-        avail = 2 * n_bases - 64               # value bits held in high
-        if avail >= tb:
-            h = fused[:, 0] >> np.uint64(avail - tb)
-        else:
-            need = tb - avail
-            h = ((fused[:, 0] << np.uint64(need))
-                 | (fused[:, 1] >> np.uint64(64 - need)))
-    return (h.astype(np.int64) * n_parts) >> tb
+        words = (torch.from_numpy(np.ascontiguousarray(fused[:, 0])
+                                  .view(np.int64)),
+                 torch.from_numpy((fused[:, 1] ^ np.uint64(1 << 63))
+                                  .view(np.int64)))
+        r_len = 32
+    return route_dest(words, n_bases, n_parts, r_len).numpy()
 
 
 def _atomic_write_json(path: str, obj) -> None:
@@ -180,6 +178,31 @@ class _BatchPass:
             self.pending = None
 
 
+class _MeshPass(_BatchPass):
+    """Pass 1 over a mesh (parallel/): each batch runs the distributed
+    step (the pairs step, or the sorted stream under
+    KMER_TPU_MULTIHOST_STEP=legacy) and comes back as its owners' routed
+    pairs; the host reduces, spills and checkpoints them as _BatchPass
+    does.  The batches are the ones a run with no mesh makes (their
+    columns padded for the seq axis), so a run resumes on any mesh."""
+
+    def __init__(self, sc: "StreamingCounter"):
+        self.sc, self.pending = sc, None
+        mesh, cfg = sc.mesh, sc.cfg
+        run = distributed.make_step(mesh, cfg)
+        r_len = distributed.step_r_len(cfg)
+
+        def step(codes_d, lengths_d, limits_d, pw):
+            codes_d, pw = pad_columns(codes_d, pw, mesh.n_seq)
+            batch = split_batch(mesh, codes_d, lengths_d, limits_d, pw)
+            return _Readback(tuple(distributed.gather_owners(run(batch))))
+
+        def batch_pairs(rb):
+            *words, counts = rb.host()
+            return routed_pairs(cfg.n_bases, words, counts, r_len)
+        self.step, self.batch_pairs = step, batch_pairs
+
+
 class _DeviceMergePass:
     """Pass 1 through the device-resident table: batches merge on the
     device; a drain appends to the spill files (DeviceMerge's sink, which
@@ -208,22 +231,30 @@ class _DeviceMergePass:
 class StreamingCounter:
     """Two-pass spill counter over one FASTA/FASTQ file, on `device`
     ("cuda" or "cpu"; the tables do not depend on it, so a run may
-    resume on the other).
+    resume on the other), or with `mesh` (parallel/mesh, this process's
+    positions) over the mesh's devices.
 
         sc = StreamingCounter(fasta, cfg, spill_dir)
         sc.run()                     # both passes, resumable
+        StreamingCounter(fasta, cfg, spill_dir, mesh=make_mesh(4, 1,
+                         devices=["cuda:0"] * 4))   # pass 1 over a mesh
         for p, table in sc.partition_tables(): ...
         table = sc.final_table()     # the global sorted table
     """
 
     def __init__(self, fasta: str, cfg: KmerConfig, spill_dir: str,
-                 stats: StatsLogger | None = None, device="cuda"):
+                 stats: StatsLogger | None = None, device="cuda", mesh=None):
         if cfg.partitions < 1:
             raise ValueError(f"partitions must be >= 1, got {cfg.partitions}")
         self.fasta = fasta
         self.cfg = cfg
         self.dir = spill_dir
-        self.dev = resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.dev = resolve_device(device)
+        else:
+            self._check_mesh(mesh)
+            self.dev = mesh.devices[0]
         self.log = stats or StatsLogger(enabled=cfg.stats)
         self.P = cfg.partitions
         self.n_bases = cfg.n_bases
@@ -232,6 +263,23 @@ class StreamingCounter:
         os.makedirs(spill_dir, exist_ok=True)
         self.manifest_path = os.path.join(spill_dir, MANIFEST)
         self.state = self._load_or_init_state()
+
+    def _check_mesh(self, mesh) -> None:
+        """A mesh runs in this process (no other process reads its
+        batches), over the batches a run with no mesh makes, and is not
+        combined with the device merge (as in kmer_tpu)."""
+        cfg = self.cfg
+        if mesh.world > 1:
+            raise ValueError("StreamingCounter(mesh=) runs one process; "
+                             f"got a mesh over {mesh.world} processes")
+        if cfg.batch_reads % mesh.n_data:
+            raise ValueError(f"batch_reads={cfg.batch_reads} not divisible "
+                             f"by mesh data axis {mesh.n_data}")
+        if (os.environ.get("KMER_TPU_DEVMERGE") == "1"
+                or cfg.device_merge == "on"):
+            raise ValueError("the device merge is not combined with a mesh: "
+                             "pass 1 over a mesh spills each batch's routed "
+                             "pairs; set device_merge to auto or off")
 
     def _fingerprint(self) -> dict:
         c = self.cfg
@@ -327,9 +375,13 @@ class StreamingCounter:
         start = self.state["pass1_next_batch"]
         cursor = self.state["pass1_cursor"]
         global_i = self.state["pass1_cursor_batch"]
-        use_dm = (cfg.effective_mode == "sort" and cfg.sort_group_keys > 0
-                  and not cfg.compact and _devmerge_ok(cfg, self.dev))
-        route = _DeviceMergePass(self) if use_dm else _BatchPass(self)
+        if self.mesh is not None:
+            route = _MeshPass(self)
+        elif (cfg.effective_mode == "sort" and cfg.sort_group_keys > 0
+              and not cfg.compact and _devmerge_ok(cfg, self.dev)):
+            route = _DeviceMergePass(self)
+        else:
+            route = _BatchPass(self)
         n_done = 0
         for codes, offsets, next_cur in iter_chunks([self.fasta], cfg,
                                                     start_cursor=cursor,

@@ -18,9 +18,10 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..ops.encode import (check_key_width, decode_key_words, encode_seq,
-                          key_words_from_codes, pairs_to_value, revcomp_str,
-                          value_to_words, words_per_key)
+from ..ops.encode import (SENTINEL_KEY, check_key_width, decode_key_words,
+                          encode_seq, key_words_from_codes, pair_r_len,
+                          pairs_to_value, revcomp_str, value_to_words,
+                          words_per_key)
 
 
 def fuse_words(keys: np.ndarray, k: int) -> np.ndarray:
@@ -172,6 +173,17 @@ class KmerTable:
         (0 on sentinels and later in-segment duplicates)."""
         fused, live_counts = device_run_pairs(keys, counts)
         return KmerTable.from_fused(k, fused, live_counts)
+
+    @staticmethod
+    def from_routed_pairs(n_bases: int, words, counts,
+                          r_len: int | None = None) -> "KmerTable":
+        """Aggregate a distributed step's routed pairs (parallel/
+        distributed): words the int64 key planes, (keys,) or (hi, lo)
+        with lo the last r_len bases (default: the contiguous pair of
+        n_bases, ops/encode.pair_r_len; a gapped step's r_len), counts
+        int64; dead lanes (count 0, or the sentinel key) dropped."""
+        return KmerTable.from_fused(n_bases, *routed_pairs(
+            n_bases, words, counts, r_len))
 
     @staticmethod
     def from_pairs(k: int, keys: np.ndarray, counts: np.ndarray
@@ -363,6 +375,20 @@ def gapped_run_pairs(hi, lo, counts, r_len: int, n_bases: int
                               np.asarray(lo).reshape(-1)[live], r_len)
     fused = vlo if words_per_key(n_bases) <= 2 else np.stack([vhi, vlo], 1)
     return fused, counts[live].astype(np.int64)
+
+
+def routed_pairs(n_bases: int, words, counts, r_len: int | None = None
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """The live lanes of routed int64 key planes (host arrays or CPU
+    tensors) as unsorted fused (key, int64 count) pairs
+    (KmerTable.from_routed_pairs)."""
+    words = [np.asarray(w).reshape(-1) for w in words]
+    counts = np.asarray(counts).reshape(-1)
+    counts = np.where(words[0] == SENTINEL_KEY, 0, counts)
+    if len(words) == 1:
+        return device_run_pairs(words[0], counts)
+    r_len = pair_r_len(n_bases) if r_len is None else r_len
+    return gapped_run_pairs(words[0], words[1], counts, r_len, n_bases)
 
 
 class TableAccumulator:

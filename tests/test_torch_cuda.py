@@ -3,8 +3,8 @@ torch versions (K1 and K7 also for keys of 32 to 63 bases and for spaced
 seeds, K4 and K5 also on (hi, lo) pairs), and the whole count (sort, the
 unfused steps, compact, device merge and dense, at k <= 31, at 32 <= k <=
 63 and with seed masks), the parity dump, the HyperLogLog estimate,
-BGZF ingest and `count --profile-dir` on the card against the CPU.  Every
-test
+BGZF ingest, `count --profile-dir` and the mesh of positions on one card
+(in a one-rank NCCL group too) on the card against the CPU.  Every test
 here needs a GPU and skips without one.  This file imports neither jax nor kmer_tpu,
 so it also runs on a machine that has only the port:
 
@@ -1302,3 +1302,79 @@ def test_bgzf_counts_as_plain_text_cuda(cuda, tmp_path, monkeypatch):
     assert fe.launches > 0
     want = kmer_tpu_torch.count_fasta(str(plain), **kw)
     assert got == want and got.total == 4000 * 130
+
+
+def _mesh_corpus(tmp_path):
+    path = tmp_path / "g.fasta"
+    path.write_text(genome_reads_fasta(2000, 150, genome_len=20000, seed=9,
+                                       error_rate=0.01))
+    return str(path)
+
+
+MESH_CASES = [
+    ("k21", dict(k=21, canonical=True), None, ("k1", "k6")),
+    ("k55", dict(k=55, canonical=True), None, ("k1", "k6")),
+    ("mask", dict(seed_mask="1110111011101110111"), None, ("k1", "k6")),
+    ("gapped", dict(gapped=True, max_read_len=160), None, ("k3", "k6")),
+    ("legacy", dict(k=21, canonical=True), "legacy", ("k7", "k6"))]
+
+
+@pytest.mark.parametrize("shape,name,kw,env,kernels", [
+    (shape, *case) for shape in ((4, 1), (2, 2)) for case in MESH_CASES] + [
+    ((4, 1), "dense", dict(k=8, mode="dense"), None, ("k1", "k5"))])
+def test_mesh_on_one_card_equals_cpu(cuda, tmp_path, monkeypatch, shape,
+                                     name, kw, env, kernels):
+    """count_fasta_multihost over a mesh of positions on cuda:0 equals the
+    same mesh on the CPU, each of the path's kernels launched."""
+    from kmer_tpu_torch.parallel.mesh import make_mesh
+    from kmer_tpu_torch.parallel.multihost import count_fasta_multihost
+    if env:
+        monkeypatch.setenv("KMER_TPU_MULTIHOST_STEP", env)
+    path = _mesh_corpus(tmp_path)
+    kw = dict(batch_reads=256, **kw)
+    want = count_fasta_multihost(path, mesh=make_mesh(
+        *shape, devices=["cpu"] * 4), **kw)
+    mods = {"k1": fe, "k3": fg, "k5": hk, "k6": sk, "k7": ek}
+    for m in mods.values():
+        m.launches = 0
+    got = count_fasta_multihost(path, mesh=make_mesh(
+        *shape, devices=[cuda] * 4), **kw)
+    torch.cuda.synchronize()
+    assert got == want and got.num_distinct > 0
+    for kernel in kernels:
+        assert mods[kernel].launches > 0, kernel
+
+
+def test_one_rank_nccl_group_runs_the_exchange(cuda, tmp_path, monkeypatch):
+    """In a one-rank NCCL group the exchange, the all-reduce and the final
+    gather go through torch.distributed, and the table equals the one
+    without a group."""
+    import socket
+    import torch.distributed as dist
+    from kmer_tpu_torch.parallel.multihost import count_fasta_multihost
+    path = _mesh_corpus(tmp_path)
+    kw = dict(k=21, canonical=True, batch_reads=256)
+    want = kmer_tpu_torch.count_fasta(path, device="cpu", **kw)
+    calls = []
+    for fn in ("all_to_all_single", "all_reduce", "all_gather"):
+        real = getattr(dist, fn)
+
+        def spy(*a, _real=real, _fn=fn, **k):
+            calls.append(_fn)
+            return _real(*a, **k)
+        monkeypatch.setattr(dist, fn, spy)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        got = count_fasta_multihost(path, device="cuda", **kw)
+        dense = count_fasta_multihost(path, device="cuda", k=6, mode="dense",
+                                      batch_reads=256)
+    finally:
+        dist.destroy_process_group()
+    assert got == want
+    assert dense == kmer_tpu_torch.count_fasta(path, device="cpu", k=6,
+                                               mode="dense", batch_reads=256)
+    assert {"all_to_all_single", "all_reduce", "all_gather"} <= set(calls)

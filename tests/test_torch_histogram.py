@@ -150,6 +150,40 @@ def test_port_names_no_kmer_tpu_path_or_module():
                                for n in ast.walk(node.args[0])), path
 
 
+def test_parallel_and_chip_smoke_import_neither_jax_nor_kmer_tpu():
+    """kmer_tpu_torch/parallel/ (mesh, comm, halo, distributed, multihost)
+    and chip_smoke.py import nothing of jax or kmer_tpu: no import
+    statement names them, and a fresh interpreter that imports every
+    parallel module and chip_smoke holds neither."""
+    import subprocess
+    import sys
+    par = os.path.join(PORT, "parallel")
+    mods = sorted(f[:-3] for f in os.listdir(par) if f.endswith(".py"))
+    assert {"mesh", "comm", "halo", "distributed", "multihost"} <= set(mods)
+    for path in [os.path.join(par, f"{m}.py") for m in mods] + [
+            os.path.join(REPO, "chip_smoke.py")]:
+        for node in ast.walk(ast.parse(open(path).read())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            assert not any(n.split(".")[0] in ("jax", "kmer_tpu")
+                           for n in names), (path, names)
+    code = ("import sys\n"
+            + "".join(f"import kmer_tpu_torch.parallel.{m}\n"
+                      for m in mods if m != "__init__")
+            + "import chip_smoke\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'kmer_tpu'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    run = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr[-2000:]
+
+
 class _Built(Exception):
     """Raised by the stand-in build_cdll once it has seen a source."""
 
