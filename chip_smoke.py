@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--only 26]
+    python3 chip_smoke.py [--seed N] [--only 26|27]
 
 Run from the root of a checkout.  Phases, each printing one line (or a
 few) to stdout:
@@ -210,15 +210,43 @@ few) to stdout:
      all_to_all_single, each equal to the single-device table;
      (f) StreamingCounter over a (2, 1) mesh paused after 3 batches and
      resumed over a (4, 1) mesh: the in-memory table;
- 27. one JSON line with every kernel of the paths (with its bound and,
+ 27. keys of any width (contiguous keys over 63 bases in W int64 words,
+     gapped windows over 31 bases, the gapped unfused route):
+     (a) K7's multi-word entry at k = 64, 101 and 125 and its gapped
+     entry at (27, 27) and (40, 40), c in [80, 140], canonical or not,
+     on packed rows and on u8 rows with ambiguous codes and short rows,
+     B = 8192, L = 160; K6 at the k = 101 device merge's 5 planes; K2a,
+     K2b and K2c at W = 4 and 5; K4 on 3- and 4-word records: each bit
+     for bit against its plain version, timed with CUDA events, with its
+     launch geometry;
+     (b) k = 101 canonical on phase 4's corpus (50 M k-mers) by the
+     default route (K7, the grouped dedup, the host merge) and the
+     device merge (K6 on 5 planes): the tables equal, the total
+     sum(len - 100), the first 50,000 reads against the numpy oracle,
+     walls, stage breakdowns and the device merge's peak memory beside
+     its state (compact and sort_group_keys = 0 run in (e));
+     (c) gapped l = r = 40, c in [80, 140] on the first 1000 of phase 6's
+     records (17.8 M chunks) by the default route, compact, the device
+     merge and sort_group_keys = 0: the tables equal, the first 300
+     records' table the CPU's;
+     (d) phase 6's 27/27 corpus under KMER_TPU_GAPPED_STEP=legacy: phase
+     6's table, and the parity md5 on that route;
+     (e) on the 50,000-read file, each against the numpy oracle: k = 101
+     and 130 (W = 4, 5) under KMER_TPU_GROUPED=hybrid (K2a), pallas
+     (K2b) and KMER_TPU_STEP=t (K2c); k = 64 and 101 compacted (K4 on
+     3- and 4-word records); k = 101 at sort_group_keys = 0;
+ 28. one JSON line with every kernel of the paths (with its bound and,
      where one PyTorch call computes the same function, that call's
      time; K1 and K7 with a row for each of their two-word and spaced
-     variants), then the result line {"ok": true, "device": {...}} last.
+     variants, and a row for each variant phase 27 widened), then the
+     result line {"ok": true, "device": {...}} last.
 
 --only 26 runs phase 1, then phase 26 and the phases whose tables and
 walls it reads (4, 14, 6, 11), in about a quarter of the whole run, and
-prints "chip_smoke --only 26: done" in place of phase 27: a quick check
-of the multi-GPU path, not the whole script's result.
+prints "chip_smoke --only 26: done" in place of phase 28: a quick check
+of the multi-GPU path, not the whole script's result.  --only 27 runs
+phase 1, then phases 4, 6 and 27, prints phase 27's kernel rows and
+"chip_smoke --only 27: done".
 
 Every device-merge run prints the card's peak memory
 (torch.cuda.max_memory_allocated) beside the state's own bytes:
@@ -288,6 +316,16 @@ EDGE_MASKS = ("1111" + "0" * 24 + "1111", "1" * 32,
               "1" * 20 + "0" * 24 + "1" * 20, "1" * 31 + "0" + "1" * 32,
               "10" * 31 + "1", "110100101011")
 GATHER_MASK = "1" * 10 + "0" * 80 + "1" * 10
+# keys of any width (phase 27): k = 101 (4 int64 words) on phase 4's
+# corpus, K7 also at k = 64 (3 words) and 125 (4 words, the last holding
+# 32 bases); gapped windows of 40 bases (the string L||R in 3 words) on
+# phase 6's records
+ANY_K, ANY_KS = 101, (64, 101, 125)
+GAP_WIDE = dict(l_len=40, r_len=40, c_min=80, c_max=140)
+# phase 27c counts the first quarter of phase 6's records: each of its
+# host-merge routes sorts every chunk's 3-word key on the host
+# (np.lexsort), ~50-70 s on the whole corpus
+GAP_WIDE_RECORDS = GAP_RECORDS // 4
 REPO = os.path.dirname(os.path.abspath(__file__))
 # thread instructions a second: an SM issues at most four warp
 # instructions a clock, one from each of its four schedulers (NVIDIA H100
@@ -521,9 +559,11 @@ def oracle_keys(path: str, positions, canonical: bool):
     """The keys of the bases at window offsets `positions` (contiguous
     k-mers: range(k)) of every window of an equal-length-read FASTA, by
     numpy shift-or over the selected columns, strand-min when canonical,
-    counted by lexsort: (sorted unique (M, 2) int64 rows in the port's
-    pair layout -- hi the first 31 bases, lo the rest with its top bit
-    flipped at 32 bases; lo 0 for keys of at most 31 bases -- counts)."""
+    counted by lexsort: (sorted unique (M, max(W, 2)) int64 rows in the
+    port's word layout -- 31 bases a word, the rest in the last with its
+    top bit flipped at 32 bases; a second column of 0 for keys of at most
+    31 bases -- counts)."""
+    from kmer_tpu_torch.ops.encode import word_bases
     lut = np.full(256, 255, np.uint8)
     for i, b in enumerate(b"ACGT"):
         lut[b] = i
@@ -537,40 +577,48 @@ def oracle_keys(path: str, positions, canonical: bool):
     P = codes.shape[1] - positions[-1]
 
     def pack(cols):
-        hi = np.zeros((len(seqs), P), np.uint64)
-        lo = np.zeros((len(seqs), P), np.uint64)
-        for i, c in enumerate(cols):
-            if i < 31:
-                hi = (hi << np.uint64(2)) | c
-            else:
-                lo = (lo << np.uint64(2)) | c
-        if len(cols) - 31 == 32:
-            lo ^= np.uint64(1 << 63)
-        return hi.view(np.int64).reshape(-1), lo.view(np.int64).reshape(-1)
+        words, q = [], 0
+        for b in word_bases(len(cols)):
+            w = np.zeros((len(seqs), P), np.uint64)
+            for c in cols[q:q + b]:
+                w = (w << np.uint64(2)) | c
+            if b == 32:
+                w ^= np.uint64(1 << 63)
+            words.append(w.view(np.int64).reshape(-1))
+            q += b
+        if len(words) == 1:
+            words.append(np.zeros_like(words[0]))
+        return words
 
     c64 = codes.astype(np.uint64)
-    hi, lo = pack([c64[:, j:j + P] for j in positions])
+    keys = pack([c64[:, j:j + P] for j in positions])
     if canonical:
-        rhi, rlo = pack([np.uint64(3) - c64[:, j:j + P]
-                         for j in reversed(positions)])
-        take = (rhi < hi) | ((rhi == hi) & (rlo < lo))
-        hi, lo = np.where(take, rhi, hi), np.where(take, rlo, lo)
-    order = np.lexsort((lo, hi))
-    hi, lo = hi[order], lo[order]
-    start = np.ones(len(hi), bool)
-    start[1:] = (hi[1:] != hi[:-1]) | (lo[1:] != lo[:-1])
+        rc = pack([np.uint64(3) - c64[:, j:j + P]
+                   for j in reversed(positions)])
+        take = np.zeros(len(keys[0]), bool)
+        tied = np.ones(len(keys[0]), bool)
+        for a, r in zip(keys, rc):
+            take |= tied & (r < a)
+            tied &= r == a
+        keys = [np.where(take, r, a) for a, r in zip(keys, rc)]
+    order = np.lexsort(keys[::-1])
+    keys = [w[order] for w in keys]
+    start = np.ones(len(keys[0]), bool)
+    start[1:] = np.any([w[1:] != w[:-1] for w in keys], axis=0)
     idx = np.flatnonzero(start)
-    counts = np.diff(np.append(idx, len(hi)))
-    return np.stack([hi[idx], lo[idx]], 1), counts
+    counts = np.diff(np.append(idx, len(keys[0])))
+    return np.stack([w[idx] for w in keys], 1), counts
 
 
 def table_pairs(table) -> np.ndarray:
-    """KmerTable -> its keys as (M, 2) int64 rows of oracle_keys' layout."""
-    from kmer_tpu_torch.ops.encode import keys_u32_to_i64, u32_to_pairs
+    """KmerTable -> its keys as (M, max(W, 2)) int64 rows of oracle_keys'
+    layout."""
+    from kmer_tpu_torch.ops.encode import (keys_u32_to_i64, u32_to_planes,
+                                           word_bases)
     if table.k <= 31:
         return np.stack([keys_u32_to_i64(table.keys, table.k),
                          np.zeros(table.num_distinct, np.int64)], 1)
-    return np.stack(u32_to_pairs(table.keys, 31, table.k - 31), 1)
+    return np.stack(u32_to_planes(table.keys, word_bases(table.k)), 1)
 
 
 def phase_end_to_end(dev, seed: int, tmp: str, n_reads: int = N_READS,
@@ -2128,7 +2176,11 @@ def _counters():
             "k1_spaced": (fe, "spaced_launches"),
             "k7": (ek, "launches"), "k7_wide": (ek, "wide_launches"),
             "k7_spaced": (ek, "spaced_launches"),
-            "k2a": (gk, "run_lengths_launches"), "k3": (fg, "launches"),
+            "k7_multi": (ek, "multi_launches"),
+            "k7_gapped": (ek, "gapped_launches"),
+            "k2a": (gk, "run_lengths_launches"),
+            "k2b": (gk, "grouped_launches"),
+            "k2c": (gk, "strided_launches"), "k3": (fg, "launches"),
             "k4": (ck, "launches"),
             "k5": (hk, "launches"), "k6": (sk, "launches")}
 
@@ -3070,6 +3122,540 @@ def phase_mesh(dev, path: str, small: str, gpath: str, tmp: str, seed: int,
          + f" mesh_wall_s={time.perf_counter() - t0}")
 
 
+# phase 27: keys of any width -- contiguous keys over 63 bases in W int64
+# words, gapped windows over 31 bases, and the gapped unfused route (K7's
+# gapped lanes), with K7, K6, K2a-c and K4 widened to W planes
+
+def _check_planes(label: str, got, want, launched: int) -> int:
+    """Bit-for-bit check of a kernel's planes against its plain version's;
+    raises on a difference or a launch count other than one."""
+    err = max(exact_err(g, w) for g, w in zip(got, want))
+    if (err or launched != 1 or len(got) != len(want)
+            or not all(torch.equal(g, w) for g, w in zip(got, want))):
+        raise AssertionError(f"{label}: kernel != plain version "
+                             f"(max_abs_err={err}, launches={launched})")
+    return err
+
+
+def any_width_extract(dev, rng) -> list[dict]:
+    """Phase 27a, K7: the multi-word entry at k = 64, 101 and 125 and the
+    gapped entry at (27, 27) and (40, 40), c in [80, 140], canonical or
+    not, on packed rows and on u8 rows with ambiguous codes and short
+    rows, B = 8192, L = 160, bit for bit; each timed with its launch."""
+    from kmer_tpu_torch.ops.encode import SENTINEL_KEY, gapped_bases, words64
+    from kmer_tpu_torch.ops.extract import gapped_lane_count
+    from kmer_tpu_torch.ops.kernels import extract as ek
+    err_multi = err_gapped = 0
+    for k in ANY_KS:
+        for canon in (False, True):
+            for packed, amb, short in ((True, False, False),
+                                       (False, True, True)):
+                on_dev = [t.to(dev) for t in gapped_batch(
+                    rng, MAIN_B, MAIN_L, packed=packed, amb=amb, short=short,
+                    full_len=READ_LEN)]
+                kw = dict(canonical=canon, mask_ambiguous=amb,
+                          packed_width=MAIN_L if packed else 0)
+                before = ek.multi_launches
+                got = ek.extract_keys(*on_dev, k, **kw)
+                want = ek.extract_keys_ref(*on_dev, k, **kw)
+                torch.cuda.synchronize()
+                live = int((want[0] != SENTINEL_KEY).sum())
+                err = _check_planes(f"K7 k={k}", got, want,
+                                    ek.multi_launches - before)
+                _say(f"any_width_check kernel=extract_keys B={MAIN_B} "
+                     f"L={MAIN_L} n_bases={k} W={len(got)} "
+                     f"canonical={canon} packed={packed} ambiguous={amb} "
+                     f"short={short} live_lanes={live} max_abs_err={err}")
+                if live == 0:
+                    raise AssertionError(f"K7 k={k}: no live lane")
+                err_multi = max(err_multi, err)
+    for lr in ((27, 27), (40, 40)):
+        win = dict(l_len=lr[0], r_len=lr[1], c_min=GAP["c_min"],
+                   c_max=GAP["c_max"])
+        for packed, amb, short in ((True, False, False),
+                                   (False, True, True)):
+            on_dev = [t.to(dev) for t in gapped_batch(
+                rng, MAIN_B, MAIN_L, packed=packed, amb=amb, short=short,
+                full_len=READ_LEN)]
+            kw = dict(mask_ambiguous=amb,
+                      packed_width=MAIN_L if packed else 0, **win)
+            before = ek.gapped_launches
+            got = ek.extract_gapped_keys(*on_dev, **kw)
+            want = ek.extract_gapped_keys_ref(*on_dev, **kw)
+            torch.cuda.synchronize()
+            live = int((want[0] != SENTINEL_KEY).sum())
+            err = _check_planes(f"K7 gapped {lr}", got, want,
+                                ek.gapped_launches - before)
+            _say(f"any_width_check kernel=extract_gapped_keys B={MAIN_B} "
+                 f"L={MAIN_L} l_len={lr[0]} r_len={lr[1]} "
+                 f"c=[{win['c_min']}, {win['c_max']}] W={len(got)} "
+                 f"packed={packed} ambiguous={amb} short={short} "
+                 f"live_lanes={live} max_abs_err={err}")
+            if live == 0:
+                raise AssertionError(f"K7 gapped {lr}: no live lane")
+            err_gapped = max(err_gapped, err)
+
+    recs = []
+    main = [t.to(dev) for t in kernel_batch(rng, MAIN_B, MAIN_L, ANY_K,
+                                            packed=True, amb=False,
+                                            short=False)]
+    in_bytes = main[0].numel() * 4 + MAIN_B * 8
+    for k in ANY_KS:
+        W = words64(k)
+        lanes = MAIN_B * (MAIN_L - k + 1)
+        kw = dict(canonical=True, packed_width=MAIN_L)
+        ms, plain_ms = time_pair(
+            functools.partial(ek.extract_keys, *main, k, **kw),
+            functools.partial(ek.extract_keys_ref, *main, k, **kw))
+        # W int64 words out a lane; each word a forward and a reverse cut
+        # (three words and four funnel shifts each), the compare and the
+        # store: ~24 operations a word
+        b = bound(in_bytes + lanes * W * 8, lanes * W * 24)
+        launch_line(f"extract_keys[multi_word k={k}]", ek, MAIN_B, MAIN_L, k,
+                    canonical=True)
+        _say(f"any_width_time kernel=extract_keys variant=multi_word "
+             f"B={MAIN_B} L={MAIN_L} n_bases={k} W={W} canonical=True "
+             f"packed=True kernel_ms={ms} plain_ms={plain_ms} "
+             f"speedup={plain_ms / ms} "
+             f"out_GB_per_s={lanes * W * 8 / (ms * 1e-3) / 1e9} "
+             f"bound_ms={b['bound_ms']} bound_by={b['bound_by']} "
+             f"library_ms=None (no single PyTorch call extracts k-mers) "
+             f"(tolerance: exact, max_abs_err must be 0)")
+        if k == ANY_K:
+            recs.append({"name": "extract_keys[multi_word]", "route": "cuda",
+                         "source": ek.SOURCE, "replaces": ek.REPLACES,
+                         "max_abs_err": err_multi, "ms": ms,
+                         "plain_ms": plain_ms, **b, "library_ms": None})
+    for lr in ((27, 27), (40, 40)):
+        win = dict(l_len=lr[0], r_len=lr[1], c_min=GAP["c_min"],
+                   c_max=GAP["c_max"], packed_width=MAIN_L)
+        W = len(gapped_bases(*lr))
+        lanes = MAIN_B * gapped_lane_count(MAIN_L, GAP["c_min"],
+                                           GAP["c_max"])
+        ms, plain_ms = time_pair(
+            functools.partial(ek.extract_gapped_keys, *main, **win),
+            functools.partial(ek.extract_gapped_keys_ref, *main, **win))
+        # the lane's (c, o) (a square root and two fix-up steps), then W
+        # words of one or two cuts each: ~60 + 30 W operations a lane
+        b = bound(in_bytes + lanes * W * 8, lanes * (60 + 30 * W))
+        info = ek.gapped_launch_info(MAIN_B, MAIN_L, **{
+            k_: v for k_, v in win.items() if k_ != "packed_width"})
+        _say(f"launch kernel=extract_gapped_keys[{lr[0]}/{lr[1]}] "
+             f"B={MAIN_B} L={MAIN_L} "
+             + " ".join(f"{k_}={v}" for k_, v in info.items())
+             + f" threads_launched={info['threads'] * info['blocks']}")
+        _say(f"any_width_time kernel=extract_gapped_keys l_len={lr[0]} "
+             f"r_len={lr[1]} c=[{GAP['c_min']}, {GAP['c_max']}] "
+             f"B={MAIN_B} L={MAIN_L} lanes={lanes} W={W} packed=True "
+             f"kernel_ms={ms} plain_ms={plain_ms} "
+             f"speedup={plain_ms / ms} "
+             f"out_GB_per_s={lanes * W * 8 / (ms * 1e-3) / 1e9} "
+             f"bound_ms={b['bound_ms']} bound_by={b['bound_by']} "
+             f"library_ms=None (no single PyTorch call extracts gapped "
+             f"chunks) (tolerance: exact, max_abs_err must be 0)")
+        if lr == (40, 40):
+            recs.append({"name": "extract_gapped_keys", "route": "cuda",
+                         "source": ek.SOURCE, "replaces": ek.REPLACES,
+                         "max_abs_err": err_gapped, "ms": ms,
+                         "plain_ms": plain_ms, **b, "library_ms": None})
+    return recs
+
+
+def any_width_sort(dev, rng) -> dict:
+    """Phase 27a, K6 at the k = 101 device merge's 5 planes (4 key words
+    with the general layout's bits and the counts as payload): a 2**23-row
+    sorted unique state and 2**22 lanes of K7's output, bit for bit, timed
+    beside its plain version and torch.sort of one word."""
+    from kmer_tpu_torch.ops import count as count_ops
+    from kmer_tpu_torch.ops.encode import plane_bits
+    from kmer_tpu_torch.ops.kernels import extract as ek
+    from kmer_tpu_torch.ops.kernels import sort as sk
+    gen = torch.Generator(device=dev).manual_seed(101)
+    sent = sk.SENTINEL
+    bits = plane_bits(ANY_K)
+    main = [t.to(dev) for t in kernel_batch(rng, MAIN_B, MAIN_L, ANY_K,
+                                            packed=True, amb=False,
+                                            short=False)]
+    planes = [p.reshape(-1) for p in ek.extract_keys(
+        *main, ANY_K, canonical=True, packed_width=MAIN_L)]
+    words, counts = count_ops.grouped_count(planes, 256)
+    n_state, n_batch = 1 << 23, 1 << 22
+    reps = -(-n_batch // counts.numel())
+    bc = counts.to(torch.int64).repeat(reps)[:n_batch]
+    state = sk.sort_words_ref([torch.randint(0, 1 << b, (n_state // 2,),
+                                             generator=gen, device=dev)
+                               for b in bits])
+    rows = []
+    for s_w, b_w in zip(state, words):
+        pad = torch.full((n_state - s_w.numel(),), sent, device=dev)
+        b_w = b_w.repeat(reps)[:n_batch]
+        rows.append(torch.cat([s_w, pad, torch.where(bc > 0, b_w, sent)]))
+    rows.append(torch.cat([torch.randint(1, 50, (n_state // 2,),
+                                         generator=gen, device=dev),
+                           torch.zeros(n_state - n_state // 2,
+                                       dtype=torch.int64, device=dev), bc]))
+    before = sk.launches
+    got = sk.sort_words([w.clone() for w in rows], len(bits), bits)
+    want = sk.sort_words_ref(rows, len(bits), bits)
+    torch.cuda.synchronize()
+    err = _check_planes("K6 k101 merge", got, want, sk.launches - before)
+    del got, want
+    n, W = rows[0].numel(), len(rows)
+    _say(f"any_width_check kernel=sort_words case=k101_merge W={W} N={n} "
+         f"num_keys={len(bits)} bits={bits} launches=1 max_abs_err={err}")
+    reps_, inner = 3, 1
+    copies = iter([[w.clone() for w in rows] for _ in range(5 + reps_)])
+    plain = functools.partial(sk.sort_words_ref, rows, len(bits), bits)
+    p1 = time_ms(plain, reps=reps_, inner=inner)
+    ms = time_ms(lambda: sk.sort_words(next(copies), len(bits), bits),
+                 reps=reps_, inner=inner)
+    p2 = time_ms(plain, reps=reps_, inner=inner)
+    plain_ms = min(p1, p2)
+    del copies
+    library_ms = time_ms(functools.partial(torch.sort, rows[0]),
+                         reps=reps_, inner=inner)
+    # one read and one write of N rows of W words; N log2 N row
+    # comparisons of the key words
+    b = bound(2 * n * W * 8, n * math.ceil(math.log2(n)) * len(bits))
+    _say(f"any_width_time kernel=sort_words case=k101_merge W={W} N={n} "
+         f"num_keys={len(bits)} bits={bits} passes="
+         f"{sum(-(-(x + 1) // 8) if x < 64 else 8 for x in bits)} "
+         f"kernel_ms={ms} plain_ms={plain_ms} speedup={plain_ms / ms} "
+         f"library_ms={library_ms} (torch.sort, one word) "
+         f"bound_ms={b['bound_ms']} bound_by={b['bound_by']} "
+         f"GB_per_s={2 * n * W * 8 / (ms * 1e-3) / 1e9} "
+         f"(tolerance: exact, max_abs_err must be 0)")
+    return {"name": "sort_words[k101_merge]", "route": "cuda",
+            "source": sk.SOURCE, "replaces": sk.REPLACES,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": library_ms}
+
+
+def any_width_grouped(dev, rng) -> dict:
+    """Phase 27a, K2a, K2b and K2c at W = 4 and 5: K7's k = 101 keys (W =
+    4) and random 5-word rows, in groups of 256 rows (K2a, K2b) and in
+    strided columns of 16 (K2c), bit for bit, timed with their launches;
+    W = 5 takes K2a's plane loop and the block body."""
+    from kmer_tpu_torch.ops.kernels import extract as ek
+    from kmer_tpu_torch.ops.kernels import grouped_count as gk
+    gen = torch.Generator(device=dev).manual_seed(27)
+    main = [t.to(dev) for t in kernel_batch(rng, MAIN_B, MAIN_L, ANY_K,
+                                            packed=True, amb=False,
+                                            short=False)]
+    k101 = [p.reshape(-1) for p in ek.extract_keys(
+        *main, ANY_K, canonical=True, packed_width=MAIN_L)]
+    n = k101[0].numel() // 4096 * 4096        # whole groups, whole columns
+    five = [p[:n] for p in k101] + [torch.randint(0, 1 << 14, (n,),
+                                                  generator=gen, device=dev)]
+    # every row twice, so that runs are longer than one
+    five = [p.view(-1, 2)[:, :1].expand(-1, 2).reshape(-1) for p in five]
+    by_w = {4: five[:4], 5: five}
+    recs = {}
+    for W, planes in by_w.items():
+        rows2d = [p.view(-1, 256) for p in planes]
+        cols = [p.view(16, -1) for p in planes]
+        sorted_rows = gk.sort_groups(rows2d)
+        for key, fn, ref, args, counter in (
+                ("a", gk.run_lengths_grouped, gk.run_lengths_grouped_ref,
+                 sorted_rows, "run_lengths_launches"),
+                ("b", gk.grouped_count, gk.grouped_count_ref, rows2d,
+                 "grouped_launches"),
+                ("c", gk.grouped_count_strided, gk.grouped_count_strided_ref,
+                 cols, "strided_launches")):
+            before = getattr(gk, counter)
+            got = fn(args)
+            want = ref(args)
+            got = list(got[0]) + [got[1]] if key != "a" else [got]
+            want = list(want[0]) + [want[1]] if key != "a" else [want]
+            torch.cuda.synchronize()
+            err = _check_planes(f"K2{key} W={W}", got, want,
+                                getattr(gk, counter) - before)
+            ms, plain_ms = time_pair(functools.partial(fn, args),
+                                     functools.partial(ref, args))
+            m = 256 if key != "c" else 16
+            # keys in (and sorted keys out for K2b/K2c) and int32 counts;
+            # one W-word compare a row for K2a, the sort network's W-word
+            # compare-exchanges for K2b (bitonic) and K2c (odd-even)
+            lg = int(math.log2(m))
+            ce = (n if key == "a" else n // 2 * lg * (lg + 1) // 2
+                  if key == "b" else n // m * ((lg * lg - lg + 4) * m // 4
+                                               - 1))
+            b = bound((1 if key == "a" else 2) * n * W * 8 + n * 4, ce * W)
+            body = ("flat" if key == "a" else gk.launch_info(
+                *((args[0].shape[1], 16) if key == "c"
+                  else args[0].shape), W, strided=key == "c")["body"])
+            _say(f"any_width_time kernel=K2{key} W={W} shape="
+                 f"{tuple(args[0].shape)} body={body} kernel_ms={ms} "
+                 f"plain_ms={plain_ms} speedup={plain_ms / ms} "
+                 f"bound_ms={b['bound_ms']} bound_by={b['bound_by']} "
+                 f"library_ms=None (no single PyTorch call gives grouped "
+                 f"run lengths) max_abs_err={err} (tolerance: exact, "
+                 f"max_abs_err must be 0)")
+            name = {"a": "run_lengths_grouped", "b": "grouped_count",
+                    "c": "grouped_count_strided"}[key]
+            recs[(key, W)] = {
+                "name": f"{name}[W={W}]", "route": "cuda",
+                "source": gk.SOURCE,
+                "replaces": {"a": gk.REPLACES_RUN_LENGTHS,
+                             "b": gk.REPLACES_GROUPED,
+                             "c": gk.REPLACES_STRIDED}[key],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+                "library_ms": None, "body": body}
+    return recs
+
+
+def any_width_compact(dev, rng) -> dict:
+    """Phase 27a, K4 on records of 3 and 4 words: K7's k = 64 and k = 101
+    keys, counted by the grouped dedup, bit for bit (records in lane
+    order and the total), timed beside torch.masked_select of one plane."""
+    from kmer_tpu_torch.ops import count as count_ops
+    from kmer_tpu_torch.ops.kernels import compact as ck
+    from kmer_tpu_torch.ops.kernels import extract as ek
+    main = [t.to(dev) for t in kernel_batch(rng, MAIN_B, MAIN_L, 64,
+                                            packed=True, amb=False,
+                                            short=False)]
+    recs = {}
+    for k in (64, ANY_K):
+        planes = [p.reshape(-1) for p in ek.extract_keys(
+            *main, k, canonical=True, packed_width=MAIN_L)]
+        words, counts = count_ops.grouped_count(planes, 256)
+        before = ck.launches
+        got = ck.compact(words, counts)
+        want = ck.compact_ref(words, counts)
+        torch.cuda.synchronize()
+        t = int(want[2][0])
+        err = _check_planes(f"K4 W={len(words)}",
+                            [got[0][:t], got[1][:t], got[2]],
+                            [want[0][:t], want[1][:t], want[2]],
+                            ck.launches - before)
+        ms, plain_ms = time_pair(functools.partial(ck.compact, words, counts),
+                                 functools.partial(ck.compact_ref, words,
+                                                   counts))
+        live = counts > 0
+        library_ms = time_ms(functools.partial(torch.masked_select, words[0],
+                                               live))
+        n, W = counts.numel(), len(words)
+        # counts in, live keys in; records (W words and a count) out
+        b = bound(n * 4 + t * W * 8 + t * (W + 1) * 8, n * 4)
+        _say(f"any_width_time kernel=compact W={W} n_bases={k} lanes={n} "
+             f"live={t} kernel_ms={ms} plain_ms={plain_ms} "
+             f"speedup={plain_ms / ms} library_ms={library_ms} "
+             f"(torch.masked_select of one key plane: a yardstick) "
+             f"bound_ms={b['bound_ms']} bound_by={b['bound_by']} "
+             f"max_abs_err={err} (tolerance: exact, max_abs_err must be 0)")
+        recs[W] = {"name": f"compact[W={W}]", "route": "cuda",
+                   "source": ck.SOURCE, "replaces": ck.REPLACES,
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+                   "library_ms": library_ms}
+    return recs
+
+
+def any_width_gapped(dev, gpath: str, gsmall: str, gtable) -> dict:
+    """Phase 27c and d: gapped l = r = 40, c in [80, 140] on the first
+    GAP_WIDE_RECORDS records of phase 6's corpus by the default route
+    (K7's gapped lanes, the grouped dedup), the compact one (K4 on 3-word
+    records), the device merge (K6 on 4 planes) and sort_group_keys = 0
+    (K6 a batch): the tables equal, the total every (c, o) chunk, the
+    first 300 records' table equal to the CPU's; then phase 6's 27/27
+    corpus under KMER_TPU_GAPPED_STEP=legacy equal to phase 6's table,
+    and the parity md5 on that route.  Returns the launches of each
+    run."""
+    from kmer_tpu_torch import KmerConfig, count_fasta
+    from kmer_tpu_torch.io.fasta import parse_seqs
+    from kmer_tpu_torch.pipeline.parity import SAMPLE_FASTA_MD5, parity_dump
+    from kmer_tpu_torch.utils import stagetime
+    cfg = KmerConfig(gapped=True, batch_reads=GAP_B, max_read_len=512,
+                     **GAP_WIDE)
+    t0 = time.perf_counter()
+    want_small = count_fasta(gsmall, cfg, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    got_small = count_fasta(gsmall, cfg, device=dev)
+    if not (got_small == want_small and got_small.total > 0):
+        raise AssertionError("gapped 40/40 on the card != on the CPU "
+                             f"({GAP_ORACLE_RECORDS} records)")
+    _say(f"any_width_gapped_cpu_check records={GAP_ORACLE_RECORDS} "
+         f"distinct={got_small.num_distinct} total={got_small.total} "
+         f"equal=True cpu_s={cpu_s}")
+    with open(gpath) as f:
+        records = f.read().split(">")[1:GAP_WIDE_RECORDS + 1]
+    wpath = os.path.join(os.path.dirname(gpath), "gapped_wide.fasta")
+    with open(wpath, "w") as f:
+        f.write("".join(">" + r for r in records))
+    lens = np.diff(parse_seqs(wpath)[1])
+    c = np.arange(GAP_WIDE["c_min"], GAP_WIDE["c_max"] + 1)
+    want_total = int(np.maximum(lens[:, None] - c[None, :] + 1, 0).sum())
+    batches = -(-GAP_WIDE_RECORDS // GAP_B)
+    runs = [("default", {}, {}, {"k7_gapped": batches, "k3": 0}),
+            ("compact", {}, dict(compact=True),
+             {"k7_gapped": batches, "k4": batches}),
+            ("device_merge", {}, dict(device_merge="on"),
+             {"k7_gapped": batches, "k6": -1}),
+            ("sort_group_keys=0", {}, dict(sort_group_keys=0),
+             {"k7_gapped": batches, "k6": batches})]
+    ref, seen = None, {}
+    for name, env, change, want in runs:
+        times: dict[str, float] = {}
+        with _env(**env), _merge_probe() as probe:
+            with stagetime.collect(times):
+                table, got = _run_counted(lambda: count_fasta(
+                    wpath, cfg.replace(**change), device=dev))
+        ref = table if ref is None else ref
+        bad = {c: got[c] for c, n in want.items()
+               if (got[c] == 0 if n < 0 else got[c] != n)}
+        if table != ref or bad or table.total != want_total:
+            raise AssertionError(f"gapped 40/40 {name}: table differs, "
+                                 f"total {table.total} != {want_total}, "
+                                 f"or launches {bad} wrong")
+        seen[name] = got
+        wall = times["total"]
+        _say(f"any_width_gapped run={name} records={GAP_WIDE_RECORDS} "
+             f"l_len=40 r_len=40 chunks={table.total} "
+             f"distinct={table.num_distinct} "
+             f"equal_to_first=True launches="
+             f"{json.dumps({c: n for c, n in got.items() if n})} "
+             f"wall_s={wall} chunks_per_s={table.total / wall}"
+             + (f" {probe.line()}" if probe.states else ""))
+        _say(f"any_width_gapped_{name}_stages_s "
+             + json.dumps(times, sort_keys=True))
+    del ref, table
+    # (d) the gapped unfused route at the reference's windows
+    times = {}
+    with _env(KMER_TPU_GAPPED_STEP="legacy"):
+        with stagetime.collect(times):
+            table, got = _run_counted(lambda: count_fasta(
+                gpath, KmerConfig(gapped=True, batch_reads=GAP_B,
+                                  max_read_len=512), device=dev))
+        if (table != gtable or got["k3"]
+                or got["k7_gapped"] != -(-GAP_RECORDS // GAP_B)):
+            raise AssertionError("gapped 27/27 legacy table != phase 6's, "
+                                 f"or launches {got} wrong")
+        _say(f"any_width_gapped run=legacy_27_27 equal_to_phase_6=True "
+             f"launches={json.dumps({c: n for c, n in got.items() if n})} "
+             f"wall_s={times['total']} "
+             f"chunks_per_s={table.total / times['total']}")
+        _say("any_width_gapped_legacy_27_27_stages_s "
+             + json.dumps(times, sort_keys=True))
+        path = os.path.join(REPO, "tests", "data", "sample.fasta")
+        t0 = time.perf_counter()
+        dump, got = _run_counted(lambda: parity_dump(path, device=dev))
+        wall = time.perf_counter() - t0
+        md5 = hashlib.md5(dump).hexdigest()
+        _say(f"parity mode=count_expand route=legacy md5={md5} "
+             f"launches={json.dumps({c: n for c, n in got.items() if n})} "
+             f"wall_s={wall}")
+        if md5 != SAMPLE_FASTA_MD5 or got["k3"] or not got["k7_gapped"]:
+            raise AssertionError(f"parity on the unfused route: md5 {md5} "
+                                 f"!= {SAMPLE_FASTA_MD5}, or launches {got}")
+    seen["legacy_27_27"] = got
+    return seen
+
+
+def any_width_unfused_small(dev, small: str) -> dict:
+    """Phase 27e: the grouped kernels on the count path at W = 4 (k =
+    101) and W = 5 (k = 130) on the 50,000-read oracle file --
+    KMER_TPU_GROUPED=hybrid (K2a), pallas (K2b) and KMER_TPU_STEP=t
+    (K2c) -- k = 64 and 101 compacted (K4 on 3- and 4-word records) and
+    k = 101 at sort_group_keys = 0 (K6 a batch), each table against the
+    numpy oracle.  Returns each run's launches."""
+    from kmer_tpu_torch import KmerConfig, count_fasta
+    seen = {}
+    for k in (ANY_K, 130, 64):
+        want_keys, want_counts = oracle_keys(small, tuple(range(k)), True)
+        cfg = KmerConfig(k=k, canonical=True)
+        batches = -(-ORACLE_READS // cfg.batch_reads)
+        # compact caps keys at 111 bases, as in kmer_tpu
+        runs = [] if k > 111 else [("compact", {}, cfg.replace(compact=True),
+                                    {"k7_multi": batches, "k4": batches})]
+        if k == ANY_K:
+            runs.append(("sort_group_keys=0", {}, cfg.replace(
+                sort_group_keys=0), {"k7_multi": batches, "k6": batches}))
+        runs += [] if k == 64 else [
+            ("grouped=hybrid", dict(KMER_TPU_STEP="legacy",
+                                    KMER_TPU_GROUPED="hybrid"), cfg,
+             {"k7_multi": batches, "k2a": batches}),
+            ("grouped=pallas", dict(KMER_TPU_STEP="legacy",
+                                    KMER_TPU_GROUPED="pallas"), cfg,
+             {"k7_multi": batches, "k2b": batches}),
+            ("step=t", dict(KMER_TPU_STEP="t"), cfg,
+             {"k7_multi": batches, "k2c": batches})]
+        for label, env, run_cfg, want in runs:
+            with _env(**env):
+                t0 = time.perf_counter()
+                table, got = _run_counted(
+                    lambda: count_fasta(small, run_cfg, device=dev))
+                wall = time.perf_counter() - t0
+            equal = (np.array_equal(table_pairs(table), want_keys)
+                     and np.array_equal(table.counts, want_counts))
+            _say(f"any_width_small k={k} run={label} reads={ORACLE_READS} "
+                 f"equal_to_oracle={equal} launches="
+                 f"{json.dumps({c: n for c, n in got.items() if n})} "
+                 f"wall_s={wall}")
+            bad = {c: got[c] for c, n in want.items() if got[c] != n}
+            if not equal or bad:
+                raise AssertionError(f"k={k} {label}: table != numpy "
+                                     f"oracle, or launches {bad} wrong")
+            seen[(k, label)] = got
+    return seen
+
+
+def phase_any_width(dev, path: str, small: str, gpath: str, gtable,
+                    seed: int) -> list[dict]:
+    """Phase 27, keys of any width: (a) each widened kernel against its
+    plain version and timed; (b) k = 101 canonical on phase 4's corpus by
+    the default route and the device merge; (c, d) any_width_gapped; (e)
+    any_width_unfused_small.  Returns the
+    widened kernels' JSON rows, with their launches on these paths."""
+    from kmer_tpu_torch import KmerConfig
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 27)
+    k7_multi, k7_gapped = any_width_extract(dev, rng)
+    k6 = any_width_sort(dev, rng)
+    k2 = any_width_grouped(dev, rng)
+    k4 = any_width_compact(dev, rng)
+    torch.cuda.empty_cache()
+    _say(f"any_width_kernels_s={time.perf_counter() - t0}")
+
+    # (b) runs the default route and the device merge only: compact and
+    # sort_group_keys = 0 are each a host merge of 50 M four-column keys
+    # by np.lexsort, ~80 s of wall (PERF.md §5); the 50,000-read runs of
+    # (e) take those routes
+    batches = -(-N_READS // KmerConfig().batch_reads)
+    runs = [("default", {}, {}, {"k7_multi": batches, "k1": 0}),
+            ("device_merge", {}, dict(device_merge="on"),
+             {"k7_multi": batches, "k6": -1})]
+    seen, _ = phase_wide_end_to_end(dev, path, small, f"k{ANY_K}",
+                                    KmerConfig(k=ANY_K, canonical=True),
+                                    runs)
+    gsmall = os.path.join(os.path.dirname(gpath), "gapped_small.fasta")
+    gapped = any_width_gapped(dev, gpath, gsmall, gtable)
+    small_runs = any_width_unfused_small(dev, small)
+    k7_multi["launches"] = seen["default"]["k7_multi"]
+    k7_gapped["launches"] = gapped["default"]["k7_gapped"]
+    k6["launches"] = seen["device_merge"]["k6"]
+    k4[4]["launches"] = small_runs[(ANY_K, "compact")]["k4"]
+    k4[3]["launches"] = small_runs[(64, "compact")]["k4"]
+    for (key, W), rec in k2.items():
+        label = {"a": "grouped=hybrid", "b": "grouped=pallas",
+                 "c": "step=t"}[key]
+        rec["launches"] = small_runs[({4: ANY_K, 5: 130}[W], label)][
+            "k2" + key]
+    _say(f"any_width_phase_s={time.perf_counter() - t0}")
+    return [k7_multi, k7_gapped, k6, *k2.values(), k4[3], k4[4]]
+
+
+def any_width_only(dev, seed: int) -> int:
+    """--only 27: phase 27 and the phases whose tables it reads (4, 6),
+    as main runs them."""
+    with tempfile.TemporaryDirectory() as tmp:
+        _, table, path, small, _ = phase_end_to_end(dev, seed, tmp)
+        del table
+        _, gtable, gpath, _ = phase_gapped_end_to_end(dev, seed, tmp)
+        rows = phase_any_width(dev, path, small, gpath, gtable, seed)
+    _say(json.dumps({"kernels": rows}))
+    _say("chip_smoke --only 27: done")
+    return 0
+
+
 def mesh_only(dev, seed: int) -> int:
     """--only 26: phase 26 and the phases whose tables and walls it reads,
     as main runs them."""
@@ -3108,8 +3694,8 @@ def build_all() -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", type=int, choices=[26],
-                    help="phase 26 alone, with the phases it reads")
+    ap.add_argument("--only", type=int, choices=[26, 27],
+                    help="phase 26 or 27 alone, with the phases it reads")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -3142,6 +3728,8 @@ def main(argv=None) -> int:
          "below 0.5, mode=\"auto\" dense below 5)")
     if args.only == 26:
         return mesh_only(dev, args.seed)
+    if args.only == 27:
+        return any_width_only(dev, args.seed)
 
     # phases 2-3, 7-8, 13, 16-17 and 20: each kernel against its plain
     # version
@@ -3207,7 +3795,7 @@ def main(argv=None) -> int:
         phase_stream_batches(dev, path, table, wall, tmp)
         phase_stream_gapped(dev, gpath, gtable, tmp)
         gapped_digest = table_digest(gtable)
-        del k55_table, sp_table, gtable
+        del k55_table, sp_table
         phase_stream_devmerge(dev, tmp, args.seed)
 
         # phase 25: the saved-table surface through the CLI
@@ -3216,6 +3804,11 @@ def main(argv=None) -> int:
         # phase 26: multi-GPU counting, a mesh of positions on one card
         phase_mesh(dev, path, small, gpath, tmp, args.seed, table, wall,
                    devmerge_wall, gapped_digest, dense8)
+
+        # phase 27: keys of any width
+        del table
+        any_width = phase_any_width(dev, path, small, gpath, gtable,
+                                    args.seed)
     # K5's launches: the dense k=8 run's, then each `card` run's (k = 21,
     # 55 and the mask)
     k5["card_launches"] = card_launches
@@ -3226,7 +3819,7 @@ def main(argv=None) -> int:
                                         sp["sort_group_keys=0"]["k7_spaced"])
 
     _say(json.dumps({"kernels": [k1, k1w, k1s, k2a, k2b, k2c, k3, k4, k5, k6,
-                                 k7, k7w, k7s]}))
+                                 k7, k7w, k7s, *any_width]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

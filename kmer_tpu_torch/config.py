@@ -1,10 +1,11 @@
 """Configuration for the counting engine.
 
 Same field names and defaults as kmer_tpu.config.KmerConfig, so a config
-written for one package reads the same in the other.  The options this
-port does not carry yet (keys over 63 bases, gapped windows over 31
-bases) raise NotImplementedError naming the ROADMAP item that ports
-them.
+written for one package reads the same in the other.  Every key width
+kmer_tpu counts in sort mode counts here; the paths that do not take
+keys wider than two int64 words yet (streaming, `card`, the mesh; seed
+masks over 63 bases) raise NotImplementedError naming ROADMAP Queue 1
+item 19 (check_narrow).
 """
 
 from __future__ import annotations
@@ -12,15 +13,10 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
-from .ops.encode import HI_BASES, MAX_K, words_per_key
-from .ops.extract import check_window, parse_seed_mask
+from .ops.encode import (HI_BASES, PAIR_BASES, gapped_bases, word_bases,
+                         words_per_key)
+from .ops.extract import check_window, parse_seed_mask, wide_not_ported
 from .utils.linkspeed import dense_auto_ok
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to kmer_tpu_torch yet (ROADMAP Queue 1 "
-        f"item {item})")
 
 
 @dataclass(frozen=True)
@@ -97,14 +93,8 @@ class KmerConfig:
                              f"(<= 111 bases; got {self.n_bases})")
         if self.compact and self.mode == "dense":
             raise ValueError("compact applies to sort mode")
-        if self.gapped and max(self.l_len, self.r_len) > HI_BASES:
-            raise _not_ported(f"gapped l_len/r_len > {HI_BASES}",
-                              "15 (gapped windows over 31 bases)")
         if self.seed_mask is not None:
             self._check_seed_mask()
-        elif not self.gapped and self.k > MAX_K:
-            raise _not_ported(f"k={self.k} > {MAX_K}",
-                              "18 (keys over 63 bases)")
 
     def _check_seed_mask(self) -> None:
         """kmer_tpu's spaced-seed checks (kmer_tpu/config.py:127-146)."""
@@ -124,6 +114,26 @@ class KmerConfig:
         if self.seed_mask is not None:
             return self.seed_mask.count("1")
         return (self.l_len + self.r_len) if self.gapped else self.k
+
+    @property
+    def plane_bases(self) -> tuple[int, ...]:
+        """The bases of each int64 key plane on the device (ops/encode):
+        K3's split or the general layout of a gapped key, else the
+        general layout of n_bases."""
+        if self.gapped:
+            return gapped_bases(self.l_len, self.r_len)
+        return word_bases(self.n_bases)
+
+    def check_narrow(self, path: str) -> None:
+        """Raise NotImplementedError naming ROADMAP item 19 when `path`
+        (streaming, `card`, the mesh) is asked for keys it does not take
+        yet: more than two int64 words (over 63 bases), or a gapped
+        window over 31 bases."""
+        if self.n_bases > PAIR_BASES or (
+                self.gapped and max(self.l_len, self.r_len) > HI_BASES):
+            what = (f"gapped l_len={self.l_len}, r_len={self.r_len}"
+                    if self.gapped else f"{self.n_bases}-base keys")
+            raise wide_not_ported(f"{path} with {what}")
 
     @property
     def seed_positions(self) -> tuple[int, ...] | None:

@@ -64,7 +64,11 @@
 // -- gapped, or a key of 32 to 63 bases -- as its value hi * 4^r_len +
 // lo, one uint64 when it fits 63 bits, else the two uint64 halves [vhi,
 // vlo]; at r_len = 32 (s = 64) those are hi and lo with its stored top-bit
-// flip taken off.  Counts widen to int64.
+// flip taken off.  Keys of three or four int64 words (64 to 125 bases in
+// the general layout of ops/encode, or a gapped key past 31-base windows;
+// compact mode caps keys at 111 bases) are written as their words, which
+// the host converts (pipeline/table.planes_to_fused).  Counts widen to
+// int64.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -170,25 +174,37 @@ __device__ __forceinline__ void load_counts(const C* __restrict__ counts,
   }
 }
 
+// the key planes, by value
+constexpr int MAX_PLANES = 4;
+struct KeyPlanes {
+  const int64_t* w[MAX_PLANES];
+};
+
 // MODE 0: one int64 key plane, written as it is;
 // MODE 1: a pair (hi, lo) written as the one-word value (hi << s) | lo;
 // MODE 2: a pair written as [hi >> (64 - s), (hi << s) | lo], or
-//         [hi, lo ^ 2^63] at s = 64.
+//         [hi, lo ^ 2^63] at s = 64;
+// MODE 3: NW = 3 or 4 planes written as they are.
 // scratch[0] is the tile counter, scratch[1 + t] tile t's status word.
-template <typename C, int MODE>
+template <int MODE> __host__ __device__ constexpr int planes_of(int nw) {
+  return MODE == 0 ? 1 : MODE == 3 ? nw : 2;
+}
+template <int MODE> __host__ __device__ constexpr int record_words(int nw) {
+  return MODE <= 1 ? 1 : MODE == 2 ? 2 : nw;
+}
+
+template <typename C, int MODE, int NW>
 __global__ void __launch_bounds__(THREADS)
-compact_kernel(const int64_t* __restrict__ key0,
-               const int64_t* __restrict__ key1,
-               const C* __restrict__ counts, int64_t n, int64_t tiles,
-               uint64_t* __restrict__ scratch, uint32_t epoch, int s,
-               int64_t* __restrict__ out_keys,
+compact_kernel(KeyPlanes keys, const C* __restrict__ counts, int64_t n,
+               int64_t tiles, uint64_t* __restrict__ scratch, uint32_t epoch,
+               int s, int64_t* __restrict__ out_keys,
                int64_t* __restrict__ out_counts, int64_t* __restrict__ total) {
-  // staged records: keys (two planes in MODE 2), then the counts
+  constexpr int P = planes_of<MODE>(NW), R = record_words<MODE>(NW);
+  // staged records: R key planes, then the counts
   extern __shared__ __align__(16) int64_t staged[];
   int64_t* skey0 = staged;
   int64_t* skey1 = staged + TILE;
-  int32_t* scount = reinterpret_cast<int32_t*>(staged + (MODE == 2 ? 2 : 1) *
-                                               TILE);
+  int32_t* scount = reinterpret_cast<int32_t*>(staged + R * TILE);
   __shared__ int warp_tot[WARPS];
   __shared__ int64_t tile_s, base_s;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -227,7 +243,7 @@ compact_kernel(const int64_t* __restrict__ key0,
   // is the live lanes of the rounds before and those below it in this one
   const int bit = lane & 15;
   int rank[ITEMS];                  // rank in the warp, or -1 if dead
-  int64_t k0[ITEMS], k1[MODE ? ITEMS : 1];
+  int64_t k[P][ITEMS];
   int in_rounds = 0;
 #pragma unroll
   for (int j = 0; j < ITEMS; ++j) {
@@ -239,8 +255,8 @@ compact_kernel(const int64_t* __restrict__ key0,
     in_rounds += __popc(round);
     const int64_t i = wfirst + 32 * j + lane;
     if (on) {
-      k0[j] = __ldg(key0 + i);
-      if constexpr (MODE != 0) k1[j] = __ldg(key1 + i);
+#pragma unroll
+      for (int q = 0; q < P; ++q) k[q][j] = __ldg(keys.w[q] + i);
     }
   }
 
@@ -270,9 +286,12 @@ compact_kernel(const int64_t* __restrict__ key0,
     if (rank[j] < 0) continue;
     const int r = wbase + rank[j];
     if constexpr (MODE == 0) {
-      skey0[r] = k0[j];
+      skey0[r] = k[0][j];
+    } else if constexpr (MODE == 3) {
+#pragma unroll
+      for (int q = 0; q < P; ++q) staged[q * TILE + r] = k[q][j];
     } else {
-      const uint64_t hi = (uint64_t)k0[j], lo = (uint64_t)k1[j];
+      const uint64_t hi = (uint64_t)k[0][j], lo = (uint64_t)k[1][j];
       if constexpr (MODE == 1) {
         skey0[r] = (int64_t)((hi << s) | lo);
       } else if (s == 64) {
@@ -289,6 +308,15 @@ compact_kernel(const int64_t* __restrict__ key0,
   // write out rows [base, base + agg), consecutive threads on consecutive
   // rows
   const int64_t base = base_s;
+  if constexpr (MODE == 3) {
+    // word e of the block's records, consecutive threads on consecutive
+    // words
+    for (int e = threadIdx.x; e < agg * R; e += THREADS)
+      out_keys[base * R + e] = staged[(e % R) * TILE + e / R];
+    for (int r = threadIdx.x; r < agg; r += THREADS)
+      out_counts[base + r] = scount[count_slot(r)];
+    return;
+  }
   if constexpr (MODE == 2) {
     for (int r = threadIdx.x; r < agg; r += THREADS) {
       reinterpret_cast<longlong2*>(out_keys)[base + r] =
@@ -317,36 +345,40 @@ compact_kernel(const int64_t* __restrict__ key0,
   }
 }
 
-template <typename C, int MODE>
-int compact_rows(const int64_t* key0, const int64_t* key1, const C* counts,
-                 int64_t n, uint64_t* scratch, uint32_t epoch, int s,
-                 int64_t* out_keys, int64_t* out_counts, int64_t* total,
-                 cudaStream_t st) {
+template <typename C, int MODE, int NW>
+int compact_rows(const KeyPlanes& keys, const C* counts, int64_t n,
+                 uint64_t* scratch, uint32_t epoch, int s, int64_t* out_keys,
+                 int64_t* out_counts, int64_t* total, cudaStream_t st) {
   const int64_t tiles = (n + TILE - 1) / TILE;
-  const size_t smem = (size_t)(MODE == 2 ? 2 : 1) * TILE * sizeof(int64_t) +
+  const size_t smem = (size_t)record_words<MODE>(NW) * TILE * sizeof(int64_t) +
                       COUNT_SLOTS * sizeof(int32_t);
   cudaError_t err = cudaFuncSetAttribute(
-      compact_kernel<C, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      compact_kernel<C, MODE, NW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  compact_kernel<C, MODE><<<(unsigned)tiles, THREADS, smem, st>>>(
-      key0, key1, counts, n, tiles, scratch, epoch, s, out_keys, out_counts,
-      total);
+  compact_kernel<C, MODE, NW><<<(unsigned)tiles, THREADS, smem, st>>>(
+      keys, counts, n, tiles, scratch, epoch, s, out_keys, out_counts, total);
   return (int)cudaGetLastError();
 }
 
 template <typename C>
-int compact_mode(const int64_t* key0, const int64_t* key1, const C* counts,
-                 int64_t n, uint64_t* scratch, uint32_t epoch, int mode,
-                 int s, int64_t* out_keys, int64_t* out_counts,
-                 int64_t* total, cudaStream_t st) {
+int compact_mode(const KeyPlanes& keys, int nw, const C* counts, int64_t n,
+                 uint64_t* scratch, uint32_t epoch, int mode, int s,
+                 int64_t* out_keys, int64_t* out_counts, int64_t* total,
+                 cudaStream_t st) {
   switch (mode) {
-    case 0: return compact_rows<C, 0>(key0, key1, counts, n, scratch, epoch,
-                                      s, out_keys, out_counts, total, st);
-    case 1: return compact_rows<C, 1>(key0, key1, counts, n, scratch, epoch,
-                                      s, out_keys, out_counts, total, st);
-    default: return compact_rows<C, 2>(key0, key1, counts, n, scratch, epoch,
-                                       s, out_keys, out_counts, total, st);
+    case 0: return compact_rows<C, 0, 1>(keys, counts, n, scratch, epoch, s,
+                                         out_keys, out_counts, total, st);
+    case 1: return compact_rows<C, 1, 2>(keys, counts, n, scratch, epoch, s,
+                                         out_keys, out_counts, total, st);
+    case 2: return compact_rows<C, 2, 2>(keys, counts, n, scratch, epoch, s,
+                                         out_keys, out_counts, total, st);
+    default:
+      if (nw == 3)
+        return compact_rows<C, 3, 3>(keys, counts, n, scratch, epoch, s,
+                                     out_keys, out_counts, total, st);
+      return compact_rows<C, 3, 4>(keys, counts, n, scratch, epoch, s,
+                                   out_keys, out_counts, total, st);
   }
 }
 
@@ -360,15 +392,16 @@ extern "C" void compact_layout(int32_t* out) {
   out[1] = EPOCH_BITS;
 }
 
-// key0/key1: n int64 lanes each (key1 unused in mode 0); counts: n int8
-// (count_bytes 1) or int32 (count_bytes 4), 16-byte aligned; scratch: 1 +
-// ceil(n / TILE) uint64, zero when allocated, counter first, then the
-// status words, used by one stream at a time; epoch in [1, 2^EPOCH_BITS),
-// a new one each call since the scratch was last zeroed; out_keys: n
-// (modes 0, 1) or 2n (mode 2) int64, out_counts: n int64, both 16-byte
-// aligned; total: one int64.  s = 2 * r_len in [2, 62] for mode 1, [2, 64]
-// for mode 2.  Returns the launch's cudaError_t, or 0.
-extern "C" int compact_launch(const int64_t* key0, const int64_t* key1,
+// keys: nw host pointers to n int64 lanes each (nw = 1 in mode 0, 2 in
+// modes 1 and 2, 3 or 4 in mode 3); counts: n int8 (count_bytes 1) or
+// int32 (count_bytes 4), 16-byte aligned; scratch: 1 + ceil(n / TILE)
+// uint64, zero when allocated, counter first, then the status words, used
+// by one stream at a time; epoch in [1, 2^EPOCH_BITS), a new one each call
+// since the scratch was last zeroed; out_keys: n (modes 0, 1), 2n (mode 2)
+// or nw n (mode 3) int64, out_counts: n int64, both 16-byte aligned; total:
+// one int64.  s = 2 * r_len in [2, 62] for mode 1, [2, 64] for mode 2.
+// Returns the launch's cudaError_t, or 0.
+extern "C" int compact_launch(const int64_t* const* keys, int nw,
                               const void* counts, int count_bytes, int64_t n,
                               uint64_t* scratch, uint32_t epoch, int mode,
                               int s, int64_t* out_keys, int64_t* out_counts,
@@ -377,20 +410,26 @@ extern "C" int compact_launch(const int64_t* key0, const int64_t* key1,
   const auto misaligned = [](const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
   };
+  const int want = mode == 0 ? 1 : mode == 3 ? nw : 2;
   if (n < 1 || n >= (int64_t)1 << VALUE_BITS || tiles > 0x7FFFFFFF ||
-      mode < 0 || mode > 2 || (count_bytes != 1 && count_bytes != 4) ||
-      (mode != 0 && (s < 2 || s > (mode == 2 ? 64 : 62) || key1 == nullptr)) ||
+      mode < 0 || mode > 3 || nw != want || nw < 1 || nw > MAX_PLANES ||
+      (mode == 3 && nw < 3) || (count_bytes != 1 && count_bytes != 4) ||
+      ((mode == 1 || mode == 2) &&
+       (s < 2 || s > (mode == 2 ? 64 : 62))) ||
       epoch == 0 || epoch > EPOCH_MASK || misaligned(counts) ||
       misaligned(out_keys) || misaligned(out_counts))
     return (int)cudaErrorInvalidValue;
+  KeyPlanes kp = {};
+  for (int q = 0; q < nw; ++q) {
+    if (keys[q] == nullptr) return (int)cudaErrorInvalidValue;
+    kp.w[q] = keys[q];
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (count_bytes == 1)
-    return compact_mode<int8_t>(key0, key1,
-                                static_cast<const int8_t*>(counts), n,
-                                scratch, epoch, mode, s, out_keys,
+    return compact_mode<int8_t>(kp, nw, static_cast<const int8_t*>(counts),
+                                n, scratch, epoch, mode, s, out_keys,
                                 out_counts, total, st);
-  return compact_mode<int32_t>(key0, key1,
-                               static_cast<const int32_t*>(counts), n,
-                               scratch, epoch, mode, s, out_keys, out_counts,
-                               total, st);
+  return compact_mode<int32_t>(kp, nw, static_cast<const int32_t*>(counts),
+                               n, scratch, epoch, mode, s, out_keys,
+                               out_counts, total, st);
 }

@@ -34,7 +34,14 @@
 //   out of the registers by the seed's cut table, with a rolled bit a base
 //   for ambiguity;
 // - extract_gather_kernel, a spaced seed of span over 64: one thread walks
-//   a chunk of 16 windows of one row and gathers each key's bases.
+//   a chunk of 16 windows of one row and gathers each key's bases;
+// - extract_wide_kernel, a contiguous key of more than 63 bases in W int64
+//   words (ops/encode's general layout), and extract_gapped_kernel, the
+//   gapped L+R lanes of the unfused route: one thread a lane, each word cut
+//   straight from the row in device memory (GlobalRow: three words and a
+//   few funnel shifts a cut), with no staging and no cap on the row's
+//   width; the canonical wide key compares the two strands word by word
+//   first and writes the chosen one's words second, so no word is held.
 // The last two stage their keys in shared memory (one plane a key word)
 // and store the block's contiguous range of the output with neighbouring
 // threads on neighbouring addresses; thread t of the grid takes chunk t of
@@ -237,6 +244,176 @@ extract_rolled_kernel(const void* __restrict__ codes, int row_stride,
   }
 }
 
+// ---- Keys of more than two words, and the gapped lanes ----
+
+// A row read straight from device memory: the 64 bits of the packed stream
+// from base q (0 past the row's width), and with them the ambiguity bits
+// of the same bases (u8 rows: 01 a base whose code is >= 4).
+template <bool PACKED>
+struct GlobalRow {
+  const void* row;
+  int L, words;              // words: ceil(L / 16)
+
+  __device__ __forceinline__ uint32_t word(int j, uint32_t& amb) const {
+    amb = 0u;
+    return j < words ? kmer::row_word<PACKED>(row, j, L, amb) : 0u;
+  }
+  __device__ __forceinline__ uint64_t cut(int q, uint64_t& amb) const {
+    const int j = q >> 4, s = 2 * (q & 15);
+    uint32_t a0, a1, a2;
+    const uint32_t w0 = word(j, a0), w1 = word(j + 1, a1),
+                   w2 = word(j + 2, a2);
+    amb = (uint64_t)__funnelshift_l(a1, a0, s) << 32 |
+          __funnelshift_l(a2, a1, s);
+    return (uint64_t)__funnelshift_l(w1, w0, s) << 32 |
+           __funnelshift_l(w2, w1, s);
+  }
+  // the value of the m <= 32 bases from q (top-aligned cut, shifted down)
+  __device__ __forceinline__ uint64_t seg(int q, int m) const {
+    uint64_t a;
+    return cut(q, a) >> (64 - 2 * m);
+  }
+  // some base of [q, q + m) is ambiguous (any m)
+  __device__ __forceinline__ bool ambiguous(int q, int m) const {
+    for (int t = 0; t < m; t += 32) {
+      uint64_t a;
+      cut(q + t, a);
+      const int b = m - t < 32 ? m - t : 32;
+      if (a >> (64 - 2 * b)) return true;
+    }
+    return false;
+  }
+};
+
+// the stored form of a word of b bases: a 32-base word's top bit flipped
+__device__ __forceinline__ int64_t stored(uint64_t v, int b) {
+  return (int64_t)(b == 32 ? v ^ (1ull << 63) : v);
+}
+
+// A contiguous key of n > 63 bases in W = words64(n) words (ops/encode's
+// general layout; `rest` the last word's bases), out: W planes of the flat
+// (B, P) lanes, plane stride B P.  One thread a lane, its bases cut
+// straight from the row.  Word j of the forward key is the cut of 31 bases
+// at o + 31 j (rest for the last); word j of the reverse complement is the
+// top 62 bits of rc64 of the cut at o + n - 31 j - 32, and its last word
+// the low 2 rest bits of rc64 of the cut at o.  The canonical key takes
+// two passes, so that no word is held: the first compares the two strands
+// word by word up to the first difference, the second writes the chosen
+// strand's words.
+template <bool PACKED, bool CANON>
+__global__ void __launch_bounds__(CUT_THREADS)
+extract_wide_kernel(const void* __restrict__ codes, int row_stride,
+                    const int32_t* __restrict__ lengths,
+                    const int32_t* __restrict__ limits,
+                    int64_t* __restrict__ out, int B, int L, int n, int W,
+                    int P, int mask_amb) {
+  const int rest = n - kmer::HI_BASES * (W - 1);
+  const int64_t total = (int64_t)B * P;
+  for (int64_t f = (int64_t)blockIdx.x * CUT_THREADS + threadIdx.x;
+       f < total; f += (int64_t)gridDim.x * CUT_THREADS) {
+    const int b = (int)(f / P), o = (int)(f - (int64_t)b * P);
+    const GlobalRow<PACKED> row = {
+        static_cast<const char*>(codes) +
+            (size_t)b * row_stride * (PACKED ? 4 : 1),
+        L, (L + 15) / 16};
+    bool ok = o < min(lengths[b] - n + 1, limits[b]);
+    if (!PACKED && mask_amb) ok = ok && !row.ambiguous(o, n);
+    auto fw = [&](int j) {
+      return row.seg(o + kmer::HI_BASES * j,
+                     j < W - 1 ? kmer::HI_BASES : rest);
+    };
+    auto rc = [&](int j) -> uint64_t {
+      uint64_t a;
+      if (j < W - 1)
+        return kmer::rc64(row.cut(o + n - kmer::HI_BASES * j - 32, a)) >> 2;
+      const uint64_t x = kmer::rc64(row.cut(o, a));
+      return rest == 32 ? x : x & ((1ull << 2 * rest) - 1);
+    };
+    bool use_rc = false;
+    if constexpr (CANON) {
+      for (int j = 0; j < W; ++j) {
+        const uint64_t x = fw(j), y = rc(j);
+        if (x != y) {
+          use_rc = y < x;
+          break;
+        }
+      }
+    }
+    for (int j = 0; j < W; ++j) {
+      const int bj = j < W - 1 ? kmer::HI_BASES : rest;
+      out[j * total + f] =
+          ok ? stored(use_rc ? rc(j) : fw(j), bj) : kmer::SENTINEL;
+    }
+  }
+}
+
+// The gapped L+R lanes of the unfused route: lane t of row b is chunk size
+// c and offset o of the c-major stream (ops/extract.gapped_lanes: O_c = L
+// - c + 1 lanes a chunk size, c from c_min up to min(c_max, L)), out: the
+// planes of ops/encode.gapped_bases over the flat (B, T) lanes, plane
+// stride B T.  SPLIT (l_len, r_len <= 31): K3's two words, the L window's
+// value and the R window's; else the words of the string L||R, a word that
+// straddles the two windows cut from both.  One thread a lane, its
+// windows cut straight from the row; c comes from t by the closed form of
+// the stream's prefix sums, corrected by one step either way.
+template <bool PACKED, bool SPLIT>
+__global__ void __launch_bounds__(CUT_THREADS)
+extract_gapped_kernel(const void* __restrict__ codes, int row_stride,
+                      const int32_t* __restrict__ lengths,
+                      const int32_t* __restrict__ limits,
+                      int64_t* __restrict__ out, int B, int L, int l_len,
+                      int r_len, int c_min, int T, int W, int mask_amb) {
+  const int n = l_len + r_len;
+  const int64_t total = (int64_t)B * T;
+  const int64_t A = (int64_t)L - c_min + 1;    // lanes of chunk size c_min
+  // lanes before chunk size c_min + d
+  auto before = [A](int64_t d) { return d * A - d * (d - 1) / 2; };
+  for (int64_t f = (int64_t)blockIdx.x * CUT_THREADS + threadIdx.x;
+       f < total; f += (int64_t)gridDim.x * CUT_THREADS) {
+    const int b = (int)(f / T);
+    const int64_t t = f - (int64_t)b * T;
+    const double h = (double)(2 * A + 1);
+    int64_t d = (int64_t)((h - sqrt(h * h - 8.0 * (double)t)) / 2.0);
+    if (d < 0) d = 0;
+    while (d > 0 && before(d) > t) --d;
+    while (before(d + 1) <= t) ++d;
+    const int c = c_min + (int)d, o = (int)(t - before(d));
+    const int q = c - r_len;                   // the R window's start
+    const GlobalRow<PACKED> row = {
+        static_cast<const char*>(codes) +
+            (size_t)b * row_stride * (PACKED ? 4 : 1),
+        L, (L + 15) / 16};
+    bool ok = o + c <= lengths[b] && o < limits[b];
+    if (!PACKED && mask_amb)
+      ok = ok && !row.ambiguous(o, l_len) && !row.ambiguous(o + q, r_len);
+    if constexpr (SPLIT) {
+      out[f] = ok ? (int64_t)row.seg(o, l_len) : kmer::SENTINEL;
+      out[total + f] = ok ? (int64_t)row.seg(o + q, r_len) : kmer::SENTINEL;
+    } else {
+      // the m bases of L||R from its base u: a cut of each window they
+      // touch
+      auto value = [&](int u, int m) -> uint64_t {
+        if (u + m <= l_len) return row.seg(o + u, m);
+        if (u >= l_len) return row.seg(o + q + u - l_len, m);
+        const int m2 = u + m - l_len;
+        return row.seg(o + u, m - m2) << 2 * m2 | row.seg(o + q, m2);
+      };
+      const int rest = n - kmer::HI_BASES * (W - 1);
+      for (int j = 0; j < W; ++j) {
+        const int bj = j < W - 1 ? kmer::HI_BASES : rest;
+        int64_t v = kmer::SENTINEL;
+        if (ok) {
+          const int u = kmer::HI_BASES * j;
+          // a 32-base word: its first base, then 31
+          v = bj < 32 ? (int64_t)value(u, bj)
+                      : stored(value(u, 1) << 62 | value(u + 1, 31), 32);
+        }
+        out[j * total + f] = v;
+      }
+    }
+  }
+}
+
 // one batch's launch arguments; kmer::dispatch picks the body and its
 // template arguments.  With `info`, each body reports its launch
 // (kmer::report) instead of making it.
@@ -378,3 +555,153 @@ extern "C" int extract_info(int packed, int row_stride, int B, int L, int n,
 // the cut table's layout (kmer::cut_layout): CUT_WORDS, CUT_TABLE_WORDS,
 // MAX_ROLLED_SPAN
 extern "C" void cut_layout(int32_t* out) { kmer::cut_layout(out); }
+
+// ---- The wide and gapped entries ----
+
+namespace {
+
+// blocks for a flat lane stream: enough for every lane, at most the
+// card's resident blocks times eight (the threads then stride)
+template <typename K>
+unsigned flat_blocks(K kernel, int64_t total) {
+  int dev = 0, sms = 1, per_sm = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, CUT_THREADS,
+                                                0);
+  const int64_t need = (total + CUT_THREADS - 1) / CUT_THREADS;
+  const int64_t cap = (int64_t)sms * (per_sm > 0 ? per_sm : 1) * 8;
+  return (unsigned)(need < cap ? need : cap);
+}
+
+template <bool PACKED, bool CANON>
+int wide_launch(const void* codes, int row_stride, const int32_t* lengths,
+                const int32_t* limits, int64_t* out, int B, int L, int n,
+                int W, int P, int mask_amb, cudaStream_t st, int* info) {
+  auto kern = extract_wide_kernel<PACKED, CANON>;
+  const unsigned blocks = flat_blocks(kern, (int64_t)B * P);
+  if (info) {
+    kmer::report(info, kern, blocks, CUT_THREADS, 0);
+    return info[kmer::INFO_INTS - 1];
+  }
+  kern<<<blocks, CUT_THREADS, 0, st>>>(codes, row_stride, lengths, limits,
+                                       out, B, L, n, W, P, mask_amb);
+  return (int)cudaGetLastError();
+}
+
+template <bool PACKED, bool SPLIT>
+int gapped_launch(const void* codes, int row_stride, const int32_t* lengths,
+                  const int32_t* limits, int64_t* out, int B, int L,
+                  int l_len, int r_len, int c_min, int T, int W,
+                  int mask_amb, cudaStream_t st, int* info) {
+  auto kern = extract_gapped_kernel<PACKED, SPLIT>;
+  const unsigned blocks = flat_blocks(kern, (int64_t)B * T);
+  if (info) {
+    kmer::report(info, kern, blocks, CUT_THREADS, 0);
+    return info[kmer::INFO_INTS - 1];
+  }
+  kern<<<blocks, CUT_THREADS, 0, st>>>(codes, row_stride, lengths, limits,
+                                       out, B, L, l_len, r_len, c_min, T, W,
+                                       mask_amb);
+  return (int)cudaGetLastError();
+}
+
+int wide_or_report(const void* codes, int packed, int row_stride,
+                   const int32_t* lengths, const int32_t* limits,
+                   int64_t* out, int B, int L, int n, int W, int canonical,
+                   int mask_amb, void* stream, int* info) {
+  const int P = L - n + 1;
+  if (n <= kmer::MAX_BASES || B < 1 || P < 1 || W < 3 ||
+      (n - 2) / kmer::HI_BASES + 1 != W ||
+      (packed && row_stride < (L + 15) / 16) || (!packed && row_stride < L))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (packed)
+    return canonical ? wide_launch<true, true>(codes, row_stride, lengths,
+                                               limits, out, B, L, n, W, P,
+                                               mask_amb, st, info)
+                     : wide_launch<true, false>(codes, row_stride, lengths,
+                                                limits, out, B, L, n, W, P,
+                                                mask_amb, st, info);
+  return canonical ? wide_launch<false, true>(codes, row_stride, lengths,
+                                              limits, out, B, L, n, W, P,
+                                              mask_amb, st, info)
+                   : wide_launch<false, false>(codes, row_stride, lengths,
+                                               limits, out, B, L, n, W, P,
+                                               mask_amb, st, info);
+}
+
+int gapped_or_report(const void* codes, int packed, int row_stride,
+                     const int32_t* lengths, const int32_t* limits,
+                     int64_t* out, int B, int L, int l_len, int r_len,
+                     int c_min, int T, int W, int mask_amb, void* stream,
+                     int* info) {
+  const bool split = l_len <= kmer::HI_BASES && r_len <= kmer::HI_BASES;
+  const int n = l_len + r_len;
+  // K3's split, or the general layout of n >= 33 bases
+  const int want = split ? 2 : (n - 2) / kmer::HI_BASES + 1;
+  if (B < 1 || T < 1 || l_len < 1 || r_len < 1 || c_min < n || W != want ||
+      (packed && row_stride < (L + 15) / 16) || (!packed && row_stride < L))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (packed)
+    return split ? gapped_launch<true, true>(codes, row_stride, lengths,
+                                             limits, out, B, L, l_len, r_len,
+                                             c_min, T, W, mask_amb, st, info)
+                 : gapped_launch<true, false>(codes, row_stride, lengths,
+                                              limits, out, B, L, l_len, r_len,
+                                              c_min, T, W, mask_amb, st,
+                                              info);
+  return split ? gapped_launch<false, true>(codes, row_stride, lengths,
+                                            limits, out, B, L, l_len, r_len,
+                                            c_min, T, W, mask_amb, st, info)
+               : gapped_launch<false, false>(codes, row_stride, lengths,
+                                             limits, out, B, L, l_len, r_len,
+                                             c_min, T, W, mask_amb, st, info);
+}
+
+}  // namespace
+
+// A contiguous key of n > 63 bases (W = words64(n) words, ops/encode):
+// codes, lengths and limits as extract_launch's; out: (W, B, L - n + 1)
+// int64, SENTINEL on invalid lanes.  Returns the launch's cudaError_t.
+extern "C" int extract_wide_launch(const void* codes, int packed,
+                                   int row_stride, const int32_t* lengths,
+                                   const int32_t* limits, int64_t* out, int B,
+                                   int L, int n, int W, int canonical,
+                                   int mask_amb, void* stream) {
+  return wide_or_report(codes, packed, row_stride, lengths, limits, out, B,
+                        L, n, W, canonical, mask_amb, stream, nullptr);
+}
+
+extern "C" int extract_wide_info(int packed, int row_stride, int B, int L,
+                                 int n, int W, int canonical, int mask_amb,
+                                 int* info) {
+  int64_t dummy[1];
+  return wide_or_report(nullptr, packed, row_stride, nullptr, nullptr, dummy,
+                        B, L, n, W, canonical, mask_amb, nullptr, info);
+}
+
+// The gapped L+R lanes of chunk sizes c_min .. min(c_max, L): T lanes a
+// row (ops/extract.gapped_lane_count), out: (W, B, T) int64 in the planes
+// of ops/encode.gapped_bases (W = 2, K3's split, while l_len, r_len <= 31),
+// SENTINEL on invalid lanes.  Returns the launch's cudaError_t.
+extern "C" int extract_gapped_launch(const void* codes, int packed,
+                                     int row_stride, const int32_t* lengths,
+                                     const int32_t* limits, int64_t* out,
+                                     int B, int L, int l_len, int r_len,
+                                     int c_min, int T, int W, int mask_amb,
+                                     void* stream) {
+  return gapped_or_report(codes, packed, row_stride, lengths, limits, out, B,
+                          L, l_len, r_len, c_min, T, W, mask_amb, stream,
+                          nullptr);
+}
+
+extern "C" int extract_gapped_info(int packed, int row_stride, int B, int L,
+                                   int l_len, int r_len, int c_min, int T,
+                                   int W, int mask_amb, int* info) {
+  int64_t dummy[1];
+  return gapped_or_report(nullptr, packed, row_stride, nullptr, nullptr,
+                          dummy, B, L, l_len, r_len, c_min, T, W, mask_amb,
+                          nullptr, info);
+}

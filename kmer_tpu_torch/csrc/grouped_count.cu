@@ -1,7 +1,7 @@
 // Grouped run lengths and grouped sort + run lengths for Hopper (sm_90a),
-// over W in {1, 2, 3, 4} int64 word planes (a row is (w0[e], ..., w{W-1}[e]),
-// compared lexicographically as signed int64, word 0 most significant; a
-// row whose word 0 is SENTINEL = INT64_MAX is a dead lane).
+// over W int64 word planes, 1 <= W <= MAX_PLANES (a row is (w0[e], ...,
+// w{W-1}[e]), compared lexicographically as signed int64, word 0 most
+// significant; a row whose word 0 is SENTINEL = INT64_MAX is a dead lane).
 //
 // Three entry points, each replacing a TPU kernel of
 // kmer_tpu/ops/pallas/fused_count.py:
@@ -77,6 +77,13 @@
 // The column and warp bodies run on a grid of the card's resident blocks
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), threads or warps
 // taking groups or spans in turn, with 64-bit offsets.
+// Widths: the planes travel by value as structs of MAX_PLANES pointers.
+// K2a and the block body are unrolled for W <= 4 and loop over the planes
+// beyond (template argument W = 0), K2a comparing a row with the one
+// before it one plane at a time, so any W runs in the same registers; the
+// column and warp bodies, whose registers hold whole rows, take W <= 4,
+// and wider rows take the block body (a group of m rows must fit a
+// block's shared memory, max_group_rows(W) in the wrapper).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -101,35 +108,31 @@ constexpr int SORT_THREADS = 512;            // block body: threads a block
 constexpr int MIN_ROWS = 2048;                 // rows a sort block takes at least
 constexpr int SMEM_MAX = 232448;               // 227 KB: a block's shared memory
 
+constexpr int MAX_PLANES = 128;
 struct Planes {
-  const int64_t* w[4];
+  const int64_t* w[MAX_PLANES];
 };
 struct OutPlanes {
-  int64_t* w[4];
+  int64_t* w[MAX_PLANES];
 };
 
-// The rows [first, first + RL_ROWS) of each plane (0 past n): 16-byte
-// loads when the planes are 16-byte aligned.
-template <int W>
-__device__ __forceinline__ void load_rows(const Planes& pl, int64_t first,
+// The rows [first, first + RL_ROWS) of a plane (0 past n): 16-byte loads
+// when the planes are 16-byte aligned.
+__device__ __forceinline__ void load_rows(const int64_t* p, int64_t first,
                                           int64_t n, bool vec,
-                                          int64_t (&r)[W][RL_ROWS]) {
+                                          int64_t (&r)[RL_ROWS]) {
   if (vec && first + RL_ROWS <= n) {
 #pragma unroll
-    for (int q = 0; q < W; ++q)
-#pragma unroll
-      for (int v = 0; v < RL_ROWS / 2; ++v) {
-        const longlong2 x =
-            __ldg(reinterpret_cast<const longlong2*>(pl.w[q] + first) + v);
-        r[q][2 * v] = x.x;
-        r[q][2 * v + 1] = x.y;
-      }
+    for (int v = 0; v < RL_ROWS / 2; ++v) {
+      const longlong2 x = __ldg(reinterpret_cast<const longlong2*>(p + first) +
+                                v);
+      r[2 * v] = x.x;
+      r[2 * v + 1] = x.y;
+    }
   } else {
 #pragma unroll
-    for (int q = 0; q < W; ++q)
-#pragma unroll
-      for (int j = 0; j < RL_ROWS; ++j)
-        r[q][j] = first + j < n ? __ldg(pl.w[q] + first + j) : 0;
+    for (int j = 0; j < RL_ROWS; ++j)
+      r[j] = first + j < n ? __ldg(p + first + j) : 0;
   }
 }
 
@@ -141,55 +144,66 @@ __device__ __forceinline__ int place(int64_t i, int64_t n, int m) {
 // The start and live flags of the RL_ROWS rows from `first` (bit j for row
 // first + j; rows past n have neither): a row starts a run at a multiple
 // of m or where it differs from the row before it, which comes from the
-// lane before by a shuffle (the warp's first row loads it).  All 32 lanes
-// of the warp call it.
+// lane before by a shuffle (the warp's first row loads it), one plane at a
+// time (W > 0: W planes, unrolled; W == 0: nw).  All 32 lanes of the warp
+// call it.
 template <int W>
-__device__ __forceinline__ void flag_rows(const Planes& pl, int64_t first,
-                                          int64_t n, int m, bool vec,
-                                          unsigned& starts, unsigned& live) {
+__device__ __forceinline__ void flag_rows(const Planes& pl, int nw,
+                                          int64_t first, int64_t n, int m,
+                                          bool vec, unsigned& starts,
+                                          unsigned& live) {
   const int lane = threadIdx.x % 32;
+  const int NW = W > 0 ? W : nw;
   // the warp's first row loads the row before it with its own rows
-  int64_t left[W];
   const bool edge = lane == 0 && first > 0 && first < n;
+  unsigned diff = 0, real = 0;   // bit j: row first + j differs; is live
 #pragma unroll
-  for (int q = 0; q < W; ++q) left[q] = edge ? __ldg(pl.w[q] + first - 1) : 0;
-  int64_t r[W][RL_ROWS];
-  load_rows<W>(pl, first, n, vec, r);
+  for (int q = 0; q < NW; ++q) {
+    int64_t left = edge ? __ldg(pl.w[q] + first - 1) : 0;
+    int64_t r[RL_ROWS];
+    load_rows(pl.w[q], first, n, vec, r);
+    const int64_t up = __shfl_up_sync(flag_scan::FULL, r[RL_ROWS - 1], 1);
+    if (lane != 0) left = up;
 #pragma unroll
-  for (int q = 0; q < W; ++q) {
-    const int64_t up = __shfl_up_sync(flag_scan::FULL, r[q][RL_ROWS - 1], 1);
-    if (lane != 0) left[q] = up;
+    for (int j = 0; j < RL_ROWS; ++j) {
+      diff |= (unsigned)(r[j] != (j ? r[j - 1] : left)) << j;
+      if (q == 0) real |= (unsigned)(r[j] != SENTINEL) << j;
+    }
   }
   int pos = place(first, n, m);        // the first row's place in its group
   starts = 0;
   live = 0;
 #pragma unroll
   for (int j = 0; j < RL_ROWS; ++j) {
-    bool st = pos == 0;
-#pragma unroll
-    for (int q = 0; q < W; ++q)
-      st |= r[q][j] != (j ? r[q][j - 1] : left[q]);
     if (first + j < n) {
-      starts |= (unsigned)st << j;
-      live |= (unsigned)(r[0][j] != SENTINEL) << j;
+      starts |= (unsigned)(pos == 0 || (diff >> j & 1u)) << j;
+      live |= real & (1u << j);
     }
     pos = pos + 1 == m ? 0 : pos + 1;
   }
 }
 
 // The rows [e, e + 32) past a tile, one a lane, and the row before each,
-// loaded early so that their latency overlaps the tile's own loads.
+// loaded early so that their latency overlaps the tile's own loads (W >
+// 0); with W == 0 the nw planes are compared as they load.
 template <int W>
 struct Ahead {
-  int64_t row[W], before[W];
+  static constexpr int H = W > 0 ? W : 1;
+  int64_t row[H], before[H];
+  bool diff = false;
 
-  __device__ __forceinline__ void load(const Planes& pl, int64_t e,
+  __device__ __forceinline__ void load(const Planes& pl, int nw, int64_t e,
                                        int64_t n) {
     const int64_t i = e + threadIdx.x % 32;
+    if constexpr (W > 0) {
 #pragma unroll
-    for (int q = 0; q < W; ++q) {
-      row[q] = i < n ? __ldg(pl.w[q] + i) : 0;
-      before[q] = i < n ? __ldg(pl.w[q] + i - 1) : 0;
+      for (int q = 0; q < W; ++q) {
+        row[q] = i < n ? __ldg(pl.w[q] + i) : 0;
+        before[q] = i < n ? __ldg(pl.w[q] + i - 1) : 0;
+      }
+    } else {
+      for (int q = 0; q < nw && i < n; ++q)
+        diff |= __ldg(pl.w[q] + i) != __ldg(pl.w[q] + i - 1);
     }
   }
 
@@ -198,9 +212,9 @@ struct Ahead {
   __device__ __forceinline__ int64_t first_start(int64_t e, int64_t n,
                                                  int m) const {
     const int64_t i = e + threadIdx.x % 32;
-    bool start = i >= n || place(i, n, m) == 0;
+    bool start = i >= n || place(i, n, m) == 0 || diff;
 #pragma unroll
-    for (int q = 0; q < W; ++q) start |= row[q] != before[q];
+    for (int q = 0; q < (W > 0 ? W : 0); ++q) start |= row[q] != before[q];
     const unsigned b = __ballot_sync(flag_scan::FULL, start);
     if (!b) return -1;
     const int64_t f = e + __ffs(b) - 1;
@@ -213,14 +227,14 @@ struct Ahead {
 // firsts alternate between the two rows of buf).  Every group's first row
 // is a start, so this takes at most m / RL_TILE + 1 steps.
 template <int W>
-__device__ int64_t forward_block(const Planes& pl, int64_t e, int64_t n,
+__device__ int64_t forward_block(const Planes& pl, int nw, int64_t e, int64_t n,
                                  int m, bool vec,
                                  int64_t (*buf)[RL_WARPS]) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int k = 0; e < n; ++k, e += RL_TILE) {
     const int64_t first = e + (int64_t)threadIdx.x * RL_ROWS;
     unsigned starts, live;
-    flag_rows<W>(pl, first, n, m, vec, starts, live);
+    flag_rows<W>(pl, nw, first, n, m, vec, starts, live);
     const bool has = starts != 0;
     const int64_t wf = flag_scan::warp_first(
         has, first + (has ? __ffs(starts) - 1 : 0), n);
@@ -238,7 +252,7 @@ __device__ int64_t forward_block(const Planes& pl, int64_t e, int64_t n,
 // end), or 0 when its word 0 is SENTINEL.
 template <int W>
 __global__ void __launch_bounds__(RL_THREADS)
-run_lengths_kernel(Planes pl, int64_t n, int m, bool vec,
+run_lengths_kernel(Planes pl, int nw, int64_t n, int m, bool vec,
                    int32_t* __restrict__ counts) {
   // each warp's first start (n for none), then the first start among the
   // 32 rows past the tile's end (-1 for none); the forward scan's firsts
@@ -249,9 +263,9 @@ run_lengths_kernel(Planes pl, int64_t n, int m, bool vec,
   const int64_t end = tile + RL_TILE;
   const int64_t first = tile + (int64_t)threadIdx.x * RL_ROWS;
   Ahead<W> ahead;
-  if (warp == RL_WARPS - 1 && end < n) ahead.load(pl, end, n);
+  if (warp == RL_WARPS - 1 && end < n) ahead.load(pl, nw, end, n);
   unsigned starts, live;
-  flag_rows<W>(pl, first, n, m, vec, starts, live);
+  flag_rows<W>(pl, nw, first, n, m, vec, starts, live);
   if (warp == RL_WARPS - 1) {
     const int64_t f = end < n ? ahead.first_start(end, n, m) : n;
     if (lane == 0) firsts[RL_WARPS] = f;
@@ -265,7 +279,7 @@ run_lengths_kernel(Planes pl, int64_t n, int m, bool vec,
   __syncthreads();
   int64_t past = firsts[RL_WARPS];
   if (past < 0)                              // the same for the whole block
-    past = forward_block<W>(pl, end + 32, n, m, vec, scan);
+    past = forward_block<W>(pl, nw, end + 32, n, m, vec, scan);
   const int64_t later = flag_scan::block_next(firsts, warp, RL_WARPS, n);
   const int64_t after =
       flag_scan::warp_next(has, mine, later < past ? later : past);
@@ -687,12 +701,13 @@ warp_sort_kernel(Planes in, OutPlanes out, int32_t* __restrict__ counts,
   }
 }
 
-// row a > row b of the shared-memory tile, lexicographically
+// row a > row b of the shared-memory tile, lexicographically over its W
+// words (W == 0: nw)
 template <int W>
-__device__ __forceinline__ bool tile_gt(const int64_t* s, int rows, int a,
-                                        int b) {
+__device__ __forceinline__ bool tile_gt(const int64_t* s, int nw, int rows,
+                                        int a, int b) {
 #pragma unroll
-  for (int q = 0; q < W; ++q) {
+  for (int q = 0; q < (W > 0 ? W : nw); ++q) {
     const int64_t x = s[q * rows + a], y = s[q * rows + b];
     if (x != y) return x > y;
   }
@@ -708,8 +723,9 @@ __device__ __forceinline__ bool tile_gt(const int64_t* s, int rows, int a,
 template <int W>
 __global__ void __launch_bounds__(SORT_THREADS)
 block_sort_kernel(Planes in, OutPlanes out, int32_t* __restrict__ counts,
-                  int64_t G, int m, int log_half, int gpb,
+                  int nw, int64_t G, int m, int log_half, int gpb,
                   int64_t elem_stride, int64_t group_stride) {
+  const int NW = W > 0 ? W : nw;
   extern __shared__ __align__(16) int64_t s[];
   // element-major walk for strided columns: neighbouring threads take
   // neighbouring groups, which lie side by side in memory
@@ -734,7 +750,7 @@ block_sort_kernel(Planes in, OutPlanes out, int32_t* __restrict__ counts,
     const int r = q * pitch + i;
     const int64_t e = i * elem_stride + (g0 + q) * group_stride;
 #pragma unroll
-    for (int w = 0; w < W; ++w)
+    for (int w = 0; w < NW; ++w)
       s[w * rows + r] = q < ng ? __ldg(in.w[w] + e) : SENTINEL;
   }
   __syncthreads();
@@ -752,9 +768,9 @@ block_sort_kernel(Planes in, OutPlanes out, int32_t* __restrict__ counts,
         const int lo = q * pitch + blk + off;
         const int hi =
             q * pitch + (mirror ? blk + 2 * j - 1 - off : blk + off + j);
-        if (tile_gt<W>(s, rows, lo, hi)) {
+        if (tile_gt<W>(s, nw, rows, lo, hi)) {
 #pragma unroll
-          for (int w = 0; w < W; ++w) {
+          for (int w = 0; w < NW; ++w) {
             const int64_t a = s[w * rows + lo];
             s[w * rows + lo] = s[w * rows + hi];
             s[w * rows + hi] = a;
@@ -773,34 +789,34 @@ block_sort_kernel(Planes in, OutPlanes out, int32_t* __restrict__ counts,
     const int r = q * pitch + i;
     const int64_t e = i * elem_stride + (g0 + q) * group_stride;
     int cnt = 0;
-    if (s[r] != SENTINEL && (i == 0 || tile_gt<W>(s, rows, r, r - 1))) {
+    if (s[r] != SENTINEL && (i == 0 || tile_gt<W>(s, nw, rows, r, r - 1))) {
       int lo = i + 1, hi = m;
       while (lo < hi) {
         const int mid = (lo + hi) >> 1;
-        if (tile_gt<W>(s, rows, q * pitch + mid, r)) hi = mid;
+        if (tile_gt<W>(s, nw, rows, q * pitch + mid, r)) hi = mid;
         else lo = mid + 1;
       }
       cnt = lo - i;
     }
     counts[e] = cnt;
 #pragma unroll
-    for (int w = 0; w < W; ++w) out.w[w][e] = s[w * rows + r];
+    for (int w = 0; w < NW; ++w) out.w[w][e] = s[w * rows + r];
   }
 }
 
 template <int W>
-int run_lengths_rows(Planes pl, int64_t G, int m, int32_t* counts,
-                     cudaStream_t st) {
+int run_lengths_rows(const Planes& pl, int nw, int64_t G, int m,
+                     int32_t* counts, cudaStream_t st) {
   const int64_t n = G * m;
   const int64_t blocks = (n + RL_TILE - 1) / RL_TILE;
   if (G > INT64_MAX / m || blocks > 0x7FFFFFFF ||
       (reinterpret_cast<uintptr_t>(counts) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   bool vec = true;
-  for (int q = 0; q < W; ++q)
+  for (int q = 0; q < nw; ++q)
     vec &= (reinterpret_cast<uintptr_t>(pl.w[q]) & 15) == 0;
-  run_lengths_kernel<W><<<(unsigned)blocks, RL_THREADS, 0, st>>>(pl, n, m,
-                                                                 vec, counts);
+  run_lengths_kernel<W><<<(unsigned)blocks, RL_THREADS, 0, st>>>(
+      pl, nw, n, m, vec, counts);
   return (int)cudaGetLastError();
 }
 
@@ -856,7 +872,7 @@ struct Args {
   OutPlanes out;
   int32_t* counts;
   int64_t G, elem_stride, group_stride;
-  int m;
+  int m, nw;
   bool vec;                        // every plane and the counts 16-byte aligned
   cudaStream_t st;
   int* info;
@@ -913,14 +929,16 @@ int warp_r(const Args& a, int R) {
   }
 }
 
+// groups a block: MIN_ROWS rows' worth, as many as shared memory holds
 template <int W>
 int block_launch(const Args& a) {
-  const int gpb = a.m < MIN_ROWS ? MIN_ROWS / a.m : 1;
-  const size_t smem = (size_t)gpb * (a.m + 1) * W * sizeof(int64_t);
-  return run(block_sort_kernel<W>, BLOCK, SORT_THREADS, smem,
+  const size_t group = (size_t)(a.m + 1) * a.nw * sizeof(int64_t);
+  int gpb = a.m < MIN_ROWS ? MIN_ROWS / a.m : 1;
+  while (gpb > 1 && gpb * group > (size_t)SMEM_MAX) gpb >>= 1;
+  return run(block_sort_kernel<W>, BLOCK, SORT_THREADS, gpb * group,
              (a.G + gpb - 1) / gpb, false, a.st, a.info, a.in, a.out,
-             a.counts, a.G, a.m, log2_of(a.m >> 1), gpb, a.elem_stride,
-             a.group_stride);
+             a.counts, a.nw, a.G, a.m, log2_of(a.m >> 1), gpb,
+             a.elem_stride, a.group_stride);
 }
 
 // The warp body's rows a lane for groups of m rows and W words: the power
@@ -954,24 +972,23 @@ int sort_or_report(const int64_t* const* in, int64_t* const* out, int W,
                    int64_t G, int m, int64_t elem_stride,
                    int64_t group_stride, int32_t* counts, void* stream,
                    int* info) {
-  if (W < 1 || W > 4 || G < 1 || m < 1 || (m & (m - 1)) != 0 ||
+  if (W < 1 || W > MAX_PLANES || G < 1 || m < 1 || (m & (m - 1)) != 0 ||
       G > INT64_MAX / m)
     return (int)cudaErrorInvalidValue;
-  Args a;
+  Args a = {};
   bool vec = true;
-  for (int q = 0; q < 4; ++q) {
+  for (int q = 0; q < W && info == nullptr; ++q) {
+    if (in[q] == nullptr || out[q] == nullptr)
+      return (int)cudaErrorInvalidValue;
     a.in.w[q] = in[q];
     a.out.w[q] = out[q];
-    if (q < W && info == nullptr) {
-      if (in[q] == nullptr || out[q] == nullptr)
-        return (int)cudaErrorInvalidValue;
-      vec &= (reinterpret_cast<uintptr_t>(in[q]) & 15) == 0 &&
-             (reinterpret_cast<uintptr_t>(out[q]) & 15) == 0;
-    }
+    vec &= (reinterpret_cast<uintptr_t>(in[q]) & 15) == 0 &&
+           (reinterpret_cast<uintptr_t>(out[q]) & 15) == 0;
   }
   a.counts = counts;
   a.G = G;
   a.m = m;
+  a.nw = W;
   a.elem_stride = elem_stride;
   a.group_stride = group_stride;
   a.vec = vec && (reinterpret_cast<uintptr_t>(counts) & 15) == 0;
@@ -981,46 +998,51 @@ int sort_or_report(const int64_t* const* in, int64_t* const* out, int W,
     case 1: return sort_rows<1>(a);
     case 2: return sort_rows<2>(a);
     case 3: return sort_rows<3>(a);
-    default: return sort_rows<4>(a);
+    case 4: return sort_rows<4>(a);
+    default: return block_launch<0>(a);
   }
 }
 
 }  // namespace
 
-// K2a. w0..w3: G * m int64 rows, group g at rows [g * m, (g + 1) * m),
-// each group sorted (the first W planes used, the rest may be null);
-// counts: G * m int32.  1 <= W <= 4, G >= 1, m >= 1.  Returns the launch's
-// cudaError_t.
-extern "C" int run_lengths_grouped_launch(const int64_t* w0, const int64_t* w1,
-                                          const int64_t* w2, const int64_t* w3,
-                                          int W, int64_t G, int m,
-                                          int32_t* counts, void* stream) {
-  Planes pl = {{w0, w1, w2, w3}};
-  if (W < 1 || W > 4 || G < 1 || m < 1) return (int)cudaErrorInvalidValue;
-  for (int q = 0; q < W; ++q)
-    if (pl.w[q] == nullptr) return (int)cudaErrorInvalidValue;
+extern "C" int grouped_max_planes() { return MAX_PLANES; }
+
+// K2a. planes: W host pointers to G * m int64 rows, group g at rows
+// [g * m, (g + 1) * m), each group sorted; counts: G * m int32.  1 <= W <=
+// MAX_PLANES, G >= 1, m >= 1.  Returns the launch's cudaError_t.
+extern "C" int run_lengths_grouped_launch(const int64_t* const* planes, int W,
+                                          int64_t G, int m, int32_t* counts,
+                                          void* stream) {
+  if (W < 1 || W > MAX_PLANES || G < 1 || m < 1 || planes == nullptr)
+    return (int)cudaErrorInvalidValue;
+  Planes pl = {};
+  for (int q = 0; q < W; ++q) {
+    if (planes[q] == nullptr) return (int)cudaErrorInvalidValue;
+    pl.w[q] = planes[q];
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (W) {
-    case 1: return run_lengths_rows<1>(pl, G, m, counts, st);
-    case 2: return run_lengths_rows<2>(pl, G, m, counts, st);
-    case 3: return run_lengths_rows<3>(pl, G, m, counts, st);
-    default: return run_lengths_rows<4>(pl, G, m, counts, st);
+    case 1: return run_lengths_rows<1>(pl, W, G, m, counts, st);
+    case 2: return run_lengths_rows<2>(pl, W, G, m, counts, st);
+    case 3: return run_lengths_rows<3>(pl, W, G, m, counts, st);
+    case 4: return run_lengths_rows<4>(pl, W, G, m, counts, st);
+    default: return run_lengths_rows<0>(pl, W, G, m, counts, st);
   }
 }
 
-// K2b / K2c. in0..in3 -> out0..out3: G groups of m rows, element i of
-// group g at i * elem_stride + g * group_stride (K2b: (1, m); K2c: (G,
+// K2b / K2c. in -> out: W host pointers each to G groups of m rows, element
+// i of group g at i * elem_stride + g * group_stride (K2b: (1, m); K2c: (G,
 // 1)); each group sorted ascending by all W words, and counts (int32, the
 // same layout) of its runs.  m a power of two; the block body's groups
 // must fit a block's shared memory (m + 1 rows of W words).  Returns the
 // launch's cudaError_t.
-extern "C" int grouped_sort_count_launch(
-    const int64_t* in0, const int64_t* in1, const int64_t* in2,
-    const int64_t* in3, int64_t* out0, int64_t* out1, int64_t* out2,
-    int64_t* out3, int W, int64_t G, int m, int64_t elem_stride,
-    int64_t group_stride, int32_t* counts, void* stream) {
-  const int64_t* in[4] = {in0, in1, in2, in3};
-  int64_t* out[4] = {out0, out1, out2, out3};
+extern "C" int grouped_sort_count_launch(const int64_t* const* in,
+                                         int64_t* const* out, int W,
+                                         int64_t G, int m,
+                                         int64_t elem_stride,
+                                         int64_t group_stride,
+                                         int32_t* counts, void* stream) {
+  if (in == nullptr || out == nullptr) return (int)cudaErrorInvalidValue;
   return sort_or_report(in, out, W, G, m, elem_stride, group_stride, counts,
                         stream, nullptr);
 }
@@ -1030,8 +1052,6 @@ extern "C" int grouped_sort_count_launch(
 extern "C" int grouped_sort_info(int W, int64_t G, int m,
                                  int64_t elem_stride, int64_t group_stride,
                                  int* info) {
-  const int64_t* in[4] = {nullptr, nullptr, nullptr, nullptr};
-  int64_t* out[4] = {nullptr, nullptr, nullptr, nullptr};
-  return sort_or_report(in, out, W, G, m, elem_stride, group_stride, nullptr,
-                        nullptr, info);
+  return sort_or_report(nullptr, nullptr, W, G, m, elem_stride, group_stride,
+                        nullptr, nullptr, info);
 }

@@ -1,5 +1,5 @@
-// Stable multi-word sort of W in {1, 2, 3, 4} int64 word planes for Hopper
-// (sm_90a), in place: the rows (w0[i], ..., w{W-1}[i]) ordered by their
+// Stable multi-word sort of W int64 word planes (1 <= W <= MAX_PLANES) for
+// Hopper (sm_90a), in place: the rows (w0[i], ..., w{W-1}[i]) ordered by their
 // first K words (the keys), compared as signed int64 with word 0 most
 // significant; the other W - K words ride along as payload, and rows with
 // equal keys keep their input order.  The all-INT64_MAX sentinel row
@@ -43,6 +43,12 @@
 // bits alone, so the host never waits on the device.  Row indices are
 // 64-bit throughout.
 
+// The planes travel by value, as a struct of MAX_PLANES pointers (a
+// kernel's parameters hold 4 KB, and the scatter kernel takes two sets), so
+// key and payload words can be any count up to it: the k = 101 device
+// merge sorts 4 key words with the counts as payload, 5 planes.  The
+// scatter kernel is unrolled for W <= 4 and loops over the planes beyond.
+
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -57,8 +63,11 @@ constexpr int LANE_BINS = BINS / 32;      // a lane's bins in a warp's scan
 constexpr int SCAN_THREADS = 1024;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
+// the planes, by value: a kernel's parameters hold 4 KB, and the scatter
+// kernel takes two sets of pointers
+constexpr int MAX_PLANES = 240;
 struct Planes {
-  int64_t* w[4];
+  int64_t* w[MAX_PLANES];
 };
 
 // digit `shift / 8` of a key word's code (see the note at the top)
@@ -154,10 +163,11 @@ __device__ __forceinline__ void write_out(const int64_t* s_buf,
   }
 }
 
+// W > 0: W planes, their loops unrolled; W == 0: nw planes
 template <int W>
 __global__ void __launch_bounds__(THREADS)
 scatter_kernel(const int64_t* __restrict__ key, Planes src, Planes dst,
-               int64_t n, int64_t tiles, int q_key, Digit dg,
+               int nw, int64_t n, int64_t tiles, int q_key, Digit dg,
                const int64_t* __restrict__ counts,
                const int64_t* __restrict__ totals) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -255,11 +265,12 @@ scatter_kernel(const int64_t* __restrict__ key, Planes src, Planes dst,
   __syncthreads();
   // the key word from s_buf; then each other word loaded, staged and
   // written the same way
+  const int NW = W > 0 ? W : nw;
 #pragma unroll
-  for (int q = 0; q < W; ++q)
+  for (int q = 0; q < NW; ++q)
     if (q == q_key) write_out(s_buf, s_off, s_digit, tile_n, dst.w[q]);
 #pragma unroll
-  for (int q = 0; q < W; ++q) {
+  for (int q = 0; q < NW; ++q) {
     if (q == q_key) continue;
 #pragma unroll
     for (int i = 0; i < ITEMS; ++i) {
@@ -274,15 +285,15 @@ scatter_kernel(const int64_t* __restrict__ key, Planes src, Planes dst,
   }
 }
 
-template <int W>
-int sort_rows(Planes a, int64_t* scratch, int64_t n, int K, const int* bits,
-              cudaStream_t st) {
+template <int NW>
+int sort_rows(const Planes& a, int W, int64_t* scratch, int64_t n, int K,
+              const int* bits, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
-      scatter_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      scatter_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)SCATTER_SMEM);
   if (err != cudaSuccess) return (int)err;
   const int64_t tiles = (n + TILE - 1) / TILE;
-  Planes b = {{nullptr, nullptr, nullptr, nullptr}};
+  Planes b = {};
   for (int q = 0; q < W; ++q) b.w[q] = scratch + q * n;
   int64_t* counts = scratch + W * n;
   int64_t* totals = counts + BINS * tiles;
@@ -296,8 +307,8 @@ int sort_rows(Planes a, int64_t* scratch, int64_t n, int K, const int* bits,
       hist_kernel<<<(unsigned)tiles, THREADS, 0, st>>>(src->w[q], n, tiles,
                                                        dg, counts);
       scan_kernel<<<BINS, SCAN_THREADS, 0, st>>>(counts, tiles, totals);
-      scatter_kernel<W><<<(unsigned)tiles, THREADS, SCATTER_SMEM, st>>>(
-          src->w[q], *src, *dst, n, tiles, q, dg, counts, totals);
+      scatter_kernel<NW><<<(unsigned)tiles, THREADS, SCATTER_SMEM, st>>>(
+          src->w[q], *src, *dst, W, n, tiles, q, dg, counts, totals);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
       const Planes* t = src;
@@ -326,30 +337,33 @@ extern "C" int64_t sort_scratch_words(int W, int64_t n) {
 
 extern "C" int sort_tile_rows() { return TILE; }
 
-// w0..w3: n int64 rows each (the first W used, the rest may be null),
-// sorted in place on `stream` by their first K words; bits0..bits3 the key
-// words' value bits (0..64; the first K read).  scratch: sort_scratch_words
-// (W, n) int64 words on the device.  1 <= K <= W <= 4, 1 <= n < 2^62.
-// Returns the first failing call's cudaError_t, or 0; never synchronises.
-extern "C" int sort_words_launch(int64_t* w0, int64_t* w1, int64_t* w2,
-                                 int64_t* w3, int W, int K, int bits0,
-                                 int bits1, int bits2, int bits3,
-                                 int64_t n, int64_t* scratch, void* stream) {
-  Planes pl = {{w0, w1, w2, w3}};
-  const int bits[4] = {bits0, bits1, bits2, bits3};
-  if (W < 1 || W > 4 || K < 1 || K > W || n < 1 ||
+extern "C" int sort_max_planes() { return MAX_PLANES; }
+
+// planes: W host pointers to n int64 rows each, sorted in place on
+// `stream` by their first K words; bits: the K key words' value bits
+// (0..64).  scratch: sort_scratch_words(W, n) int64 words on the device.
+// 1 <= K <= W <= MAX_PLANES, 1 <= n < 2^62.  Returns the first failing
+// call's cudaError_t, or 0; never synchronises.
+extern "C" int sort_words_launch(int64_t* const* planes, int W, int K,
+                                 const int* bits, int64_t n,
+                                 int64_t* scratch, void* stream) {
+  if (W < 1 || W > MAX_PLANES || K < 1 || K > W || n < 1 ||
       n > ((int64_t)1 << 62) || (n + TILE - 1) / TILE > 0x7FFFFFFF ||
-      scratch == nullptr)
+      scratch == nullptr || planes == nullptr || bits == nullptr)
     return (int)cudaErrorInvalidValue;
-  for (int q = 0; q < W; ++q)
-    if (pl.w[q] == nullptr) return (int)cudaErrorInvalidValue;
+  Planes pl = {};
+  for (int q = 0; q < W; ++q) {
+    if (planes[q] == nullptr) return (int)cudaErrorInvalidValue;
+    pl.w[q] = planes[q];
+  }
   for (int q = 0; q < K; ++q)
     if (bits[q] < 0 || bits[q] > 64) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (W) {
-    case 1: return sort_rows<1>(pl, scratch, n, K, bits, st);
-    case 2: return sort_rows<2>(pl, scratch, n, K, bits, st);
-    case 3: return sort_rows<3>(pl, scratch, n, K, bits, st);
-    default: return sort_rows<4>(pl, scratch, n, K, bits, st);
+    case 1: return sort_rows<1>(pl, W, scratch, n, K, bits, st);
+    case 2: return sort_rows<2>(pl, W, scratch, n, K, bits, st);
+    case 3: return sort_rows<3>(pl, W, scratch, n, K, bits, st);
+    case 4: return sort_rows<4>(pl, W, scratch, n, K, bits, st);
+    default: return sort_rows<0>(pl, W, scratch, n, K, bits, st);
   }
 }

@@ -1,8 +1,8 @@
 """Device-side counting primitives shared by the counting pipelines.
 
-Counterpart of kmer_tpu/ops/count.py on int64 word planes: W <= 4 planes
-of equal length (one key of up to 31 bases, or a (hi, lo) pair: gapped,
-or a key of 32 to 63 bases),
+Counterpart of kmer_tpu/ops/count.py on int64 word planes: W planes of
+equal length (one key of up to 31 bases, a (hi, lo) pair -- gapped, or a
+key of 32 to 63 bases -- or the W words of any wider key, ops/encode),
 SENTINEL_KEY in every word of a dead lane.  kmer_tpu repacks its uint32
 key words into a sort layout first (repack_words); an int64 key is
 already in sort order, so nothing here repacks.
@@ -36,7 +36,7 @@ GROUPED_BACKENDS = ("auto", "hybrid", "xla", "pallas", "pallas_t", "dedup")
 
 
 def sort_words(words, num_keys=None, bits=None) -> list[torch.Tensor]:
-    """Stable multiset sort of W in 1..4 int64 word planes of any shape
+    """Stable multiset sort of W int64 word planes of any shape
     (flattened) by their first num_keys words (default all; word 0 most
     significant), duplicates kept; the other words are payload.  bits:
     each key word's value bits (ops/kernels/sort; default 64, any int64).
@@ -191,10 +191,14 @@ def grouped_count(words, group_keys: int, backend: str | None = None):
     return _sorted_grouped_runs(words, group_keys, backend)
 
 
-def grouped_count_compact(words, group_keys: int, *, r_len: int = 0,
-                          n_bases: int = 0, backend: str | None = None):
+def grouped_count_compact(words, group_keys: int, *, bases=None,
+                          backend: str | None = None):
     """grouped_count, then the live lanes as host-ready records
     (ops/kernels/compact, kernel K4 on a GPU): (keys, counts int64, total
-    (1,) int64); r_len and n_bases describe a gapped (hi, lo) pair."""
+    (1,) int64); bases: each plane's bases (ops/encode) for two or more
+    planes."""
     s, counts = grouped_count(words, group_keys, backend=backend)
-    return compact_kernel.compact(s, counts, r_len=r_len, n_bases=n_bases)
+    if len(s) == 2:
+        return compact_kernel.compact(s, counts, r_len=bases[1],
+                                      n_bases=sum(bases))
+    return compact_kernel.compact(s, counts)

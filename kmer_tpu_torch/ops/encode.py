@@ -2,34 +2,38 @@
 uint32 word layout of the table layer.
 
 Bases are 2-bit codes from the parser on: A=0, C=1, G=2, T=3, so integer
-order on keys equals byte order on the strings.  On the device a k-mer
-key for k <= 31 is ONE int64 holding the 2k-bit value
+order on keys equals byte order on the strings.  On the device a key of
+n bases is W = words64(n) int64 words (planes), SENTINEL_KEY (INT64_MAX)
+in every word of an invalid lane:
 
-    value = sum_j code[j] * 4**(k-1-j)      (first base most significant)
+- words 0 .. W - 2 hold HI_BASES = 31 bases each, the first base most
+  significant, as the value sum_j code[j] * 4**(30 - j) (at most 62
+  bits);
+- the last word holds the rest, 1 to 32 bases (at most 31 when W = 1).
+  At 32 bases it holds 64 value bits and is stored with its top bit
+  flipped (w ^ LO_FLIP), so that signed int64 order on it is the
+  unsigned order of its bits.
 
-and invalid lanes hold SENTINEL_KEY (INT64_MAX), which sorts after every
-real key (at most 62 bits).  torch has no shifts, compares or `where` on
-uint32/uint64, and int64 has all of them.
+So W = 1 up to 31 bases, 2 up to 63 (the (hi, lo) pair: hi the first
+31 bases, lo the last n - 31), 3 up to 94 and 4 up to 125.  Lexicographic
+order over the words, compared as signed int64, equals the order of the
+key value, and a real word 0 (at most 62 bits) never equals the
+sentinel.  torch has no shifts, compares or `where` on uint32/uint64,
+and int64 has all of them.
 
-A wider key is the int64 PAIR (hi, lo), SENTINEL_KEY in both on invalid
-lanes:
-- a gapped L+R key (l_len, r_len <= 31): hi the l-mer value, lo the
-  r-mer value;
-- a contiguous or spaced key of 32 <= n <= 63 bases: hi the value of its
-  first HI_BASES = 31 bases, lo the value of the last r_len = n - 31, so
-  it is the gapped pair at l_len = 31.
-Lexicographic order on (hi, lo) equals numeric order on the key value
-hi * 4**r_len + lo, and a real hi (at most 62 bits) never equals the
-sentinel.  At r_len = 32 lo holds 64 value bits; it is stored with its
-top bit flipped (lo ^ LO_FLIP), so that signed int64 order on lo is the
-unsigned order of its bits.  pairs_to_value and value_to_pair take the
-flip off and put it back.
+A gapped L+R key keeps kernel K3's split while l_len, r_len <= 31: two
+words, hi the l-mer value and lo the r-mer value (gapped_bases).  Past
+31 it is the l_len + r_len-base string L||R in the general layout above.
+A layout is described by the bases of each plane (word_bases,
+gapped_bases): the key value is the planes' values concatenated, most
+significant first, each 2 b bits wide.
 
-The table layer keeps the (M, W) uint32 most-significant-first word
-layout, W = words_per_key(n_bases) (one spare bit above the value bits),
-so tables, TSV and .npz files are the same in every package that uses
-it.  keys_i64_to_u32 / keys_u32_to_i64 (one int64) and
-pairs_to_u32 / u32_to_pairs (pairs) convert exactly.
+The table layer keeps the (M, W32) uint32 most-significant-first word
+layout, W32 = words_per_key(n_bases) (one spare bit above the value
+bits), so tables, TSV and .npz files are the same in every package that
+uses it.  planes_to_u32 / u32_to_planes convert any layout exactly;
+keys_i64_to_u32 / keys_u32_to_i64 (one int64) and pairs_to_u32 /
+u32_to_pairs (pairs) are their one- and two-word cases.
 """
 
 from __future__ import annotations
@@ -41,10 +45,9 @@ BASE_ORDER = "ACGT"
 AMBIG_CODE = np.uint8(4)          # N / IUPAC codes in skip-invalid mode
 SENTINEL_KEY = np.iinfo(np.int64).max
 SENTINEL_WORD = np.uint32(0xFFFFFFFF)
-MAX_K = 63                        # contiguous and spaced keys (K1, K7)
 HI_BASES = 31                     # bases of one int64 key word; a pair's hi
-MAX_KEY_BASES = 63                # the table layer: W <= 4 uint32 words
-LO_FLIP = -(1 << 63)              # lo's top bit, flipped when r_len == 32
+PAIR_BASES = 63                   # the widest key of two int64 words
+LO_FLIP = -(1 << 63)              # a 32-base last word's flipped top bit
 _FLIP_U64 = np.uint64(1 << 63)
 
 _LUT = np.full(256, 255, dtype=np.uint8)
@@ -67,51 +70,74 @@ def words_per_key(n_bases: int) -> int:
     return (2 * n_bases + 1 + 31) // 32
 
 
-def check_key_width(n_bases: int) -> None:
-    """Key widths the table layer takes: 1..63 bases, W <= 4 words."""
-    if not 1 <= n_bases <= MAX_KEY_BASES:
-        raise ValueError(f"{n_bases}-base keys: the table layer takes 1 "
-                         f"to {MAX_KEY_BASES} bases (W <= 4 words); keys "
-                         "over 63 bases are ROADMAP Queue 1 item 18")
+def check_n_bases(n_bases: int) -> None:
+    """A key takes at least one base; sort mode has no cap below a read's
+    length."""
+    if n_bases < 1:
+        raise ValueError(f"keys of {n_bases} bases: a key takes at least "
+                         "one base")
 
 
-def check_k(k: int) -> None:
-    """Contiguous (and spaced) keys take 1 to 63 bases: one int64 up to
-    31, an int64 (hi, lo) pair up to 63."""
-    if not 1 <= k <= MAX_K:
-        raise NotImplementedError(
-            f"k={k}: only 1 <= k <= {MAX_K} (an int64 key or (hi, lo) "
-            "pair) is ported; keys over 63 bases are ROADMAP Queue 1 item "
-            "18 (keys over 63 bases)")
+def words64(n_bases: int) -> int:
+    """int64 words of an n_bases-base key in the general layout: 1 up to
+    31 bases, 2 up to 63, then one more every 31 bases."""
+    check_n_bases(n_bases)
+    if n_bases <= HI_BASES:
+        return 1
+    return max(2, (n_bases - 2) // HI_BASES + 1)
+
+
+def word_bases(n_bases: int) -> tuple[int, ...]:
+    """The bases of each int64 word of an n_bases-base key in the general
+    layout: 31 each, the rest (1 to 32) in the last."""
+    W = words64(n_bases)
+    return (HI_BASES,) * (W - 1) + (n_bases - HI_BASES * (W - 1),)
+
+
+def gapped_bases(l_len: int, r_len: int) -> tuple[int, ...]:
+    """The bases of each int64 plane of a gapped L+R key: K3's split
+    (l_len, r_len) while both are at most 31, else the general layout of
+    the l_len + r_len-base string L||R."""
+    if max(l_len, r_len) <= HI_BASES:
+        return (l_len, r_len)
+    return word_bases(l_len + r_len)
+
+
+def bases_bits(bases) -> tuple[int, ...]:
+    """Each plane's value bits (sort_words' `bits`): 2 b for b bases, and
+    64 (any int64) for a 32-base word, whose top bit is flipped."""
+    return tuple(64 if b == 32 else 2 * b for b in bases)
 
 
 def check_one_word(k: int) -> None:
     """Keys of at most HI_BASES bases: one int64 value."""
-    check_k(k)
+    check_n_bases(k)
     if k > HI_BASES:
         raise ValueError(f"k={k}: keys over {HI_BASES} bases are (hi, lo) "
                          "pairs (pairs_to_u32 / u32_to_pairs)")
 
 
 def key_planes(keys) -> tuple:
-    """Keys of one layout as a tuple of int64 planes: (keys,) or (hi, lo)."""
+    """Keys of one layout as a tuple of int64 planes: (keys,) or the W
+    words."""
     return keys if isinstance(keys, tuple) else (keys,)
 
 
 def pair_r_len(n_bases: int) -> int:
     """lo's bases in the (hi, lo) pair of a contiguous or spaced key of
     32 <= n_bases <= 63; 0 for a key of one int64."""
-    check_k(n_bases)
+    if not 1 <= n_bases <= PAIR_BASES:
+        raise ValueError(f"{n_bases}-base keys are not one int64 or a "
+                         f"pair (1 to {PAIR_BASES} bases)")
     return max(n_bases - HI_BASES, 0)
 
 
 def plane_bits(n_bases: int) -> tuple[int, ...]:
-    """The value bits of each int64 key plane of a contiguous or spaced
-    key of n_bases bases (sort_words' `bits`): (2 n_bases,), or (62,
-    2 r_len) for a pair; at r_len = 32 lo's top bit is flipped and 64
-    means any int64, a real lo of INT64_MAX included."""
-    r_len = pair_r_len(n_bases)
-    return (2 * HI_BASES, 2 * r_len) if r_len else (2 * n_bases,)
+    """The value bits of each int64 word of a contiguous or spaced key of
+    n_bases bases in the general layout (sort_words' `bits`): 62 a full
+    word, 2 b for the last word's b bases, 64 at b = 32 (its flipped top
+    bit: any int64, a real word of INT64_MAX included)."""
+    return bases_bits(word_bases(n_bases))
 
 
 def encode_seq(seq: str | bytes, allow_ambiguous: bool = False) -> np.ndarray:
@@ -279,7 +305,7 @@ def words_from_tpu_repacked(rwords, n_bases: int):
     low bits, or, for s = 0 (16, 32 and 48 bases), words 0 .. W - 2 hold
     the whole key and word W - 1 is a 0 flag; word W - 1 is SENTINEL_WORD
     on invalid lanes."""
-    check_k(n_bases)
+    pair_r_len(n_bases)
     W = words_per_key(n_bases)
     rw = [np.asarray(w, dtype=np.uint32) for w in rwords]
     if len(rw) != W:
@@ -312,7 +338,7 @@ def words_to_tpu_repacked(keys, n_bases: int) -> list[np.ndarray]:
     beyond 31 bases (SENTINEL_KEY on invalid lanes) -> kmer_tpu's W
     repacked uint32 words, all SENTINEL_WORD on invalid lanes (as
     kmer_tpu's kernels write them)."""
-    check_k(n_bases)
+    pair_r_len(n_bases)
     W = words_per_key(n_bases)
     s = 2 * n_bases - 32 * (W - 1)
     if n_bases > HI_BASES:
@@ -363,49 +389,117 @@ def value_to_pair(vhi: np.ndarray, vlo: np.ndarray, r_len: int
     return hi, lo
 
 
-def value_to_words(vhi: np.ndarray, vlo: np.ndarray, W: int) -> np.ndarray:
-    """128-bit key values (vhi, vlo) uint64 -> (M, W) uint32 words, most
-    significant first (W <= 4; the value must fit 32 W bits)."""
-    chunks = (vlo, vlo >> np.uint64(32), vhi, vhi >> np.uint64(32))
-    out = np.empty((len(vlo), W), np.uint32)
-    for j in range(W):
-        out[:, j] = chunks[W - 1 - j]            # astype cuts to 32 bits
-    return out
-
-
 def pairs_to_u32(hi: np.ndarray, lo: np.ndarray, l_len: int, r_len: int
                  ) -> np.ndarray:
     """(M,) int64 pairs -> (M, W) uint32 most-significant-first words, W
     = words_per_key(l_len + r_len); sentinel pairs (hi == SENTINEL_KEY)
     map to all-0xFFFFFFFF words.  A contiguous key of 32..63 bases is
-    the pair at l_len = 31."""
-    n_bases = l_len + r_len
-    check_key_width(n_bases)
-    out = value_to_words(*pairs_to_value(hi, lo, r_len),
-                         words_per_key(n_bases))
-    sent = np.asarray(hi).reshape(-1) == SENTINEL_KEY
-    if sent.any():
-        out[sent] = SENTINEL_WORD
-    return out
+    the pair at l_len = 31 (planes_to_u32 of the layout (l_len, r_len))."""
+    pair_r_len(l_len + r_len)
+    return planes_to_u32((hi, lo), (l_len, r_len))
 
 
 def u32_to_pairs(words: np.ndarray, l_len: int, r_len: int
                  ) -> tuple[np.ndarray, np.ndarray]:
     """Inverse of pairs_to_u32: (M, W) uint32 words -> (hi, lo) int64;
     all-0xFFFFFFFF (sentinel) rows map to SENTINEL_KEY in both."""
-    n_bases = l_len + r_len
-    check_key_width(n_bases)
+    pair_r_len(l_len + r_len)
+    hi, lo = u32_to_planes(words, (l_len, r_len))
+    return hi, lo
+
+
+def fused_columns(n_bases: int) -> int:
+    """uint64 columns of an n_bases-base key fused for the table layer:
+    ceil(W32 / 2), W32 = words_per_key(n_bases)."""
+    return (words_per_key(n_bases) + 1) // 2
+
+
+def planes_to_chunks(planes, bases) -> list[np.ndarray]:
+    """Key planes of a layout (int64 arrays of one shape; bases: each
+    plane's bases, most significant first) -> the key value as
+    fused_columns(sum(bases)) uint64 chunks, least significant first
+    (flattened).  A 32-base plane's flipped top bit is taken off.
+    Sentinel lanes give garbage; callers mask them."""
+    n_bases = sum(bases)
+    planes = [np.asarray(p, dtype=np.int64).reshape(-1).view(np.uint64)
+              for p in planes]
+    chunks = [np.zeros(planes[0].shape, np.uint64)
+              for _ in range(fused_columns(n_bases))]
+    pos = 0
+    for u, b in zip(reversed(planes), reversed(tuple(bases))):
+        if b == 32:
+            u = u ^ _FLIP_U64
+        c, s = divmod(pos, 64)
+        chunks[c] |= u << np.uint64(s)
+        if s and s + 2 * b > 64:
+            chunks[c + 1] |= u >> np.uint64(64 - s)
+        pos += 2 * b
+    return chunks
+
+
+def chunks_to_planes(chunks, bases) -> list[np.ndarray]:
+    """Inverse of planes_to_chunks: uint64 value chunks (least significant
+    first) -> int64 planes of the layout, a 32-base plane's top bit
+    flipped."""
+    pos = 2 * sum(bases)
+    out = []
+    for b in bases:
+        pos -= 2 * b
+        c, s = divmod(pos, 64)
+        v = chunks[c] >> np.uint64(s)
+        if s and s + 2 * b > 64:
+            v = v | (chunks[c + 1] << np.uint64(64 - s))
+        if b < 32:
+            v = v & np.uint64((1 << (2 * b)) - 1)
+        else:
+            v = v ^ _FLIP_U64
+        out.append(v.view(np.int64))
+    return out
+
+
+def chunks_to_u32(chunks, n_bases: int) -> np.ndarray:
+    """uint64 value chunks (least significant first) -> (M, W32) uint32
+    words, most significant first."""
+    W = words_per_key(n_bases)
+    out = np.empty((len(chunks[0]), W), np.uint32)
+    for j in range(W):
+        c, half = divmod(W - 1 - j, 2)           # 32-bit chunk W - 1 - j
+        out[:, j] = chunks[c] >> np.uint64(32 * half)   # astype cuts
+    return out
+
+
+def u32_to_chunks(words: np.ndarray, n_bases: int) -> list[np.ndarray]:
+    """Inverse of chunks_to_u32."""
     W = words_per_key(n_bases)
     words = np.asarray(words, dtype=np.uint32)
     if words.ndim != 2 or words.shape[1] != W:
         raise ValueError(f"keys of shape {words.shape} are not (M, {W}) "
                          f"words for {n_bases} bases")
-    u64 = [np.zeros(len(words), np.uint64) for _ in range(2)]   # vhi, vlo
+    chunks = [np.zeros(len(words), np.uint64)
+              for _ in range(fused_columns(n_bases))]
     for j in range(W):
-        i = W - 1 - j                            # 32-bit chunk index
-        u64[1 - i // 2] |= (words[:, j].astype(np.uint64)
-                            << np.uint64(32 * (i % 2)))
-    hi, lo = value_to_pair(*u64, r_len)
+        c, half = divmod(W - 1 - j, 2)
+        chunks[c] |= words[:, j].astype(np.uint64) << np.uint64(32 * half)
+    return chunks
+
+
+def planes_to_u32(planes, bases) -> np.ndarray:
+    """Key planes of a layout -> (M, W32) uint32 most-significant-first
+    words of the sum(bases)-base key; lanes whose word 0 is SENTINEL_KEY
+    map to all-0xFFFFFFFF words."""
+    n_bases = sum(bases)
+    out = chunks_to_u32(planes_to_chunks(planes, bases), n_bases)
+    sent = np.asarray(planes[0]).reshape(-1) == SENTINEL_KEY
+    if sent.any():
+        out[sent] = SENTINEL_WORD
+    return out
+
+
+def u32_to_planes(words: np.ndarray, bases) -> list[np.ndarray]:
+    """Inverse of planes_to_u32: (M, W32) uint32 words -> int64 planes of
+    the layout; all-0xFFFFFFFF (sentinel) rows map to SENTINEL_KEY in
+    every plane."""
+    words = np.asarray(words, dtype=np.uint32)
+    planes = chunks_to_planes(u32_to_chunks(words, sum(bases)), bases)
     sent = (words == SENTINEL_WORD).all(axis=1)
-    return (np.where(sent, SENTINEL_KEY, hi),
-            np.where(sent, SENTINEL_KEY, lo))
+    return [np.where(sent, SENTINEL_KEY, p) for p in planes]

@@ -5,23 +5,40 @@ ops/kernels/fused_gapped) are held against.
 A batch is a (B, L) uint8 code matrix plus per-row lengths and start
 limits.  The key of window p of row b is built from shifted slices of
 the code matrix (ops/encode key layout): one int64 a lane for keys of up
-to 31 bases, the (hi, lo) int64 pair for 32 to 63.  Lane p of row b is
+to 31 bases, the (hi, lo) int64 pair for 32 to 63, and W = words64(n)
+int64 words for any wider key.  Lane p of row b is
 valid when
 
     p <= lengths[b] - span,  p < limits[b],  and (mask_ambiguous) no
     code >= 4 at a base of the key;
 
-invalid lanes carry SENTINEL_KEY (in both words of a pair).  The span is
-k for contiguous k-mers and the mask's length for spaced seeds, whose
-key is the bases at the mask's '1' offsets (spaced_lanes).  gapped_lanes
-gives the gapped L+R chunk keys as (hi, lo) int64 pairs.
+invalid lanes carry SENTINEL_KEY (in every word).  The span is k for
+contiguous k-mers and the mask's length for spaced seeds, whose key is
+the bases at the mask's '1' offsets (spaced_lanes).  gapped_lanes gives
+the gapped L+R chunk keys in the planes of ops/encode.gapped_bases.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .encode import HI_BASES, LO_FLIP, MAX_K, SENTINEL_KEY, check_k
+from .encode import (LO_FLIP, PAIR_BASES, SENTINEL_KEY, check_n_bases,
+                     gapped_bases, word_bases)
+
+# ROADMAP Queue 1 item 19: the paths that take keys of at most two int64
+# words (or K3's gapped split) so far
+ITEM_19 = "ROADMAP Queue 1 item 19 (wide keys on the remaining paths)"
+
+
+class WideNotPorted(NotImplementedError, ValueError):
+    """A path of item 19 asked for at a width it does not take yet.  Also
+    a ValueError, as kmer_tpu's refusal of a seed mask over 63 bases
+    is."""
+
+
+def wide_not_ported(what: str) -> WideNotPorted:
+    return WideNotPorted(f"{what} is not ported to kmer_tpu_torch yet "
+                         f"({ITEM_19})")
 
 
 def valid_mask(B: int, P: int, lengths: torch.Tensor, span: int,
@@ -34,31 +51,47 @@ def valid_mask(B: int, P: int, lengths: torch.Tensor, span: int,
     return valid
 
 
+def _plane_value(planes):
+    """The value of (B, P) int64 code planes (values 0..3), the first
+    most significant; at most 31 planes."""
+    v = torch.zeros_like(planes[0])
+    for p in planes:
+        v = (v << 2) | p
+    return v
+
+
 def _pack_key(slices):
     """The key of a list of (B, P) int64 code planes (values 0..3), most
-    significant base first: one int64 for at most 31 planes, else the
-    pair (hi, lo) of ops/encode (lo's top bit flipped at 32 lo bases)."""
-    def value(planes):
-        v = torch.zeros_like(planes[0])
-        for p in planes:
-            v = (v << 2) | p
-        return v
-    if len(slices) <= HI_BASES:
-        return value(slices)
-    hi, rest = value(slices[:HI_BASES]), slices[HI_BASES:]
-    if len(rest) < 32:
-        return hi, value(rest)
-    # 32 lo bases: the first one's high bit is bit 63, stored flipped
-    top = rest[0] ^ 2
-    lo = value(rest[1:]) | ((top & 1) << 62)
-    return hi, torch.where(top >= 2, lo | LO_FLIP, lo)
+    significant base first, in the general layout of ops/encode: one
+    int64 for at most 31 planes, else the tuple of words64(n) words (a
+    32-base last word's top bit flipped)."""
+    bases = word_bases(len(slices))
+    if len(bases) == 1:
+        return _plane_value(slices)
+    words, q = [], 0
+    for b in bases:
+        part = slices[q:q + b]
+        q += b
+        if b < 32:
+            words.append(_plane_value(part))
+            continue
+        # 32 bases: the first one's high bit is bit 63, stored flipped
+        top = part[0] ^ 2
+        w = _plane_value(part[1:]) | ((top & 1) << 62)
+        words.append(torch.where(top >= 2, w | LO_FLIP, w))
+    return tuple(words)
 
 
 def _key_min(a, b):
-    """Lane-wise min of two keys of one layout (int64 or (hi, lo))."""
+    """Lane-wise min of two keys of one layout (int64, or a tuple of
+    words compared lexicographically)."""
     if not isinstance(a, tuple):
         return torch.minimum(a, b)
-    take_b = (b[0] < a[0]) | ((b[0] == a[0]) & (b[1] < a[1]))
+    take_b = torch.zeros_like(a[0], dtype=torch.bool)
+    tied = torch.ones_like(a[0], dtype=torch.bool)
+    for x, y in zip(a, b):
+        take_b |= tied & (y < x)
+        tied &= y == x
     return tuple(torch.where(take_b, y, x) for x, y in zip(a, b))
 
 
@@ -75,7 +108,8 @@ def window_keys(codes: torch.Tensor, lengths: torch.Tensor,
                 canonical: bool = False):
     """The key of the bases at window offsets `positions` (ascending,
     positions[0] = 0) of every window start: (keys, valid), keys an
-    int64 (B, P) tensor or a (hi, lo) pair of them, P = L - span + 1,
+    int64 (B, P) tensor or a tuple of words64(n) of them (the (hi, lo)
+    pair up to 63 bases), P = L - span + 1,
     span = positions[-1] + 1.  canonical: the min of the key and the
     reverse complement of its bases (base i complemented to position
     n - 1 - i), which is the strand-min for contiguous windows and
@@ -110,11 +144,11 @@ def kmer_lanes(codes: torch.Tensor, lengths: torch.Tensor, k: int, *,
     """All k-mer keys of every read in a batch.
 
     Returns (keys, valid): keys (B, P) int64 with P = L - k + 1 for k <=
-    31, the pair (hi, lo) of (B, P) int64 planes for 32 <= k <= 63
-    (invalid lanes = SENTINEL_KEY unless sentinel=False), valid (B, P)
-    bool.
+    31, else the tuple of words64(k) (B, P) int64 planes -- the pair (hi,
+    lo) for 32 <= k <= 63 -- (invalid lanes = SENTINEL_KEY unless
+    sentinel=False), valid (B, P) bool.
     """
-    check_k(k)
+    check_n_bases(k)
     return window_keys(codes, lengths, range(k), limits=limits,
                        sentinel=sentinel, mask_ambiguous=mask_ambiguous)
 
@@ -146,20 +180,22 @@ def seed_mask_palindromic(mask: str) -> bool:
 def check_window(n_bases: int, positions=None,
                  canonical: bool = False) -> int:
     """Check a key of n_bases bases and return its window span: contiguous
-    (positions None, 1 <= n_bases <= 63) or a spaced seed's n_bases window
-    offsets -- ascending from 0, at most MAX_K of them, a palindromic mask
-    when canonical.  The one check of a seed: KmerConfig, spaced_lanes and
-    the K1 and K7 wrappers call it, and the kernels take what it passed."""
+    (positions None, any n_bases >= 1) or a spaced seed's n_bases window
+    offsets -- ascending from 0, at most PAIR_BASES of them (wider masks
+    are ROADMAP item 19), a palindromic mask when canonical.  The one
+    check of a seed: KmerConfig, spaced_lanes and the K1 and K7 wrappers
+    call it, and the kernels take what it passed."""
     if positions is None:
-        check_k(n_bases)
+        check_n_bases(n_bases)
         return n_bases
     positions = tuple(positions)
     if (len(positions) != n_bases or not positions or positions[0] != 0
             or any(b <= a for a, b in zip(positions, positions[1:]))):
         raise ValueError(f"positions {positions} are not {n_bases} "
                          "ascending window offsets from 0")
-    if n_bases > MAX_K:
-        raise ValueError(f"seed mask selects more than {MAX_K} bases")
+    if n_bases > PAIR_BASES:
+        raise wide_not_ported(f"a seed mask that selects more than "
+                              f"{PAIR_BASES} bases ({n_bases})")
     mask = mask_from_positions(positions)
     if canonical and not seed_mask_palindromic(mask):
         raise ValueError("canonical spaced seeds need a palindromic mask, "
@@ -192,7 +228,7 @@ def seed_runs(positions) -> list[tuple[int, int, int]]:
 CUT_WORDS = 4
 CUT_GROUPS = CUT_WORDS * CUT_WORDS
 MAX_ROLLED_SPAN = 64
-CUT_TABLE_WORDS = CUT_GROUPS + 1 + 2 * MAX_K + 2
+CUT_TABLE_WORDS = CUT_GROUPS + 1 + 2 * PAIR_BASES + 2
 
 
 def seed_cut_table(positions) -> list[int]:
@@ -220,7 +256,7 @@ def seed_cut_table(positions) -> list[int]:
     start = [sum(p[0] < g for p in pieces) for g in range(CUT_GROUPS + 1)]
     pairs = [v for _, mask, rot in pieces for v in (mask, rot)]
     amb = sum(1 << (span - 1 - i) for i in positions)
-    return (start + pairs + [0] * (2 * MAX_K - len(pairs))
+    return (start + pairs + [0] * (2 * PAIR_BASES - len(pairs))
             + [amb & 0xFFFFFFFF, amb >> 32])
 
 
@@ -256,9 +292,11 @@ def gapped_lanes(codes: torch.Tensor, lengths: torch.Tensor, l_len: int,
     Lanes are c-major with the exact width L - c + 1 per chunk size
     (gapped_lane_count in all).  Lane (c, o) is valid when o + c <=
     lengths[b], o < limits[b] and (mask_ambiguous) neither window holds
-    an ambiguous base.  Returns (hi, lo, valid), each (B, T): hi the
-    l-mer value, lo the r-mer value, SENTINEL_KEY in both on invalid
-    lanes.
+    an ambiguous base.  Returns (planes, valid): planes the tuple of
+    (B, T) int64 planes of ops/encode.gapped_bases(l_len, r_len) -- hi
+    the l-mer value and lo the r-mer value while both are at most 31
+    bases, else the words of the string L||R -- SENTINEL_KEY in every
+    plane on invalid lanes; valid (B, T) bool.
     """
     if not (l_len >= 1 and r_len >= 1 and c_min >= l_len + r_len):
         raise ValueError("gapped keys need l_len, r_len >= 1 and c_min >= "
@@ -266,20 +304,29 @@ def gapped_lanes(codes: torch.Tensor, lengths: torch.Tensor, l_len: int,
     B, L = codes.shape
     T = gapped_lane_count(L, c_min, c_max)
     dev = codes.device
+    bases = gapped_bases(l_len, r_len)
     if T == 0:
         empty = torch.empty((B, 0), dtype=torch.int64, device=dev)
-        return empty, empty.clone(), torch.empty((B, 0), dtype=torch.bool,
-                                                 device=dev)
-    lk, lval = kmer_lanes(codes, lengths, l_len, sentinel=False,
-                          mask_ambiguous=mask_ambiguous)
-    if r_len == l_len:
-        rk, rval = lk, lval
-    else:
-        rk, rval = kmer_lanes(codes, lengths, r_len, sentinel=False,
-                              mask_ambiguous=mask_ambiguous)
+        return (tuple(empty.clone() for _ in bases),
+                torch.empty((B, 0), dtype=torch.bool, device=dev))
+    c64 = codes.to(torch.int64)
+    # ambiguous bases before each position, so that a window's test is a
+    # difference of two slices
+    amb_cs = torch.nn.functional.pad(torch.cumsum((c64 >= 4).to(torch.int32),
+                                                  1), (1, 0))
+    c64 = c64 & 3
+    tables: dict[int, torch.Tensor] = {}
+
+    def table(m: int) -> torch.Tensor:
+        """(B, L - m + 1): the value of the m <= 31 bases at each p."""
+        if m not in tables:
+            tables[m] = _plane_value([c64[:, j:L - m + 1 + j]
+                                      for j in range(m)])
+        return tables[m]
+
     lens = lengths.to(torch.int32)[:, None]
     lims = limits.to(torch.int32)[:, None] if limits is not None else None
-    his, los, vals = [], [], []
+    parts, vals = [], []
     for c in range(c_min, min(c_max, L) + 1):
         O_c = L - c + 1
         o = torch.arange(O_c, dtype=torch.int32, device=dev)[None, :]
@@ -288,11 +335,41 @@ def gapped_lanes(codes: torch.Tensor, lengths: torch.Tensor, l_len: int,
             v = v & (o < lims)
         q = c - r_len                        # the R window starts at o + q
         if mask_ambiguous:
-            v = v & lval[:, :O_c] & rval[:, q:q + O_c]
-        his.append(lk[:, :O_c])
-        los.append(rk[:, q:q + O_c])
+            for a, m in ((0, l_len), (q, r_len)):
+                v = v & (amb_cs[:, a + m:a + m + O_c]
+                         == amb_cs[:, a:a + O_c])
+
+        def segments(t0: int, b: int):
+            """(row offset, bases) of the string L||R's bases [t0, t0 +
+            b), split where L ends."""
+            if t0 + b <= l_len:
+                return [(t0, b)]
+            if t0 >= l_len:
+                return [(q + t0 - l_len, b)]
+            return [(t0, l_len - t0), (q, t0 + b - l_len)]
+
+        def value(t0: int, b: int) -> torch.Tensor:
+            out = None
+            for a, m in segments(t0, b):
+                w = table(m)[:, a:a + O_c]
+                out = w if out is None else (out << (2 * m)) | w
+            return out
+
+        words, t0 = [], 0
+        for b in bases:
+            if b < 32:
+                words.append(value(t0, b))
+            else:
+                # 32 bases: the first one's high bit is bit 63, stored
+                # flipped (as _pack_key)
+                (a, _), = segments(t0, 1)
+                top = c64[:, a:a + O_c] ^ 2
+                w = value(t0 + 1, 31) | ((top & 1) << 62)
+                words.append(torch.where(top >= 2, w | LO_FLIP, w))
+            t0 += b
+        parts.append(words)
         vals.append(v)
     valid = torch.cat(vals, dim=1)
-    hi = torch.where(valid, torch.cat(his, dim=1), SENTINEL_KEY)
-    lo = torch.where(valid, torch.cat(los, dim=1), SENTINEL_KEY)
-    return hi, lo, valid
+    planes = tuple(torch.where(valid, torch.cat([p[j] for p in parts], 1),
+                               SENTINEL_KEY) for j in range(len(bases)))
+    return planes, valid

@@ -16,9 +16,13 @@ the host aggregation (pipeline/table.reduce_fused) takes as it stands:
   uint64 when the key has at most 31 bases, else the two uint64 halves
   [vhi, vlo] (ops/encode.pairs_to_value; at r_len = 32 the halves are hi
   and lo with its flipped top bit put back);
+- from three or four key planes (64 to 125 bases, or a gapped key past
+  31-base windows; compact mode caps keys at 111 bases): the words as
+  they are, which the host fuses (records_fused);
 
-and the count, widened to int64.  Output contract: keys (n,) or (n, 2)
-int64, counts (n,) int64 and total (1,) int64 on the input's device,
+and the count, widened to int64.  Output contract: keys (n,), (n, 2) or
+(n, W) int64, counts (n,) int64 and total (1,) int64 on the input's
+device,
 n = the number of lanes; rows [0, total) hold every live lane's record
 in lane order, rows past total are unspecified.  The host reads back
 rows [0, total) only, so the copy scales with the live lanes.
@@ -66,7 +70,7 @@ def load():
                          "kmer_compact", cuda=True)
         vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.compact_launch.restype = i
-        lib.compact_launch.argtypes = [vp, vp, vp, i, i64, vp, ctypes.c_uint32,
+        lib.compact_launch.argtypes = [vp, i, vp, i, i64, vp, ctypes.c_uint32,
                                        i, i, vp, vp, vp, vp]
         lib.compact_layout.restype = None
         lib.compact_layout.argtypes = [vp]
@@ -97,16 +101,26 @@ def _scratch_and_epoch(n: int, dev: torch.device, stream) -> tuple:
     return entry[0], entry[1]
 
 
+MAX_PLANES = 4                 # csrc/compact.cu MAX_PLANES
+
+
 def _mode(planes, r_len: int, n_bases: int) -> int:
     """0: one key plane; 1: a gapped pair to one uint64 (n_bases <= 31);
-    2: a gapped pair to two uint64 halves."""
+    2: a gapped pair to two uint64 halves; 3: three or four planes as they
+    are."""
     if len(planes) == 1:
         return 0
+    if 3 <= len(planes) <= MAX_PLANES:
+        return 3
     if len(planes) != 2 or not 1 <= r_len <= 32:
-        raise ValueError("compact takes (keys,) or (hi, lo) with "
-                         f"1 <= r_len <= 32, got {len(planes)} planes, "
-                         f"r_len={r_len}")
+        raise ValueError(f"compact takes 1 to {MAX_PLANES} key planes, a "
+                         f"pair with 1 <= r_len <= 32; got {len(planes)} "
+                         f"planes, r_len={r_len}")
     return 1 if words_per_key(n_bases) <= 2 else 2
+
+
+def _record_shape(mode: int, n: int, W: int) -> tuple:
+    return (n,) if mode <= 1 else (n, 2) if mode == 2 else (n, W)
 
 
 def compact_ref(planes, counts: torch.Tensor, *, r_len: int = 0,
@@ -120,10 +134,13 @@ def compact_ref(planes, counts: torch.Tensor, *, r_len: int = 0,
     live = counts.reshape(-1) > 0
     total = int(live.sum())
     key0 = planes[0].reshape(-1)[live]
-    keys = torch.zeros((n, 2) if mode == 2 else (n,), dtype=torch.int64,
-                       device=counts.device)
+    keys = torch.zeros(_record_shape(mode, n, len(planes)),
+                       dtype=torch.int64, device=counts.device)
     if mode == 0:
         keys[:total] = key0
+    elif mode == 3:
+        for q, p in enumerate(planes):
+            keys[:total, q] = p.reshape(-1)[live]
     elif r_len == 32:
         keys[:total, 0] = key0
         keys[:total, 1] = planes[1].reshape(-1)[live] ^ LO_FLIP
@@ -143,10 +160,11 @@ def compact_ref(planes, counts: torch.Tensor, *, r_len: int = 0,
 
 def compact(planes, counts: torch.Tensor, *, r_len: int = 0,
             n_bases: int = 0):
-    """(keys,) or (hi, lo) int64 planes + counts of the same shape (int8
-    from the fused steps, int32 from ops/count.grouped_count) -> (keys
-    (n,) or (n, 2) int64, counts (n,) int64, total (1,) int64); r_len and
-    n_bases describe a gapped pair."""
+    """(keys,), (hi, lo) or three or four int64 planes + counts of the
+    same shape (int8 from the fused steps, int32 from
+    ops/count.grouped_count) -> (keys (n,), (n, 2) or (n, W) int64,
+    counts (n,) int64, total (1,) int64); r_len and n_bases describe a
+    pair."""
     planes = tuple(planes)
     if counts.device.type == "cpu":
         return compact_ref(planes, counts, r_len=r_len, n_bases=n_bases)
@@ -164,8 +182,8 @@ def compact(planes, counts: torch.Tensor, *, r_len: int = 0,
         raise ValueError("counts must be a contiguous int8 or int32 tensor")
     n = counts.numel()
     dev = counts.device
-    keys = torch.empty((n, 2) if mode == 2 else (n,), dtype=torch.int64,
-                       device=dev)
+    keys = torch.empty(_record_shape(mode, n, len(planes)),
+                       dtype=torch.int64, device=dev)
     out_counts = torch.empty(n, dtype=torch.int64, device=dev)
     if n == 0:
         return keys, out_counts, torch.zeros(1, dtype=torch.int64,
@@ -175,16 +193,29 @@ def compact(planes, counts: torch.Tensor, *, r_len: int = 0,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream()
         scratch, epoch = _scratch_and_epoch(n, dev, stream)
+        ptrs = (ctypes.c_void_p * len(planes))(*[p.data_ptr()
+                                                 for p in planes])
         rc = lib.compact_launch(
-            planes[0].data_ptr(), planes[-1].data_ptr(), counts.data_ptr(),
-            counts.element_size(), n, scratch.data_ptr(), epoch, mode,
-            2 * r_len, keys.data_ptr(), out_counts.data_ptr(),
-            total.data_ptr(), stream.cuda_stream)
+            ptrs, len(planes), counts.data_ptr(), counts.element_size(), n,
+            scratch.data_ptr(), epoch, mode, 2 * r_len, keys.data_ptr(),
+            out_counts.data_ptr(), total.data_ptr(), stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(f"compact kernel launch failed: cudaError {rc}")
     global launches
     launches += 1
     return keys, out_counts, total
+
+
+def records_fused(keys: np.ndarray, bases) -> np.ndarray:
+    """Host records of compact (rows [0, total)) -> fused keys
+    (pipeline/table.reduce_fused): records of one or two planes are fused
+    already (read as uint64); three or four planes (bases: each plane's
+    bases) are fused here."""
+    keys = np.asarray(keys)
+    if len(bases) <= 2:
+        return keys.view(np.uint64)
+    from ...pipeline.table import planes_to_fused
+    return planes_to_fused([keys[:, q] for q in range(len(bases))], bases)
 
 
 def record_width(n_fields: int) -> int:

@@ -6,16 +6,20 @@ Counterpart of kmer_tpu/ops/pallas/extract.py `extract_repacked` (kernel
 K7).  kmer_tpu's kernel returns each key as the (top, bot) uint32 words
 of its sort layout and takes only 17 <= k <= 31 without ambiguous codes
 (its unfused route extracts every other key outside a kernel); here a
-key is one int64 or an int64 (hi, lo) pair (ops/encode), so the kernel
-takes every k <= 63, spaced seeds (`positions`), canonical or not, and
-the ambiguity mask of skip-invalid mode.  Output: keys (B, P) int64, P =
-L - span + 1, row-major, SENTINEL_KEY on invalid lanes (ops/extract
-validity), or the (hi, lo) pair of two such planes for keys of 32 to 63
-bases; ops/encode.words_to_tpu_repacked gives kmer_tpu's repacked
-words.
+key is W int64 words (ops/encode), so the kernel takes every k, spaced
+seeds (`positions`, up to 63 selected bases), canonical or not, and the
+ambiguity mask of skip-invalid mode.  Output: keys (B, P) int64, P = L -
+span + 1, row-major, SENTINEL_KEY on invalid lanes (ops/extract
+validity), or the tuple of words64(k) such planes for keys of more than
+31 bases (the (hi, lo) pair up to 63); ops/encode.words_to_tpu_repacked
+gives kmer_tpu's repacked words up to 63 bases.
 
-extract_keys dispatches on where its inputs lie: CPU tensors run the
-plain version, CUDA tensors launch the kernel (or raise).
+extract_gapped_keys is the same kernel's gapped entry: the unfused
+route's gapped L+R lanes (ops/extract.gapped_lanes, c-major), in the
+planes of ops/encode.gapped_bases.
+
+Both dispatch on where their inputs lie: CPU tensors run the plain
+version, CUDA tensors launch the kernel (or raise).
 """
 
 from __future__ import annotations
@@ -25,18 +29,23 @@ import os
 
 import torch
 
-from ..encode import HI_BASES, unpack_codes_i32
+from ..encode import (HI_BASES, PAIR_BASES, gapped_bases, unpack_codes_i32,
+                      words64)
 from ..extract import (CUT_TABLE_WORDS, CUT_WORDS, MAX_ROLLED_SPAN,
-                       check_window, seed_cut_table, window_keys)
+                       check_window, gapped_lane_count, gapped_lanes,
+                       seed_cut_table, window_keys)
 
 SOURCE = "kmer_tpu_torch/csrc/extract.cu"
 REPLACES = "kmer_tpu/ops/pallas/extract.py:88"
 # calls of extract_keys that launched the kernel (the plain version on CPU
 # tensors does not count): all of them, and those of the two-word
-# (contiguous 32 <= k <= 63) and spaced variants
+# (contiguous 32 <= k <= 63), spaced and multi-word (k > 63) variants;
+# extract_gapped_keys' launches apart
 launches = 0
 wide_launches = 0
 spaced_launches = 0
+multi_launches = 0
+gapped_launches = 0
 _lib = None
 
 
@@ -52,6 +61,16 @@ def load():
                                        i, i, vp, vp, vp]
         lib.extract_info.restype = i
         lib.extract_info.argtypes = [i, i, i, i, i, i, i, i, vp, vp, vp]
+        lib.extract_wide_launch.restype = i
+        lib.extract_wide_launch.argtypes = [vp, i, i, vp, vp, vp] + [i] * 6 + [
+            vp]
+        lib.extract_wide_info.restype = i
+        lib.extract_wide_info.argtypes = [i] * 8 + [vp]
+        lib.extract_gapped_launch.restype = i
+        lib.extract_gapped_launch.argtypes = [vp, i, i, vp, vp, vp] + [
+            i] * 8 + [vp]
+        lib.extract_gapped_info.restype = i
+        lib.extract_gapped_info.argtypes = [i] * 10 + [vp]
         check_cut_layout(lib)
         _lib = lib
     return _lib
@@ -103,6 +122,11 @@ def launch_info(B: int, L: int, k: int, *, canonical: bool = False,
     CUDA device, without making it: threads a block, blocks, dynamic
     shared bytes, registers a thread, spill bytes, resident blocks an SM."""
     span = check_window(k, positions, canonical)
+    stride = (L + 15) // 16 if packed else L
+    if positions is None and k > PAIR_BASES:
+        return report_info(load().extract_wide_info, int(packed), stride, B,
+                           L, k, words64(k), int(canonical),
+                           int(mask_ambiguous))
     offs, cut = seed_args(positions, span)
     return report_info(load().extract_info, int(packed),
                        (L + 15) // 16 if packed else L, B, L, k, span,
@@ -122,6 +146,29 @@ def _shape(codes: torch.Tensor, span: int, packed_width: int):
     if P < 1:
         raise ValueError(f"row width {L} < window span {span}")
     return B, L, P
+
+
+def gapped_launch_info(B: int, L: int, *, l_len: int, r_len: int,
+                       c_min: int, c_max: int, mask_ambiguous: bool = False,
+                       packed: bool = True) -> dict:
+    """The launch extract_gapped_keys makes for a (B, L) batch, without
+    making it (launch_info's keys)."""
+    return report_info(load().extract_gapped_info, int(packed),
+                       (L + 15) // 16 if packed else L, B, L, l_len, r_len,
+                       c_min, gapped_lane_count(L, c_min, c_max),
+                       len(gapped_bases(l_len, r_len)), int(mask_ambiguous))
+
+
+def _check_batch(codes, lengths, limits, B: int, packed_width: int) -> None:
+    want = torch.int32 if packed_width else torch.uint8
+    if codes.dtype != want or not codes.is_contiguous():
+        raise ValueError(f"codes must be a contiguous 2-D {want} tensor, "
+                         f"got {codes.dtype} {tuple(codes.shape)}")
+    for name, t in (("lengths", lengths), ("limits", limits)):
+        if (t.device != codes.device or t.dtype != torch.int32
+                or t.shape != (B,) or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous ({B},) int32 "
+                             f"tensor on {codes.device}")
 
 
 def extract_keys_ref(codes: torch.Tensor, lengths: torch.Tensor,
@@ -145,7 +192,8 @@ def extract_keys(codes: torch.Tensor, lengths: torch.Tensor,
                  mask_ambiguous: bool = False, packed_width: int = 0,
                  positions=None):
     """One batch -> keys (B, P) int64, SENTINEL_KEY on invalid lanes, or
-    the (hi, lo) pair of them for keys of 32 to 63 bases.
+    the tuple of words64(k) of them for keys of more than 31 bases (the
+    (hi, lo) pair up to 63).
 
     codes: (B, L) uint8 codes (code 4 = ambiguous base), or with
     packed_width = L the (B, ceil(L/16)) int32 view of the 2-bit packed
@@ -162,15 +210,10 @@ def extract_keys(codes: torch.Tensor, lengths: torch.Tensor,
         raise ValueError(f"no extract_keys on {codes.device}")
     span = check_window(k, positions, canonical)
     B, L, P = _shape(codes, span, packed_width)
-    want = torch.int32 if packed_width else torch.uint8
-    if codes.dtype != want or not codes.is_contiguous():
-        raise ValueError(f"codes must be a contiguous 2-D {want} tensor, "
-                         f"got {codes.dtype} {tuple(codes.shape)}")
-    for name, t in (("lengths", lengths), ("limits", limits)):
-        if (t.device != codes.device or t.dtype != torch.int32
-                or t.shape != (B,) or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous ({B},) int32 "
-                             f"tensor on {codes.device}")
+    _check_batch(codes, lengths, limits, B, packed_width)
+    if positions is None and k > PAIR_BASES:
+        return _extract_multi(codes, lengths, limits, k, canonical,
+                              mask_ambiguous, packed_width, B, L, P)
     keys = torch.empty((B, P), dtype=torch.int64, device=codes.device)
     lo = (torch.empty((B, P), dtype=torch.int64, device=codes.device)
           if k > HI_BASES else None)
@@ -195,3 +238,93 @@ def extract_keys(codes: torch.Tensor, lengths: torch.Tensor,
     elif lo is not None:
         wide_launches += 1
     return out
+
+
+def _extract_multi(codes, lengths, limits, k: int, canonical: bool,
+                   mask_ambiguous: bool, packed_width: int, B: int, L: int,
+                   P: int):
+    """extract_keys' launch for a contiguous key of more than 63 bases:
+    the words64(k) planes of one (W, B, P) buffer."""
+    W = words64(k)
+    out = torch.empty((W, B, P), dtype=torch.int64, device=codes.device)
+    if B:
+        lib = load()
+        with torch.cuda.device(codes.device):
+            rc = lib.extract_wide_launch(
+                codes.data_ptr(), int(bool(packed_width)), codes.shape[1],
+                lengths.data_ptr(), limits.data_ptr(), out.data_ptr(), B, L,
+                k, W, int(canonical), int(mask_ambiguous),
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"extract kernel launch failed: cudaError "
+                               f"{rc}")
+        global launches, multi_launches
+        launches += 1
+        multi_launches += 1
+    return tuple(out)
+
+
+def _gapped_shape(codes, l_len: int, r_len: int, c_min: int, c_max: int,
+                  packed_width: int):
+    """(B, L, T) of a gapped batch."""
+    if not (l_len >= 1 and r_len >= 1 and c_min >= l_len + r_len):
+        raise ValueError("gapped keys need l_len, r_len >= 1 and c_min >= "
+                         "l_len + r_len (non-overlapping windows)")
+    if codes.dim() != 2:
+        raise ValueError(f"codes must be 2-D, got {tuple(codes.shape)}")
+    B = codes.shape[0]
+    L = packed_width or codes.shape[1]
+    if packed_width and codes.shape[1] != (L + 15) // 16:
+        raise ValueError(f"packed rows of width {L} hold {(L + 15) // 16} "
+                         f"words, got {codes.shape[1]}")
+    return B, L, gapped_lane_count(L, c_min, c_max)
+
+
+def extract_gapped_keys_ref(codes: torch.Tensor, lengths: torch.Tensor,
+                            limits: torch.Tensor, *, l_len: int, r_len: int,
+                            c_min: int, c_max: int,
+                            mask_ambiguous: bool = False,
+                            packed_width: int = 0) -> tuple:
+    """Plain torch version: ops/extract.gapped_lanes."""
+    _, L, _ = _gapped_shape(codes, l_len, r_len, c_min, c_max, packed_width)
+    if packed_width:
+        codes = unpack_codes_i32(codes, L)
+    planes, _ = gapped_lanes(codes, lengths, l_len, r_len, c_min, c_max,
+                             limits=limits, mask_ambiguous=mask_ambiguous)
+    return planes
+
+
+def extract_gapped_keys(codes: torch.Tensor, lengths: torch.Tensor,
+                        limits: torch.Tensor, *, l_len: int, r_len: int,
+                        c_min: int, c_max: int, mask_ambiguous: bool = False,
+                        packed_width: int = 0) -> tuple:
+    """One batch -> the gapped L+R lanes of the unfused route: the planes
+    of ops/encode.gapped_bases(l_len, r_len), each (B, T) int64, T =
+    ops/extract.gapped_lane_count(L, c_min, c_max), c-major, SENTINEL_KEY
+    on invalid lanes (ops/extract.gapped_lanes' contract).  codes,
+    lengths, limits as extract_keys'."""
+    if codes.device.type == "cpu":
+        return extract_gapped_keys_ref(
+            codes, lengths, limits, l_len=l_len, r_len=r_len, c_min=c_min,
+            c_max=c_max, mask_ambiguous=mask_ambiguous,
+            packed_width=packed_width)
+    if codes.device.type != "cuda":
+        raise ValueError(f"no extract_gapped_keys on {codes.device}")
+    B, L, T = _gapped_shape(codes, l_len, r_len, c_min, c_max, packed_width)
+    _check_batch(codes, lengths, limits, B, packed_width)
+    W = len(gapped_bases(l_len, r_len))
+    out = torch.empty((W, B, T), dtype=torch.int64, device=codes.device)
+    if B and T:
+        lib = load()
+        with torch.cuda.device(codes.device):
+            rc = lib.extract_gapped_launch(
+                codes.data_ptr(), int(bool(packed_width)), codes.shape[1],
+                lengths.data_ptr(), limits.data_ptr(), out.data_ptr(), B, L,
+                l_len, r_len, c_min, T, W, int(mask_ambiguous),
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"extract kernel launch failed: cudaError "
+                               f"{rc}")
+        global gapped_launches
+        gapped_launches += 1
+    return tuple(out)

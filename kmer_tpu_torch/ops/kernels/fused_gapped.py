@@ -81,10 +81,11 @@ def _shape(codes: torch.Tensor, l_len: int, r_len: int, c_min: int,
     """(B, L, T, T_pad) of a batch; packed rows hold ceil(L/16) words.
     Each window is one int64 sub-key (l_len, r_len <= 31)."""
     if not (1 <= l_len <= HI_BASES and 1 <= r_len <= HI_BASES):
-        raise NotImplementedError(
-            f"l_len={l_len}, r_len={r_len}: gapped windows of 1 to {HI_BASES} "
-            "bases (one int64 each) are ported; longer ones are ROADMAP "
-            "Queue 1 item 15 (gapped windows over 31 bases)")
+        raise ValueError(
+            f"l_len={l_len}, r_len={r_len}: K3 takes gapped windows of 1 to "
+            f"{HI_BASES} bases (one int64 each); longer ones take the "
+            "unfused route (pipeline/count.gapped_step_sort: K7's gapped "
+            "lanes, then the grouped counts)")
     if c_min < l_len + r_len:
         raise ValueError("gapped mode needs c_min >= l_len + r_len "
                          "(non-overlapping L/R windows)")
@@ -115,8 +116,8 @@ def fused_gapped_count_ref(codes: torch.Tensor, lengths: torch.Tensor,
                             packed_width)
     if packed_width:
         codes = unpack_codes_i32(codes, L)
-    hi, lo, _ = gapped_lanes(codes, lengths, l_len, r_len, c_min, c_max,
-                             limits=limits, mask_ambiguous=mask_ambiguous)
+    (hi, lo), _ = gapped_lanes(codes, lengths, l_len, r_len, c_min, c_max,
+                               limits=limits, mask_ambiguous=mask_ambiguous)
     pad = torch.full((B, T_pad - T), SENTINEL_KEY, dtype=torch.int64,
                      device=codes.device)
     hi, lo = torch.cat([hi, pad], dim=1), torch.cat([lo, pad], dim=1)

@@ -7,7 +7,9 @@ Counterparts of kmer_tpu/ops/pallas/fused_count.py
 `run_lengths_grouped_pallas` (K2a), `fused_grouped_count` (K2b) and
 `fused_grouped_count_sublane` (K2c).  kmer_tpu works on repacked uint32
 words and sorts by word 0 alone, so equal keys may stay apart after its
-sort; here a row is W <= 4 int64 words (ops/encode), compared
+sort; here a row is W int64 words (ops/encode; any W up to MAX_WORDS for
+K2a, any W whose group fits a block's shared memory for K2b and K2c,
+max_group_rows), compared
 lexicographically with SENTINEL_KEY rows (dead lanes, word 0 ==
 SENTINEL_KEY) last, and K2b/K2c sort by ALL words.  Their sorted groups
 are therefore exact and equal the plain version's stable sort bit for bit.
@@ -42,7 +44,7 @@ SOURCE = "kmer_tpu_torch/csrc/grouped_count.cu"
 REPLACES_RUN_LENGTHS = "kmer_tpu/ops/pallas/fused_count.py:175"
 REPLACES_GROUPED = "kmer_tpu/ops/pallas/fused_count.py:208"
 REPLACES_STRIDED = "kmer_tpu/ops/pallas/fused_count.py:241"
-MAX_WORDS = 4
+MAX_WORDS = 128                 # csrc/grouped_count.cu MAX_PLANES
 # K2b/K2c's bodies, by the index csrc/grouped_count.cu's launch report
 # gives: a thread per strided column of m <= 32 rows, a warp per span of
 # contiguous groups of m <= 1024 rows, a block per group tile in shared
@@ -66,14 +68,16 @@ def load():
                          "kmer_grouped_count", cuda=True)
         vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.run_lengths_grouped_launch.restype = i
-        lib.run_lengths_grouped_launch.argtypes = [vp] * 4 + [i, i64, i, vp,
-                                                              vp]
+        lib.run_lengths_grouped_launch.argtypes = [vp, i, i64, i, vp, vp]
         lib.grouped_sort_count_launch.restype = i
-        lib.grouped_sort_count_launch.argtypes = ([vp] * 8
-                                                  + [i, i64, i, i64, i64, vp,
-                                                     vp])
+        lib.grouped_sort_count_launch.argtypes = [vp, vp, i, i64, i, i64, i64,
+                                                  vp, vp]
         lib.grouped_sort_info.restype = i
         lib.grouped_sort_info.argtypes = [i, i64, i, i64, i64, vp]
+        if lib.grouped_max_planes() != MAX_WORDS:
+            raise RuntimeError(f"grouped_count.cu takes "
+                               f"{lib.grouped_max_planes()} planes, this "
+                               f"wrapper {MAX_WORDS}")
         _lib = lib
     return _lib
 
@@ -100,7 +104,7 @@ def launch_info(G: int, m: int, n_words: int = 1, *,
 def max_group_rows(n_words: int) -> int:
     """The largest group K2b/K2c sort: the power of two m whose m rows of
     n_words int64 words fit a block's shared memory (16384 rows at W = 1,
-    4096 at W = 4)."""
+    4096 at W = 4, 2048 at W = 5)."""
     m = 1
     while 2 * m * n_words * 8 <= SMEM_BYTES:
         m *= 2
@@ -127,9 +131,9 @@ def _check_pow2(m: int, n_words: int) -> None:
                          f"{max_group_rows(n_words)} at W={n_words}")
 
 
-def _ptrs(planes) -> list:
-    return ([p.data_ptr() for p in planes]
-            + [None] * (MAX_WORDS - len(planes)))
+def _ptrs(planes):
+    """The planes' device pointers as a C array."""
+    return (ctypes.c_void_p * len(planes))(*[p.data_ptr() for p in planes])
 
 
 def _device(planes) -> torch.device | None:
@@ -187,7 +191,7 @@ def run_lengths_grouped(planes) -> torch.Tensor:
     lib = load()
     with torch.cuda.device(dev):
         rc = lib.run_lengths_grouped_launch(
-            *_ptrs(planes), len(planes), G, m, counts.data_ptr(),
+            _ptrs(planes), len(planes), G, m, counts.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"run_lengths_grouped kernel launch failed: "
@@ -220,7 +224,7 @@ def _launch_sort(planes, G: int, m: int, elem_stride: int,
     lib = load()
     with torch.cuda.device(dev):
         rc = lib.grouped_sort_count_launch(
-            *_ptrs(planes), *_ptrs(out), len(planes), G, m, elem_stride,
+            _ptrs(planes), _ptrs(out), len(planes), G, m, elem_stride,
             group_stride, counts.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:

@@ -2,12 +2,12 @@
 Hopper kernel (csrc/sort.cu, an LSD radix sort) and its plain torch
 version.
 
-Counterpart of kmer_tpu/ops/pallas/sort.py `sort_words_pallas`: W
-equal-length rows of words, sorted by their first `num_keys` words (word 0
-most significant), duplicates kept; the other words are payload, and rows
-with equal keys keep their input order.  kmer_tpu sorts W uint32 words;
-here a word is an int64 compared as signed, so the sentinel SENTINEL =
-INT64_MAX sorts last.
+Counterpart of kmer_tpu/ops/pallas/sort.py `sort_words_pallas`: W (up to
+MAX_WORDS) equal-length rows of words, sorted by their first `num_keys`
+words (word 0 most significant), duplicates kept; the other words are
+payload, and rows with equal keys keep their input order.  kmer_tpu
+sorts W uint32 words; here a word is an int64 compared as signed, so the
+sentinel SENTINEL = INT64_MAX sorts last.
 
 `bits[q]` promises that key word q holds values in [0, 2**bits[q]) or
 SENTINEL; 64 (the default) means any int64.  The kernel makes one pass
@@ -31,7 +31,7 @@ import torch
 
 SOURCE = "kmer_tpu_torch/csrc/sort.cu"
 REPLACES = "kmer_tpu/ops/pallas/sort.py:134"
-MAX_WORDS = 4
+MAX_WORDS = 240                            # csrc/sort.cu MAX_PLANES
 SENTINEL = torch.iinfo(torch.int64).max    # the padding word: sorts last
 TILE_ROWS = 4096                           # rows a block of sort.cu takes
 # calls of sort_words that launched the kernel (the plain version on CPU
@@ -48,13 +48,14 @@ def load():
                          cuda=True)
         vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.sort_words_launch.restype = i
-        lib.sort_words_launch.argtypes = [vp] * 4 + [i] * 6 + [i64, vp, vp]
+        lib.sort_words_launch.argtypes = [vp, i, i, vp, i64, vp, vp]
         lib.sort_scratch_words.restype = i64
         lib.sort_scratch_words.argtypes = [i, i64]
         lib.sort_tile_rows.restype = i
-        if lib.sort_tile_rows() != TILE_ROWS:
-            raise RuntimeError(f"sort.cu tiles {lib.sort_tile_rows()} rows, "
-                               f"TILE_ROWS says {TILE_ROWS}")
+        got = (lib.sort_tile_rows(), lib.sort_max_planes())
+        if got != (TILE_ROWS, MAX_WORDS):
+            raise RuntimeError(f"sort.cu has (TILE, MAX_PLANES) = {got}, "
+                               f"this wrapper {(TILE_ROWS, MAX_WORDS)}")
         _lib = lib
     return _lib
 
@@ -117,14 +118,14 @@ def sort_words(words, num_keys=None, bits=None) -> list[torch.Tensor]:
     if n == 0:
         return words
     W = len(words)
-    ptrs = [w.data_ptr() for w in words] + [None] * (MAX_WORDS - W)
+    ptrs = (ctypes.c_void_p * W)(*[w.data_ptr() for w in words])
     lib = load()
     with torch.cuda.device(dev):
         scratch = torch.empty(lib.sort_scratch_words(W, n),
                               dtype=torch.int64, device=dev)
-        rc = lib.sort_words_launch(*ptrs, W, num_keys,
-                                   *bits, *(64,) * (MAX_WORDS - num_keys),
-                                   n, scratch.data_ptr(),
+        rc = lib.sort_words_launch(ptrs, W, num_keys,
+                                   (ctypes.c_int * num_keys)(*bits), n,
+                                   scratch.data_ptr(),
                                    torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sort kernel launch failed: cudaError {rc}")

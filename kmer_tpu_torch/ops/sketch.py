@@ -25,7 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .encode import HI_BASES, LO_FLIP, check_k, words_per_key
+from .encode import HI_BASES, LO_FLIP, PAIR_BASES, words_per_key
+from .extract import wide_not_ported
 from .kernels.fused_extract import fused_extract_count
 from .kernels.histogram import hll_class_histogram
 
@@ -75,7 +76,8 @@ def _rho32(tail: torch.Tensor, width: int) -> torch.Tensor:
 def key_words(keys, k: int) -> list[torch.Tensor]:
     """k-mer keys (int64, or the (hi, lo) pair for k > 31) -> kmer_tpu's
     uint32 key words as int64 tensors, most significant first."""
-    check_k(k)
+    if not 1 <= k <= PAIR_BASES:
+        raise wide_not_ported(f"card with {k}-base keys")
     W = words_per_key(k)
     if k <= HI_BASES:
         return [keys & _M32] if W == 1 else [keys >> 32, keys & _M32]

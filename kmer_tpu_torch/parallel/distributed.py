@@ -302,7 +302,10 @@ def make_distributed_gapped(mesh: Mesh, *, l_len: int = 27, r_len: int = 27,
 def make_step(mesh: Mesh, cfg):
     """The sort-mode step of `cfg` over `mesh`, the one
     count_fasta_multihost and StreamingCounter(mesh=) run: the pairs step
-    (K3's for gapped keys) unless pairs_eligible says legacy."""
+    (K3's for gapped keys) unless pairs_eligible says legacy.  Keys of
+    more than two int64 words, or gapped windows over 31 bases, raise
+    (ROADMAP item 19)."""
+    cfg.check_narrow("the mesh")
     use_pairs = pairs_eligible(cfg)
     if cfg.seed_mask is not None and not use_pairs:
         raise ValueError("spaced seeds need the pairs step; unset "

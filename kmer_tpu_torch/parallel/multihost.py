@@ -184,6 +184,7 @@ def count_fasta_multihost(path: str, cfg=None, gather: bool = True,
     cfg = cfg or KmerConfig()
     if cfg_kw:
         cfg = cfg.replace(**cfg_kw)
+    cfg.check_narrow("the mesh")
     mesh = mesh or make_mesh(devices=[process_device(device)])
     pc = mesh.world
     if cfg.batch_reads % pc:

@@ -4,23 +4,32 @@ Single-device pipeline.  Each batch goes to the device 2-bit packed and
 runs one count step:
 
 - the fused step (the default, KMER_TPU_STEP=auto or fused): contiguous
-  k-mers and spaced seeds through ops/kernels/fused_extract (extraction,
-  canonical key, validity and the in-segment collapse in kernel K1),
-  gapped L+R chunks through ops/kernels/fused_gapped (K3);
-- the unfused step (KMER_TPU_STEP=legacy, any other value, or t), and
-  the uncompacted contiguous step whenever cfg.sort_group_keys is 0:
-  contiguous k-mers extracted without collapse (ops/kernels/extract,
-  K7), then counted by ops/count.grouped_count in groups of
-  sort_group_keys keys (K2a, K2b or K2c by KMER_TPU_GROUPED; K2c in
-  strided groups of KMER_TPU_T_M keys under t), or, for sort_group_keys
-  = 0, by one exact flat sort (ops/count.sort_count, K6).  kmer_tpu's
-  step selection (kmer_tpu/pipeline/count.py:57-138, 144-188, 205-238).
+  k-mers of up to 63 bases and spaced seeds through
+  ops/kernels/fused_extract (extraction, canonical key, validity and the
+  in-segment collapse in kernel K1); gapped L+R chunks through
+  ops/kernels/fused_gapped (K3) when KMER_TPU_GAPPED_STEP is auto or
+  fused, sort_group_keys > 0 and both windows hold at most 31 bases
+  (gapped_fused);
+- the unfused step (KMER_TPU_STEP=legacy, any other value, or t; every
+  contiguous key over 63 bases), and the uncompacted contiguous step
+  whenever cfg.sort_group_keys is 0: contiguous k-mers extracted without
+  collapse (ops/kernels/extract, K7), then counted by
+  ops/count.grouped_count in groups of sort_group_keys keys (K2a, K2b or
+  K2c by KMER_TPU_GROUPED; K2c in strided groups of KMER_TPU_T_M keys
+  under t), or, for sort_group_keys = 0, by one exact flat sort
+  (ops/count.sort_count, K6);
+- the gapped unfused route (every gapped step K3 does not take): K7's
+  gapped lanes, then grouped_count at sort_group_keys, or sort_count at
+  0.  kmer_tpu's step selection (kmer_tpu/pipeline/count.py:57-138,
+  144-188, 205-238, 354-455), without its fused gapped kernel's TPU-only
+  conditions (a residual uint32 word, the VMEM fit).
 
-A key of 32 to 63 bases (contiguous, or a seed mask's selected bases)
-travels as the (hi, lo) int64 pair of ops/encode, hi the first 31 bases:
-the gapped pair at l_len = 31, so the pair paths of the table
-(gapped_run_pairs), compaction (K4), the device merge (two words) and
-the grouped counts take it as they stand.
+A key travels as the int64 planes of ops/encode, KmerConfig.plane_bases:
+one word up to 31 bases, the (hi, lo) pair up to 63 (hi the first 31
+bases: the gapped pair at l_len = 31), W words beyond; a gapped key as
+K3's split while its windows hold at most 31 bases.  The table
+(plane_run_pairs), compaction (K4), the device merge (W key words) and
+the grouped counts take every layout.
 
 Then:
 
@@ -55,17 +64,18 @@ from ..io.fasta import (iter_batches, iter_parse_chunks, parse_seqs,
                         segment_records)
 from ..ops import count as count_ops
 from ..ops import devmerge
-from ..ops.encode import HI_BASES, key_planes, pair_r_len, plane_bits
+from ..ops.encode import (HI_BASES, PAIR_BASES, bases_bits, gapped_bases,
+                          key_planes, pair_r_len, plane_bits, word_bases)
 from ..ops.kernels import compact as compact_kernel
 from ..ops.kernels import fused_gapped
-from ..ops.kernels.extract import extract_keys
+from ..ops.kernels.extract import extract_gapped_keys, extract_keys
 from ..ops.kernels.fused_extract import fused_extract_count
 from ..ops.kernels.histogram import index_histogram
 from ..utils import stagetime
 from ..utils.linkspeed import d2h_gbps, dense_scatter_ok
 from ..utils.stats import StatsLogger, Timer, prefetch_iter
 from .table import (KmerTable, TableAccumulator, device_run_pairs,
-                    gapped_run_pairs, reduce_fused, unfuse_words)
+                    plane_run_pairs, reduce_fused, unfuse_words)
 
 # positions per in-segment collapse: only changes how many duplicate
 # pairs reach the host, never the table
@@ -117,6 +127,17 @@ def _fused_selected() -> bool:
     return os.environ.get("KMER_TPU_STEP", "auto") in ("auto", "fused")
 
 
+def gapped_fused(l_len: int, r_len: int, group_keys: int) -> bool:
+    """The gapped step is K3: KMER_TPU_GAPPED_STEP auto (the default) or
+    fused, the grouped partial-aggregation contract (group_keys > 0; 0
+    asks for one exact flat sort) and windows of at most 31 bases
+    (kmer_tpu's _gapped_fused_ok without its TPU-only conditions).  Any
+    other KMER_TPU_GAPPED_STEP value (legacy) takes the unfused route."""
+    return (os.environ.get("KMER_TPU_GAPPED_STEP", "auto") in ("auto",
+                                                                "fused")
+            and group_keys > 0 and max(l_len, r_len) <= HI_BASES)
+
+
 def _t_group_keys() -> int:
     m = int(os.environ.get("KMER_TPU_T_M", T_GROUP_KEYS))
     if m < 1 or m & (m - 1):
@@ -130,18 +151,20 @@ def count_step_sort(codes: torch.Tensor, lengths: torch.Tensor,
                     packed_width: int = 0, positions=None):
     """One device batch, sort mode: (keys, counts) under the
     partial-aggregation contract, on the device the tensors lie on; keys
-    of 32 to 63 bases are (hi, lo) pairs of planes.  positions: a spaced
-    seed's k window offsets (k the mask's popcount), or None; with them
-    this is kmer_tpu's spaced_step_sort (kmer_tpu/pipeline/count.py:144).
+    of more than 31 bases are tuples of planes (ops/encode).  positions:
+    a spaced seed's k window offsets (k the mask's popcount), or None;
+    with them this is kmer_tpu's spaced_step_sort
+    (kmer_tpu/pipeline/count.py:144).
 
-    group_keys > 0 with KMER_TPU_STEP auto or fused: the fused step,
-    (P_pad, B) int64 keys and int8 counts.  Otherwise the unfused step:
+    group_keys > 0 with KMER_TPU_STEP auto or fused and k <= 63: the
+    fused step, (P_pad, B) int64 keys and int8 counts.  Otherwise the
+    unfused step:
     extraction (K7), then group_keys == 0: one exact flat sort
     (sort_count), whatever KMER_TPU_STEP says; KMER_TPU_STEP=t: K2c over
     strided groups of KMER_TPU_T_M keys; any other value: grouped_count
     at m = group_keys (KMER_TPU_GROUPED) -- flat (N_pad,) int64 keys and
     int32 counts."""
-    if group_keys > 0 and _fused_selected():
+    if group_keys > 0 and _fused_selected() and k <= PAIR_BASES:
         return fused_step(codes, lengths, limits, k=k, canonical=canonical,
                           mask_ambiguous=mask_ambiguous,
                           packed_width=packed_width, positions=positions)
@@ -156,22 +179,40 @@ def count_step_sort(codes: torch.Tensor, lengths: torch.Tensor,
                                                 backend="pallas_t")
     else:
         words, counts = count_ops.grouped_count(planes, group_keys)
-    return (tuple(words) if len(words) == 2 else words[0]), counts
+    return (tuple(words) if len(words) > 1 else words[0]), counts
 
 
 def gapped_step_sort(codes: torch.Tensor, lengths: torch.Tensor,
                      limits: torch.Tensor, *, c_min: int, c_max: int,
                      l_len: int = 27, r_len: int = 27,
-                     mask_ambiguous: bool = False, packed_width: int = 0):
+                     mask_ambiguous: bool = False, packed_width: int = 0,
+                     group_keys: int = 256):
     """One device batch of gapped L+R chunks (reference semantics: every
     chunk size c in [c_min, c_max] and offset o with o + c <= len):
-    (hi, lo (B, T_pad) int64, counts (B, T_pad) int8) under the
-    partial-aggregation contract.  Runs on the device the tensors lie
-    on."""
-    return fused_gapped.fused_gapped_count(
+    (*planes, counts) under the partial-aggregation contract, the planes
+    those of ops/encode.gapped_bases.  Runs on the device the tensors lie
+    on.
+
+    gapped_fused: K3, (hi, lo (B, T_pad) int64, counts (B, T_pad) int8).
+    Otherwise the unfused route: K7's gapped lanes, then grouped_count
+    at m = group_keys (KMER_TPU_GROUPED), or for group_keys == 0 one
+    exact flat sort (sort_count, K6) -- flat (N_pad,) int64 planes and
+    int32 counts."""
+    if gapped_fused(l_len, r_len, group_keys):
+        return fused_gapped.fused_gapped_count(
+            codes, lengths, limits, l_len=l_len, r_len=r_len, c_min=c_min,
+            c_max=c_max, mask_ambiguous=mask_ambiguous, seg=SEG,
+            packed_width=packed_width)
+    planes = [p.reshape(-1) for p in extract_gapped_keys(
         codes, lengths, limits, l_len=l_len, r_len=r_len, c_min=c_min,
-        c_max=c_max, mask_ambiguous=mask_ambiguous, seg=SEG,
-        packed_width=packed_width)
+        c_max=c_max, mask_ambiguous=mask_ambiguous,
+        packed_width=packed_width)]
+    if group_keys == 0:
+        words, counts = count_ops.sort_count(
+            planes, bits=bases_bits(gapped_bases(l_len, r_len)))
+    else:
+        words, counts = count_ops.grouped_count(planes, group_keys)
+    return (*words, counts)
 
 
 def count_step_compact(codes: torch.Tensor, lengths: torch.Tensor,
@@ -179,39 +220,44 @@ def count_step_compact(codes: torch.Tensor, lengths: torch.Tensor,
                        mask_ambiguous: bool = False, group_keys: int = 256,
                        packed_width: int = 0):
     """One sort-mode batch with on-device compaction: (keys (n,) int64,
-    or (n, 2) [vhi, vlo] for keys of 32 to 63 bases, counts (n,) int64,
-    total (1,) int64), rows [0, total) the batch's live (key, count)
-    records (ops/kernels/compact).  The fused step under KMER_TPU_STEP
-    auto or fused, whatever group_keys is; else K7, then grouped_count at
-    m = group_keys (at least 1)."""
-    r_len = pair_r_len(k)
-    if _fused_selected():
+    (n, 2) [vhi, vlo] for keys of 32 to 63 bases, or (n, W) words beyond,
+    counts (n,) int64, total (1,) int64), rows [0, total) the batch's
+    live (key, count) records (ops/kernels/compact).  The fused step
+    under KMER_TPU_STEP auto or fused for k <= 63, whatever group_keys
+    is; else K7, then grouped_count at m = group_keys (at least 1)."""
+    if _fused_selected() and k <= PAIR_BASES:
         keys, counts = fused_step(codes, lengths, limits, k=k,
                                   canonical=canonical,
                                   mask_ambiguous=mask_ambiguous,
                                   packed_width=packed_width)
-        return compact_kernel.compact(key_planes(keys), counts, r_len=r_len,
-                                      n_bases=k)
+        return compact_kernel.compact(key_planes(keys), counts,
+                                      r_len=pair_r_len(k), n_bases=k)
     keys = extract_keys(codes, lengths, limits, k, canonical=canonical,
                         mask_ambiguous=mask_ambiguous,
                         packed_width=packed_width)
     return count_ops.grouped_count_compact(key_planes(keys), group_keys,
-                                           r_len=r_len, n_bases=k)
+                                           bases=word_bases(k))
 
 
 def gapped_step_compact(codes: torch.Tensor, lengths: torch.Tensor,
                         limits: torch.Tensor, *, c_min: int, c_max: int,
                         l_len: int = 27, r_len: int = 27,
-                        mask_ambiguous: bool = False, packed_width: int = 0):
+                        mask_ambiguous: bool = False, packed_width: int = 0,
+                        group_keys: int = 256):
     """gapped_step_sort with on-device compaction: records of the key
-    value (one uint64 column up to 31 bases, else [vhi, vlo]) as
-    count_step_compact."""
-    hi, lo, counts = gapped_step_sort(codes, lengths, limits, c_min=c_min,
-                                      c_max=c_max, l_len=l_len, r_len=r_len,
-                                      mask_ambiguous=mask_ambiguous,
-                                      packed_width=packed_width)
-    return compact_kernel.compact((hi, lo), counts, r_len=r_len,
-                                  n_bases=l_len + r_len)
+    value (one uint64 column up to 31 bases, else [vhi, vlo]), or the
+    words of a key of three or four planes, as count_step_compact.  K3
+    under gapped_fused, else K7's gapped lanes and grouped_count at m =
+    group_keys (at least 1)."""
+    win = dict(c_min=c_min, c_max=c_max, l_len=l_len, r_len=r_len,
+               mask_ambiguous=mask_ambiguous, packed_width=packed_width)
+    if gapped_fused(l_len, r_len, group_keys):
+        hi, lo, counts = gapped_step_sort(codes, lengths, limits, **win)
+        return compact_kernel.compact((hi, lo), counts, r_len=r_len,
+                                      n_bases=l_len + r_len)
+    planes = extract_gapped_keys(codes, lengths, limits, **win)
+    return count_ops.grouped_count_compact(planes, group_keys,
+                                           bases=gapped_bases(l_len, r_len))
 
 
 def count_step_dense(codes: torch.Tensor, lengths: torch.Tensor,
@@ -420,9 +466,10 @@ class _CompactReadback:
     stream so that the next batch's kernels, queued on the compute
     stream, do not hold the copy."""
 
-    def __init__(self, out, copy_stream=None):
+    def __init__(self, out, copy_stream=None, bases=(1,)):
         self.keys, self.counts, total = out
         self.copy_stream = copy_stream
+        self.bases = bases
         if total.device.type == "cuda":
             self.total = torch.empty(1, dtype=torch.int64, pin_memory=True)
             self.total.copy_(total, non_blocking=True)
@@ -449,9 +496,11 @@ class _CompactReadback:
         self.keys, self.counts = host
 
     def pairs(self) -> tuple[np.ndarray, np.ndarray]:
-        """(fused uint64 keys, int64 counts) as views of the records;
-        call after wait()."""
-        return self.keys.numpy().view(np.uint64), self.counts.numpy()
+        """(fused uint64 keys, int64 counts): views of the records of one
+        or two planes, fused here from three or four (bases: each
+        plane's bases); call after wait()."""
+        return (compact_kernel.records_fused(self.keys.numpy(), self.bases),
+                self.counts.numpy())
 
 
 def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -464,16 +513,17 @@ def batch_width(offsets: np.ndarray, cfg: KmerConfig,
                 span: int | None = None) -> int:
     """The tight row width of one parsed chunk: its longest record
     rounded up to 32, floored at the window span (c_max for gapped
-    chunks, or `span`), capped at cfg.max_read_len and at the gapped
-    kernel's widest row.  It depends on the chunk alone, so a chunk
-    parsed again from the same cursor gets the same width and the same
-    batches."""
+    chunks, or `span`), capped at cfg.max_read_len and, when the gapped
+    step is K3 (gapped_fused), at K3's widest row.  It depends on the
+    chunk (and the step) alone, so a chunk parsed again from the same
+    cursor gets the same width and the same batches."""
     span = span or cfg.window_span
     max_len = cfg.max_read_len
     if len(offsets) > 1:
         longest = int(np.max(np.diff(offsets)))
         max_len = min(max_len, -(-max(longest, span) // 32) * 32)
-    if cfg.gapped:
+    if cfg.gapped and gapped_fused(cfg.l_len, cfg.r_len,
+                                   cfg.sort_group_keys):
         max_len = min(max_len, fused_gapped.MAX_ROW)
     return max_len
 
@@ -558,11 +608,9 @@ def sort_step(cfg: KmerConfig, dev: torch.device, compact: bool):
     step packs its live lanes on the device (cfg.compact for count_codes;
     streaming's pass 1 ignores it, as kmer_tpu's does)."""
     k = cfg.n_bases
-    # lo's bases of a (hi, lo) key (gapped, or 32 to 63 bases); 0 for one
-    # int64
-    r_len = cfg.r_len if cfg.gapped else pair_r_len(k)
+    bases = cfg.plane_bases
     win = dict(c_min=cfg.c_min, c_max=cfg.c_max, l_len=cfg.l_len,
-               r_len=cfg.r_len)
+               r_len=cfg.r_len, group_keys=cfg.sort_group_keys)
     copy_stream = (torch.cuda.Stream(dev) if compact and dev.type == "cuda"
                    else None)
     if cfg.gapped and compact:
@@ -570,7 +618,7 @@ def sort_step(cfg: KmerConfig, dev: torch.device, compact: bool):
             return _CompactReadback(gapped_step_compact(
                 codes_d, lengths_d, limits_d, **win,
                 mask_ambiguous=cfg.skip_invalid, packed_width=pw),
-                copy_stream)
+                copy_stream, bases)
     elif cfg.gapped:
         def step(codes_d, lengths_d, limits_d, pw):
             return _Readback(gapped_step_sort(
@@ -582,7 +630,7 @@ def sort_step(cfg: KmerConfig, dev: torch.device, compact: bool):
                 codes_d, lengths_d, limits_d, k=k, canonical=cfg.canonical,
                 mask_ambiguous=cfg.skip_invalid,
                 group_keys=cfg.sort_group_keys, packed_width=pw),
-                copy_stream)
+                copy_stream, bases)
     else:
         def step(codes_d, lengths_d, limits_d, pw):
             keys, counts = count_step_sort(
@@ -595,12 +643,10 @@ def sort_step(cfg: KmerConfig, dev: torch.device, compact: bool):
     if compact:
         def batch_pairs(rb):
             return rb.pairs()                  # records as they came
-    elif r_len:
-        def batch_pairs(rb):
-            return gapped_run_pairs(*rb.host(), r_len, k)
     else:
         def batch_pairs(rb):
-            return device_run_pairs(*rb.host())
+            *planes, counts = rb.host()
+            return plane_run_pairs(planes, counts, bases)
     return step, batch_pairs
 
 
@@ -707,24 +753,17 @@ def devmerge_route(cfg: KmerConfig, dev: torch.device, sink=None):
     a sorted unique (fused key, int64 count) part to `sink` (default:
     the DeviceMerge's parts)."""
     k = cfg.n_bases
+    bases = cfg.plane_bases
     if cfg.gapped:
         win = dict(c_min=cfg.c_min, c_max=cfg.c_max, l_len=cfg.l_len,
-                   r_len=cfg.r_len)
+                   r_len=cfg.r_len, group_keys=cfg.sort_group_keys)
 
         def step(codes_d, lengths_d, limits_d, pw):
-            hi, lo, counts = gapped_step_sort(
+            *planes, counts = gapped_step_sort(
                 codes_d, lengths_d, limits_d, **win,
                 mask_ambiguous=cfg.skip_invalid, packed_width=pw)
-            return (hi, lo), counts
-
-        def to_part(keys, counts):
-            return gapped_run_pairs(keys[:, 0], keys[:, 1], counts,
-                                    cfg.r_len, k)
-        dm = DeviceMerge(2, dev, to_part, l_len=cfg.l_len, r_len=cfg.r_len,
-                         bits=(2 * cfg.l_len, 2 * cfg.r_len), sink=sink)
+            return tuple(planes), counts
     else:
-        r_len = pair_r_len(k)
-
         def step(codes_d, lengths_d, limits_d, pw):
             keys, counts = count_step_sort(
                 codes_d, lengths_d, limits_d, k=k, canonical=cfg.canonical,
@@ -733,17 +772,14 @@ def devmerge_route(cfg: KmerConfig, dev: torch.device, sink=None):
                 positions=cfg.seed_positions)
             return key_planes(keys), counts
 
-        if r_len:
-            def to_part(keys, counts):
-                return gapped_run_pairs(keys[:, 0], keys[:, 1], counts,
-                                        r_len, k)
-            dm = DeviceMerge(2, dev, to_part, l_len=HI_BASES, r_len=r_len,
-                             bits=plane_bits(k), sink=sink)
-        else:
-            def to_part(keys, counts):
-                return (np.ascontiguousarray(keys[:, 0]).view(np.uint64),
-                        counts)
-            dm = DeviceMerge(1, dev, to_part, bits=plane_bits(k), sink=sink)
+    def to_part(keys, counts):
+        return plane_run_pairs([keys[:, q] for q in range(len(bases))],
+                               counts, bases)
+    # a pair's wire tiers read it as (l_len, r_len) bases
+    wire = (dict(l_len=bases[0], r_len=bases[1]) if len(bases) == 2
+            else {})
+    dm = DeviceMerge(len(bases), dev, to_part, bits=bases_bits(bases),
+                     sink=sink, **wire)
     return step, dm
 
 

@@ -63,10 +63,11 @@ def aggregate_fused(fused: np.ndarray, counts: np.ndarray
     (the native library's most-significant-first layout as it stands);
     counts: (n,) int64.  Returns (keys, counts) -- unique keys ascending,
     in the input's layout -- or None when n < MIN_N (the numpy path is
-    faster there) or the native call reports an error."""
+    faster there), for more than two columns (the library takes one or
+    two) or when the native call reports an error."""
     n = len(counts)
-    if n < MIN_N:
-        return None
+    if n < MIN_N or (fused.ndim == 2 and fused.shape[1] > 2):
+        return None            # wider keys: np.lexsort (pipeline/table)
     lib = load()
     keys = np.ascontiguousarray(fused, np.uint64)
     nw = 1 if keys.ndim == 1 else 2

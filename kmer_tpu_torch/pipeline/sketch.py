@@ -14,6 +14,8 @@ import numpy as np
 import torch
 
 from ..config import KmerConfig
+from ..ops.encode import PAIR_BASES
+from ..ops.extract import wide_not_ported
 from ..ops.sketch import estimate_from_histogram, hll_step
 from ..utils.stats import StatsLogger
 from .count import dispatch_batches, iter_chunks, resolve_device
@@ -48,6 +50,8 @@ def sketch_histograms(paths, ks, cfg: KmerConfig, *, b: int = 10,
     ks = list(dict.fromkeys(ks))      # a repeated k would double-count
     if not ks or any(kk < 1 for kk in ks):
         raise ValueError(f"bad k list {ks}")
+    if max(ks) > PAIR_BASES:
+        raise wide_not_ported(f"card with {max(ks)}-base keys")
     span = cfg.window_span if positions is not None else max(ks)
     if cfg.max_read_len < span:
         raise ValueError(f"max_read_len={cfg.max_read_len} < window "

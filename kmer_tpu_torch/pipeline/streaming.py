@@ -246,6 +246,8 @@ class StreamingCounter:
                  stats: StatsLogger | None = None, device="cuda", mesh=None):
         if cfg.partitions < 1:
             raise ValueError(f"partitions must be >= 1, got {cfg.partitions}")
+        # spill records hold one or two fused key columns (ROADMAP item 19)
+        cfg.check_narrow("streaming")
         self.fasta = fasta
         self.cfg = cfg
         self.dir = spill_dir

@@ -4,11 +4,13 @@ KmerTable stores the same (M, W) uint32 most-significant-first key words
 as kmer_tpu.pipeline.table.KmerTable (ops/encode layout), so two tables
 compare with ==, write the same TSV and save the same .npz in both
 packages.  Aggregation works on keys FUSED into uint64: one (M,) column
-for W <= 2 (up to 31 bases), an (M, 2) most-significant-first matrix for
-W = 3, 4 (up to 63 bases; kmer_tpu's two fused columns).  A fused key is
-the key value itself, so the k <= 31 device output (one int64) needs no
-conversion, and a pair (hi, lo) -- gapped, or a key of 32 to 63 bases --
-converts with two shifts (ops/encode.pairs_to_value).
+for W <= 2 (up to 31 bases), else an (M, ceil(W / 2)) most-significant-
+first matrix (two columns up to 63 bases; kmer_tpu's fused columns).  A
+fused key is the key value itself, so the k <= 31 device output (one
+int64) needs no conversion, a pair (hi, lo) -- gapped, or a key of 32 to
+63 bases -- converts with two shifts (ops/encode.pairs_to_value), and
+wider keys' planes by ops/encode.planes_to_chunks.  Past two columns the
+host merge is one np.lexsort, as kmer_tpu's.
 """
 
 from __future__ import annotations
@@ -18,15 +20,28 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..ops.encode import (SENTINEL_KEY, check_key_width, decode_key_words,
-                          encode_seq, key_words_from_codes, pair_r_len,
-                          pairs_to_value, revcomp_str, value_to_words,
-                          words_per_key)
+from ..ops.encode import (SENTINEL_KEY, check_n_bases, chunks_to_u32,
+                          decode_key_words, encode_seq, key_words_from_codes,
+                          pair_r_len, pairs_to_value, planes_to_chunks,
+                          revcomp_str, u32_to_chunks, words_per_key)
+
+
+def _fused(chunks) -> np.ndarray:
+    """uint64 value chunks, least significant first -> the fused layout:
+    (M,) for one chunk, else (M, C) most significant first."""
+    return chunks[0] if len(chunks) == 1 else np.stack(chunks[::-1], axis=1)
+
+
+def _chunks(fused: np.ndarray) -> list[np.ndarray]:
+    """Inverse of _fused."""
+    if fused.ndim == 1:
+        return [fused]
+    return [fused[:, c] for c in range(fused.shape[1] - 1, -1, -1)]
 
 
 def fuse_words(keys: np.ndarray, k: int) -> np.ndarray:
     """(M, W) uint32 key words -> (M,) uint64 key values (W <= 2) or
-    (M, 2) uint64 [high, low] halves (W = 3, 4)."""
+    (M, ceil(W / 2)) uint64 columns, most significant first (W >= 3)."""
     W = words_per_key(k)
     keys = np.ascontiguousarray(keys, dtype=np.uint32).reshape(-1, W)
     if W == 1:
@@ -35,12 +50,7 @@ def fuse_words(keys: np.ndarray, k: int) -> np.ndarray:
         # the uint64 view reads (w0 | w1 << 32); a 32-bit rotate swaps it
         v = keys.view(np.uint64).reshape(-1)
         return (v >> np.uint64(32)) | (v << np.uint64(32))
-    u = keys.astype(np.uint64)
-    lo = (u[:, W - 2] << np.uint64(32)) | u[:, W - 1]
-    if W == 2:
-        return lo
-    hi = u[:, 0] if W == 3 else (u[:, 0] << np.uint64(32)) | u[:, 1]
-    return np.stack([hi, lo], axis=1)
+    return _fused(u32_to_chunks(keys, k))
 
 
 def unfuse_words(fused: np.ndarray, k: int) -> np.ndarray:
@@ -49,9 +59,13 @@ def unfuse_words(fused: np.ndarray, k: int) -> np.ndarray:
     if W == 2 and sys.byteorder == "little":
         rot = (fused >> np.uint64(32)) | (fused << np.uint64(32))
         return np.ascontiguousarray(rot.view(np.uint32).reshape(-1, 2))
-    if W <= 2:
-        return value_to_words(np.zeros_like(fused), fused, W)
-    return value_to_words(fused[:, 0], fused[:, 1], W)
+    return chunks_to_u32(_chunks(np.asarray(fused, np.uint64)), k)
+
+
+def planes_to_fused(planes, bases) -> np.ndarray:
+    """int64 key planes of a layout (ops/encode; bases: each plane's
+    bases) -> fused keys of the sum(bases)-base key."""
+    return _fused(planes_to_chunks(planes, bases))
 
 
 def _void_view(keys: np.ndarray) -> np.ndarray:
@@ -80,7 +94,8 @@ def reduce_fused(fused: np.ndarray, counts: np.ndarray
         new_run[0] = True
         np.not_equal(fs[1:], fs[:-1], out=new_run[1:])
     else:
-        order = np.lexsort((fused[:, 1], fused[:, 0]))
+        # the last key np.lexsort takes is the primary one
+        order = np.lexsort(_chunks(fused))
         fs = fused[order]
         new_run = np.empty(len(fs), bool)
         new_run[0] = True
@@ -190,7 +205,7 @@ class KmerTable:
                    ) -> "KmerTable":
         """Aggregate unsorted (key words, count) pairs into a sorted
         unique table: one sort + run-sum over the fused uint64 keys."""
-        check_key_width(k)
+        check_n_bases(k)
         W = words_per_key(k)
         keys = np.asarray(keys, dtype=np.uint32)
         if keys.ndim == 2 and keys.shape[0] and keys.shape[1] != W:
@@ -336,11 +351,10 @@ class KmerTable:
 
     @staticmethod
     def load(path: str) -> "KmerTable":
-        """A table saved by either package (keys over 63 bases, which
-        kmer_tpu can save, raise ValueError)."""
+        """A table saved by either package, of any key width."""
         with np.load(path) as z:
             k = int(z["k"])
-            check_key_width(k)
+            check_n_bases(k)
             return KmerTable(k, z["keys"], z["counts"])
 
     def __eq__(self, other) -> bool:
@@ -375,6 +389,22 @@ def gapped_run_pairs(hi, lo, counts, r_len: int, n_bases: int
                               np.asarray(lo).reshape(-1)[live], r_len)
     fused = vlo if words_per_key(n_bases) <= 2 else np.stack([vhi, vlo], 1)
     return fused, counts[live].astype(np.int64)
+
+
+def plane_run_pairs(planes, counts, bases) -> tuple[np.ndarray, np.ndarray]:
+    """device_run_pairs for the int64 key planes of any layout (bases:
+    each plane's bases, ops/encode): the live lanes as fused key
+    values."""
+    if len(planes) == 1:
+        return device_run_pairs(planes[0], counts)
+    if len(planes) == 2:
+        return gapped_run_pairs(planes[0], planes[1], counts, bases[1],
+                                sum(bases))
+    counts = np.asarray(counts).reshape(-1)
+    live = counts > 0
+    return (planes_to_fused([np.asarray(p).reshape(-1)[live]
+                             for p in planes], bases),
+            counts[live].astype(np.int64))
 
 
 def routed_pairs(n_bases: int, words, counts, r_len: int | None = None

@@ -273,8 +273,8 @@ def test_cli_count_compact_bytes(genome, capsys):
 
 
 def test_compact_config_validation():
-    """kmer_tpu's test_compact_config_validation, for what the port
-    carries (keys over 63 bases wait on ROADMAP Queue 1 item 18)."""
+    """kmer_tpu's test_compact_config_validation: keys of up to 111 bases
+    (7 key words) compact, wider ones raise as in kmer_tpu."""
     KmerConfig(k=21, compact=True)
     KmerConfig(gapped=True, compact=True, max_read_len=512)
     KmerConfig(k=33, compact=True)
@@ -283,5 +283,7 @@ def test_compact_config_validation():
         KmerConfig(k=120, compact=True)
     with pytest.raises(ValueError, match="sort"):
         KmerConfig(k=8, mode="dense", compact=True)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        KmerConfig(k=64, compact=True)
+    KmerConfig(k=64, compact=True)
+    KmerConfig(k=111, compact=True, canonical=True)
+    with pytest.raises(ValueError, match="key words"):
+        KmerConfig(k=112, compact=True)

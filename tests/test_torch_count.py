@@ -100,8 +100,11 @@ def test_cli_errors(tmp_path, capsys):
     bad.write_text(">r\nACGTN\n")
     assert main(["count", str(bad), "--device", "cpu"]) == 1
     assert "invalid base" in capsys.readouterr().err
-    assert main(["count", str(bad), "-k", "64", "--device", "cpu"]) == 1
-    assert "ROADMAP" in capsys.readouterr().err
+    # keys over 63 bases count now; `card` at k = 64 is ROADMAP item 19
+    good = tmp_path / "good.fasta"
+    good.write_text(">r\n" + "ACGTTGCA" * 12 + "\n")
+    assert main(["card", str(good), "-k", "64", "--device", "cpu"]) == 1
+    assert "ROADMAP Queue 1 item 19" in capsys.readouterr().err
 
 
 def test_port_never_imports_jax_or_kmer_tpu(corpora):

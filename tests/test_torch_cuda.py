@@ -1378,3 +1378,133 @@ def test_one_rank_nccl_group_runs_the_exchange(cuda, tmp_path, monkeypatch):
     assert dense == kmer_tpu_torch.count_fasta(path, device="cpu", k=6,
                                                mode="dense", batch_reads=256)
     assert {"all_to_all_single", "all_reduce", "all_gather"} <= set(calls)
+
+
+# ------------------------------------------------ keys of any width (W words)
+
+@pytest.mark.parametrize("k,canon,amb,packed", [
+    (64, True, False, True), (64, False, True, False),
+    (94, True, True, False), (95, False, False, True),
+    (101, True, False, True), (101, True, True, False),
+    (125, True, False, True), (125, False, True, False)])
+def test_multi_word_extract_kernel_equals_plain(cuda, k, canon, amb, packed):
+    """K7 on keys of three and four words (W = 3 at k = 64, 94; W = 4 at
+    95 to 125), bit for bit, canonical or not, packed and u8 rows."""
+    B, L = 301, 160
+    host = _wide_batch(k + amb, B, L, amb, packed)
+    kw = dict(canonical=canon, mask_ambiguous=amb,
+              packed_width=L if packed else 0)
+    want = ek.extract_keys(*host, k, **kw)
+    before = ek.multi_launches
+    got = ek.extract_keys(*(t.to(cuda) for t in host), k, **kw)
+    torch.cuda.synchronize()
+    assert ek.multi_launches == before + 1
+    assert len(got) == len(want) == (3 if k <= 94 else 4)
+    assert _same_keys(got, want)
+    assert int((want[0] != sk.SENTINEL).sum()) > 0
+
+
+@pytest.mark.parametrize("llen,rlen,cmin,cmax,L,amb,packed", [
+    (27, 27, 80, 140, 160, False, True),     # K3's split, as K3 cuts it
+    (27, 27, 60, 70, 66, True, False),       # c_max past L
+    (40, 40, 80, 140, 160, False, True),     # the general layout, W = 3
+    (40, 40, 90, 100, 150, True, False),
+    (32, 5, 40, 52, 96, False, True),        # W = 2, a word across L|R
+    (5, 32, 40, 52, 96, True, False),
+    (60, 60, 121, 130, 160, False, True),    # W = 4
+    (31, 33, 64, 70, 100, True, False)])     # a 32-base last word
+def test_gapped_extract_kernel_equals_plain(cuda, llen, rlen, cmin, cmax, L,
+                                            amb, packed):
+    """K7's gapped entry (the unfused route's lanes), bit for bit."""
+    host = _wide_batch(llen + rlen + cmin, 130, L, amb, packed)
+    kw = dict(l_len=llen, r_len=rlen, c_min=cmin, c_max=cmax,
+              mask_ambiguous=amb, packed_width=L if packed else 0)
+    want = ek.extract_gapped_keys(*host, **kw)
+    before = ek.gapped_launches
+    got = ek.extract_gapped_keys(*(t.to(cuda) for t in host), **kw)
+    torch.cuda.synchronize()
+    assert ek.gapped_launches == before + 1
+    assert _same_keys(got, want)
+    assert int((want[0] != sk.SENTINEL).sum()) > 0
+
+
+@pytest.mark.parametrize("W,N", [(5, 70_001), (6, 30_000)])
+def test_sort_kernel_many_planes(cuda, W, N):
+    """K6 over 5 and 6 planes: the k = 101 device merge's 4 key words and
+    the counts, and 5 key words (k = 126 to 156) and the counts, with the
+    general layout's bits (62 a word, 2 b for the last word's b bases, 64
+    at 32 bases)."""
+    bits = {5: (62, 62, 62, 14), 6: (62, 62, 62, 62, 64)}[W]
+    words = _keyed(cuda, W * 7 + N, W, N, bits)
+    assert _sort_both(words, num_keys=len(bits), bits=bits) == 1
+    assert _sort_both(_keyed(cuda, W, W, N, (64,) * W)) == 1
+
+
+@pytest.mark.parametrize("W", [4, 5])
+def test_grouped_kernels_wide_rows(cuda, W):
+    """K2a, and K2b and K2c, over rows of W = 4 and 5 words: W = 5 takes
+    K2a's plane loop and the block body's (no column or warp body)."""
+    planes = _rows(cuda, W, (300, 256), W, sort=True)
+    before = gk.run_lengths_launches
+    got = gk.run_lengths_grouped(planes)
+    want = gk.run_lengths_grouped_ref(planes)
+    torch.cuda.synchronize()
+    assert gk.run_lengths_launches == before + 1
+    assert torch.equal(got, want)
+    for fn, ref, counter, shape in (
+            (gk.grouped_count, gk.grouped_count_ref, "grouped_launches",
+             (300, 256)),
+            (gk.grouped_count_strided, gk.grouped_count_strided_ref,
+             "strided_launches", (16, 3001)),
+            (gk.grouped_count, gk.grouped_count_ref, "grouped_launches",
+             (3, gk.max_group_rows(W)))):
+        _sort_check(fn, ref, counter, _rows(cuda, W + shape[0], shape, W))
+    if W > 4:
+        assert gk.launch_info(300, 256, W)["body"] == "block"
+        assert gk.launch_info(3001, 16, W, strided=True)["body"] == "block"
+
+
+@pytest.mark.parametrize("W", [3, 4])
+def test_compact_kernel_records_of_words(cuda, W):
+    """K4 on three and four planes: the words as they are, in lane order,
+    with the total."""
+    planes = _rows(cuda, W, (50_003,), W, hi=1 << 62)
+    counts = torch.from_numpy(np.random.default_rng(W).integers(
+        -1, 3, 50_003).astype(np.int32)).to(cuda)
+    launched, t = _compact_both(planes, counts)
+    assert launched == 1 and t == int((counts > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("kw,env", [
+    (dict(k=101, canonical=True), {}),
+    (dict(k=101, canonical=True, compact=True), {}),
+    (dict(k=101, canonical=True, device_merge="on"), {}),
+    (dict(k=101, canonical=True, sort_group_keys=0), {}),
+    (dict(k=101, canonical=True), dict(KMER_TPU_STEP="t")),
+    (dict(k=101, canonical=True), dict(KMER_TPU_STEP="legacy",
+                                       KMER_TPU_GROUPED="pallas")),
+    (dict(gapped=True, l_len=40, r_len=40, c_min=80, c_max=100), {}),
+    (dict(gapped=True, l_len=40, r_len=40, c_min=80, c_max=100,
+          device_merge="on"), {}),
+    (dict(gapped=True, l_len=32, r_len=5, c_min=40, c_max=60,
+          compact=True), {}),
+    (dict(gapped=True, c_min=60, c_max=90), dict(
+        KMER_TPU_GAPPED_STEP="legacy"))])
+def test_any_width_count_cuda_equals_cpu(cuda, tmp_path, monkeypatch, kw,
+                                         env):
+    """Keys over 63 bases, gapped windows over 31 and the gapped unfused
+    route on the card equal the CPU's tables."""
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    path = tmp_path / "g.fasta"
+    path.write_text(genome_reads_fasta(200, 150, genome_len=3000, seed=9,
+                                       error_rate=0.01))
+    cfg = kmer_tpu_torch.KmerConfig(batch_reads=64, max_read_len=160, **kw)
+    want = kmer_tpu_torch.count_fasta(str(path), cfg, device="cpu")
+    ek.multi_launches = ek.gapped_launches = 0
+    got = kmer_tpu_torch.count_fasta(str(path), cfg, device="cuda")
+    assert got == want and got.num_distinct > 0
+    if not cfg.gapped:
+        assert got.total == 200 * (150 - 100) and ek.multi_launches > 0
+    elif env or max(cfg.l_len, cfg.r_len) > 31:
+        assert ek.gapped_launches > 0

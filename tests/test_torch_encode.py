@@ -77,8 +77,18 @@ def test_encode_and_decode_match_reference():
     (dict(gapped=True, r_len=32, c_min=80), "item 15"),
     (dict(k=64), "item 18"), (dict(k=101, canonical=True), "item 18")])
 def test_options_not_ported_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        KmerConfig(**kw)
+    """The options ROADMAP items 15 and 18 ported (gapped windows over 31
+    bases, keys over 63) now configure as kmer_tpu's do: the same key
+    width, window span and overlap, and the device planes of
+    ops/encode."""
+    from kmer_tpu import KmerConfig as JaxConfig
+    t, j = KmerConfig(**kw), JaxConfig(**kw)
+    assert (t.n_bases, t.window_span, t.overlap, t.effective_mode) == (
+        j.n_bases, j.window_span, j.overlap, j.effective_mode)
+    # item 15: the general layout of L||R in place of K3's split; item
+    # 18: more than two words
+    assert t.plane_bases == tenc.word_bases(t.n_bases)
+    assert len(t.plane_bases) > 2 or item == "item 15"
 
 
 @pytest.mark.parametrize("kw", [dict(k=32), dict(k=63),
@@ -92,9 +102,13 @@ def test_options_now_accepted(kw):
 
 
 def test_wide_keys_rejected_by_converters():
+    """The one-word and pair converters refuse wider keys; the W-word
+    layout (words64) takes any width."""
     with pytest.raises(ValueError, match="pairs"):
         tenc.keys_i64_to_u32(np.zeros(1, np.int64), 32)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tenc.check_k(64)
+    with pytest.raises(ValueError, match="pair"):
+        tenc.pair_r_len(64)
+    assert [tenc.words64(n) for n in (31, 32, 63, 64, 94, 95, 125, 126)] == [
+        1, 2, 2, 3, 3, 4, 4, 5]
     assert KmerConfig().effective_mode == "sort"
     assert KmerConfig(mode="auto", k=5).effective_mode == "sort"

@@ -118,9 +118,9 @@ def test_gapped_lanes_lane_for_lane(llen, rlen, cmin, cmax, L, amb):
         jnp.asarray(codes), jnp.asarray(lengths), llen, rlen, c_min=cmin,
         c_max=cmax, limits=jnp.asarray(limits), mask_ambiguous=amb)
     want = np.stack([np.asarray(w) for w in words], axis=-1)  # (B, T, W)
-    hi, lo, v = gapped_lanes(*_t(codes, lengths), llen, rlen, cmin, cmax,
-                             limits=torch.from_numpy(limits),
-                             mask_ambiguous=amb)
+    (hi, lo), v = gapped_lanes(*_t(codes, lengths), llen, rlen, cmin, cmax,
+                               limits=torch.from_numpy(limits),
+                               mask_ambiguous=amb)
     T = gapped_lane_count(L, cmin, cmax)
     assert hi.shape == lo.shape == v.shape == (B, T) == want.shape[:2]
     np.testing.assert_array_equal(v.numpy(), np.asarray(valid))
@@ -225,8 +225,10 @@ def test_gapped_config_matches_reference():
             KmerConfig(gapped=True, **kw)
         with pytest.raises(ValueError):
             JaxConfig(gapped=True, **kw)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        KmerConfig(gapped=True, l_len=32, r_len=27, c_min=80)
+    # windows over 31 bases configure as kmer_tpu's (ROADMAP item 15)
+    wide = dict(gapped=True, l_len=32, r_len=27, c_min=80)
+    assert (KmerConfig(**wide).n_bases, KmerConfig(**wide).window_span) == (
+        JaxConfig(**wide).n_bases, JaxConfig(**wide).window_span)
 
 
 def test_two_word_collapse():
@@ -248,7 +250,7 @@ def test_k3_wrapper_edges():
     with pytest.raises(ValueError, match="seg"):
         fg.fused_gapped_count(*_t(codes, lengths, limits), l_len=6,
                               r_len=4, c_min=10, c_max=12, seg=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unfused route"):
         fg.fused_gapped_count(*_t(codes, lengths, limits), l_len=32,
                               r_len=4, c_min=40, c_max=42)
     meta = torch.zeros((2, 30), dtype=torch.uint8, device="meta")

@@ -208,8 +208,8 @@ def test_max_group_rows_and_checks():
     x = torch.zeros((4, 8), dtype=torch.int64)
     with pytest.raises(ValueError, match="power of two"):
         gk.grouped_count([torch.zeros((4, 6), dtype=torch.int64)])
-    with pytest.raises(ValueError, match="1 to 4"):
-        gk.run_lengths_grouped([x] * 5)
+    with pytest.raises(ValueError, match=f"1 to {gk.MAX_WORDS}"):
+        gk.run_lengths_grouped([x] * (gk.MAX_WORDS + 1))
     with pytest.raises(ValueError, match="int64"):
         gk.grouped_count([x.to(torch.int32)])
     with pytest.raises(ValueError, match="contiguous"):

@@ -102,6 +102,19 @@ def test_sample_fasta_md5_every_mode(sample_fasta_path, monkeypatch):
     assert buf.getvalue() == dump
 
 
+@pytest.mark.parametrize("env", [dict(KMER_TPU_GAPPED_STEP="legacy")])
+def test_sample_fasta_md5_unfused_route(sample_fasta_path, monkeypatch, env):
+    """The md5 on the gapped unfused route (ROADMAP item 17: K7's gapped
+    lanes and the grouped counts in place of K3), by count + expand and
+    by the per-batch multiset sort."""
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    dump = parity_dump(sample_fasta_path, device="cpu")
+    assert hashlib.md5(dump).hexdigest() == kmer_tpu_torch.SAMPLE_FASTA_MD5
+    monkeypatch.setenv("KMER_TPU_PARITY", "multiset")
+    assert parity_dump(sample_fasta_path, device="cpu") == dump
+
+
 def test_multiset_and_bounded_multibatch(corpora, monkeypatch, tmp_path):
     """Per-batch sorted dumps (several batches, split reads) merge to the
     count + expand bytes."""
@@ -157,9 +170,12 @@ def test_cli_gapped_errors(corpora, capsys):
     assert main(["count", fa, "--gapped", "--canonical", "--device",
                  "cpu"]) == 1
     assert "--canonical" in capsys.readouterr().err
-    assert main(["count", fa, "--gapped", "--l-len", "32", "--device",
-                 "cpu"]) == 1
-    assert "ROADMAP" in capsys.readouterr().err
+    # a 32-base window counts (ROADMAP item 15), as kmer_tpu's
+    wide = ["count", fa, "--gapped", "--l-len", "32", "--c-max", "90"]
+    assert jax_main(wide) == 0
+    want = capsys.readouterr().out
+    assert main(wide + ["--device", "cpu"]) == 0
+    assert capsys.readouterr().out == want and want.count("\n") > 100
     assert main(["count", fa, "--gapped", "--c-min", "40", "--device",
                  "cpu"]) == 1
     assert "c_min" in capsys.readouterr().err

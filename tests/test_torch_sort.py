@@ -160,10 +160,10 @@ def test_sort_words_flattens_and_leaves_cpu_inputs():
 
 def test_sort_words_rejects_bad_planes():
     x = torch.zeros(8, dtype=torch.int64)
-    with pytest.raises(ValueError, match="1 to 4"):
+    with pytest.raises(ValueError, match=f"1 to {sk.MAX_WORDS}"):
         sk.sort_words([])
-    with pytest.raises(ValueError, match="1 to 4"):
-        sk.sort_words([x] * 5)
+    with pytest.raises(ValueError, match=f"1 to {sk.MAX_WORDS}"):
+        sk.sort_words([x] * (sk.MAX_WORDS + 1))
     with pytest.raises(ValueError, match="int64"):
         sk.sort_words([x, x.to(torch.int32)])
     with pytest.raises(ValueError, match="one length"):

@@ -23,7 +23,7 @@ import torch
 
 from kmer_tpu.utils import oracle
 from kmer_tpu_torch.ops import extract as text
-from kmer_tpu_torch.ops.encode import MAX_K, SENTINEL_KEY
+from kmer_tpu_torch.ops.encode import PAIR_BASES, SENTINEL_KEY
 from kmer_tpu_torch.ops.kernels import extract as ek
 
 MASK24 = "1110111011101110111011101110111"
@@ -145,7 +145,7 @@ def test_cut_table_cuts_the_runs(mask):
     positions = text.parse_seed_mask(mask)
     span, n = len(mask), len(positions)
     table = text.seed_cut_table(positions)
-    assert len(table) == text.CUT_TABLE_WORDS == 17 + 2 * MAX_K + 2
+    assert len(table) == text.CUT_TABLE_WORDS == 17 + 2 * PAIR_BASES + 2
     assert all(0 <= w <= M32 for w in table)
     n_pieces = table[text.CUT_GROUPS]
     assert len(text.seed_runs(positions)) <= n_pieces <= n

@@ -123,12 +123,16 @@ def test_lookups_match(k):
 
 
 def test_over_63_bases_refused(tmp_path):
+    """kmer_tpu's k = 64 table loads (ROADMAP item 18 ported it) and
+    equals kmer_tpu's own load."""
     rng = np.random.default_rng(0)
-    j = JaxTable.from_pairs(64, jenc.key_words_from_codes(
-        rng.integers(0, 4, 64, dtype=np.uint8)).reshape(1, -1), [3])
+    j = JaxTable.from_pairs(64, np.stack([
+        jenc.key_words_from_codes(c)
+        for c in rng.integers(0, 4, (5, 64), dtype=np.uint8)]),
+        [3, 1, 4, 1, 5])
     j.save(str(tmp_path / "k64.npz"))
-    with pytest.raises(ValueError, match="item 18"):
-        KmerTable.load(str(tmp_path / "k64.npz"))
+    t = KmerTable.load(str(tmp_path / "k64.npz"))
+    assert t == JaxTable.load(str(tmp_path / "k64.npz")) == j
 
 
 @pytest.fixture(scope="module")
