@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--only 26|27]
+    python3 chip_smoke.py [--seed N] [--only 26|27|28]
 
 Run from the root of a checkout.  Phases, each printing one line (or a
 few) to stdout:
@@ -235,18 +235,42 @@ few) to stdout:
      and 130 (W = 4, 5) under KMER_TPU_GROUPED=hybrid (K2a), pallas
      (K2b) and KMER_TPU_STEP=t (K2c); k = 64 and 101 compacted (K4 on
      3- and 4-word records); k = 101 at sort_group_keys = 0;
- 28. one JSON line with every kernel of the paths (with its bound and,
+ 28. wide keys on streaming, `card` and the mesh (k = 101 canonical,
+     gapped 40/40):
+     (a) K5's plane mode on K7's keys of one `card` batch (2048 reads)
+     at k = 64, 101 and 130 (W = 3, 4, 5), bit for bit against its plain
+     version, timed, with its grid and registers; sentinel lanes only
+     and an empty stream; the class histogram of the 50,000-read file at
+     k = 101 equal to the plain version's; `card -k 101` on phase 4's
+     corpus (489 batches of K7 -> K5) within 15% of phase 27's exact
+     distinct count; `card -k 21 -k 101` through cli.main;
+     (b) streaming at k = 101 on phase 4's corpus through the device
+     merge, paused after a third of the batches and resumed by a fresh
+     counter: phase 27b's table by digest, each pass's wall, stages and
+     spill bytes; the per-batch route at k = 101 on the 50,000-read file
+     against the numpy oracle, and `count --two-pass -k 101` through
+     cli.main (its TSV); gapped 40/40 by both routes on phase 27c's 1000
+     records: 27c's table;
+     (c) positions on one card at k = 101: (4, 1) on the first 200,000
+     reads of phase 4's corpus against the single-device device merge of
+     that file, with route_sync, exchange and the exchange's bytes; (2,
+     2) and (1, 4) on the 50,000-read file (multi-hop halos), `count
+     --multihost -k 101` through cli.main (its TSV) and the legacy sorted
+     stream; gapped 40/40 over (2, 1) on 27c's records;
+     StreamingCounter paused on (2, 1) and resumed on (4, 1);
+ 29. one JSON line with every kernel of the paths (with its bound and,
      where one PyTorch call computes the same function, that call's
      time; K1 and K7 with a row for each of their two-word and spaced
-     variants, and a row for each variant phase 27 widened), then the
-     result line {"ok": true, "device": {...}} last.
+     variants, a row for each variant phase 27 widened and K5's plane
+     mode), then the result line {"ok": true, "device": {...}} last.
 
 --only 26 runs phase 1, then phase 26 and the phases whose tables and
 walls it reads (4, 14, 6, 11), in about a quarter of the whole run, and
-prints "chip_smoke --only 26: done" in place of phase 28: a quick check
+prints "chip_smoke --only 26: done" in place of phase 29: a quick check
 of the multi-GPU path, not the whole script's result.  --only 27 runs
 phase 1, then phases 4, 6 and 27, prints phase 27's kernel rows and
-"chip_smoke --only 27: done".
+"chip_smoke --only 27: done"; --only 28 runs phases 1, 4, 6, 27 and 28
+and prints their kernel rows and "chip_smoke --only 28: done".
 
 Every device-merge run prints the card's peak memory
 (torch.cuda.max_memory_allocated) beside the state's own bytes:
@@ -3458,8 +3482,8 @@ def any_width_gapped(dev, gpath: str, gsmall: str, gtable) -> dict:
     (K6 a batch): the tables equal, the total every (c, o) chunk, the
     first 300 records' table equal to the CPU's; then phase 6's 27/27
     corpus under KMER_TPU_GAPPED_STEP=legacy equal to phase 6's table,
-    and the parity md5 on that route.  Returns the launches of each
-    run."""
+    and the parity md5 on that route.  Returns (the launches of each run,
+    the 40/40 table's digest, the file of its records)."""
     from kmer_tpu_torch import KmerConfig, count_fasta
     from kmer_tpu_torch.io.fasta import parse_seqs
     from kmer_tpu_torch.pipeline.parity import SAMPLE_FASTA_MD5, parity_dump
@@ -3517,6 +3541,7 @@ def any_width_gapped(dev, gpath: str, gsmall: str, gtable) -> dict:
              + (f" {probe.line()}" if probe.states else ""))
         _say(f"any_width_gapped_{name}_stages_s "
              + json.dumps(times, sort_keys=True))
+    digest = table_digest(ref)
     del ref, table
     # (d) the gapped unfused route at the reference's windows
     times = {}
@@ -3547,7 +3572,7 @@ def any_width_gapped(dev, gpath: str, gsmall: str, gtable) -> dict:
             raise AssertionError(f"parity on the unfused route: md5 {md5} "
                                  f"!= {SAMPLE_FASTA_MD5}, or launches {got}")
     seen["legacy_27_27"] = got
-    return seen
+    return seen, digest, wpath
 
 
 def any_width_unfused_small(dev, small: str) -> dict:
@@ -3603,8 +3628,10 @@ def phase_any_width(dev, path: str, small: str, gpath: str, gtable,
     """Phase 27, keys of any width: (a) each widened kernel against its
     plain version and timed; (b) k = 101 canonical on phase 4's corpus by
     the default route and the device merge; (c, d) any_width_gapped; (e)
-    any_width_unfused_small.  Returns the
-    widened kernels' JSON rows, with their launches on these paths."""
+    any_width_unfused_small.  Returns the widened kernels' JSON rows, with
+    their launches on these paths, and what phase 28 reads: the k = 101
+    table's digest and distinct count, the gapped 40/40 file and its
+    table's digest."""
     from kmer_tpu_torch import KmerConfig
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed + 27)
@@ -3623,11 +3650,15 @@ def phase_any_width(dev, path: str, small: str, gpath: str, gtable,
     runs = [("default", {}, {}, {"k7_multi": batches, "k1": 0}),
             ("device_merge", {}, dict(device_merge="on"),
              {"k7_multi": batches, "k6": -1})]
-    seen, _ = phase_wide_end_to_end(dev, path, small, f"k{ANY_K}",
-                                    KmerConfig(k=ANY_K, canonical=True),
-                                    runs)
+    seen, k101 = phase_wide_end_to_end(dev, path, small, f"k{ANY_K}",
+                                       KmerConfig(k=ANY_K, canonical=True),
+                                       runs)
+    info = dict(k101_digest=table_digest(k101),
+                k101_distinct=k101.num_distinct)
+    del k101
     gsmall = os.path.join(os.path.dirname(gpath), "gapped_small.fasta")
-    gapped = any_width_gapped(dev, gpath, gsmall, gtable)
+    gapped, info["gwide_digest"], info["gwide_path"] = any_width_gapped(
+        dev, gpath, gsmall, gtable)
     small_runs = any_width_unfused_small(dev, small)
     k7_multi["launches"] = seen["default"]["k7_multi"]
     k7_gapped["launches"] = gapped["default"]["k7_gapped"]
@@ -3640,7 +3671,367 @@ def phase_any_width(dev, path: str, small: str, gpath: str, gtable,
         rec["launches"] = small_runs[({4: ANY_K, 5: 130}[W], label)][
             "k2" + key]
     _say(f"any_width_phase_s={time.perf_counter() - t0}")
-    return [k7_multi, k7_gapped, k6, *k2.values(), k4[3], k4[4]]
+    return [k7_multi, k7_gapped, k6, *k2.values(), k4[3], k4[4]], info
+
+
+# phase 28: wide keys on streaming, `card` and the mesh -- contiguous keys
+# over 63 bases and gapped windows over 31 on the paths that took at most
+# two int64 words, with K5 hashing keys of W planes
+
+CARD_B = 2048                 # `card`'s batch (phases 12 and 23)
+WIDE_HLL_KS = (64, ANY_K, 130)
+# phase 28c's (4, 1) run counts the first 200,000 reads of phase 4's
+# corpus: its owners' pairs merge on the host, by np.lexsort past two
+# fused columns (~93 s on all 1M reads, phase 27b)
+MESH_WIDE_READS = 200_000
+
+
+def wide_hll_kernel(dev, seed: int) -> dict:
+    """Phase 28a's kernel check: K5's plane mode against its plain
+    version, bit for bit, on K7's canonical keys of one `card` batch
+    (2048 reads at L = 160) at k = 64, 101 and 130 (W = 3, 4, 5), each
+    timed with its grid and registers; then a stream of sentinel lanes
+    only and an empty one.  Returns the k = 101 row (the `card` path's
+    shape) with the other widths under `cases`."""
+    from kmer_tpu_torch.ops.encode import SENTINEL_KEY, words64
+    from kmer_tpu_torch.ops.kernels import extract as ek
+    from kmer_tpu_torch.ops.kernels import histogram as hk
+    rng = np.random.default_rng(seed + 28)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rec = {"name": "hll_class_histogram_planes", "route": "cuda",
+           "source": hk.SOURCE, "replaces": hk.REPLACES, "max_abs_err": 0,
+           "library_ms": None, "cases": {}}
+    for k in WIDE_HLL_KS:
+        host = kernel_batch(rng, CARD_B, MAIN_L, k, packed=True, amb=False,
+                            short=False)
+        planes = ek.extract_keys(*(t.to(dev) for t in host), k,
+                                 canonical=True, packed_width=MAIN_L)
+        w = (planes[0] != SENTINEL_KEY).to(torch.int8)
+        kernel = functools.partial(hk.hll_class_histogram, planes, w, k=k,
+                                   b=10)
+        plain = functools.partial(hk.hll_class_histogram_ref, planes, w,
+                                  k=k, b=10)
+        before = hk.launches
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        if (err or hk.launches != before + 1
+                or int(got.sum()) != int(w.sum())):
+            raise AssertionError(f"K5 plane mode != plain version at k={k}")
+        ms, plain_ms = time_pair(kernel, plain)
+        # weights in, each live lane's W key words in, 2**15 int64 bins
+        # out; one add a lane, and a live lane's hash: 9 operations a
+        # 32-bit word (phase 8's count), 6 for bucket and rho, and 2 a
+        # plane to shift it into the funnel
+        W, lanes, live = len(planes), w.numel(), int(w.sum())
+        words = (2 * k + 1 + 31) // 32
+        bd = bound(lanes + live * 8 * W + (8 << 15),
+                   lanes + live * (9 * words + 6 + 2 * W))
+        grid = hk.plan(lanes, 15, sms)
+        regs, spill = hk.attributes(3)
+        case = dict(ms=ms, plain_ms=plain_ms, lanes=lanes, live=live,
+                    planes=W, grid=f"{grid.clusters}x{grid.cluster}",
+                    smem_bytes=grid.smem, regs=regs, spill_bytes=spill,
+                    **bd)
+        rec["cases"][f"card_k{k}_b10"] = case
+        _say(f"histogram_planes_check k={k} planes={W} lanes={lanes} "
+             f"live={live} max_abs_err={err} kernel_ms={ms} "
+             f"plain_ms={plain_ms} speedup={plain_ms / ms} "
+             f"bound_ms={bd['bound_ms']} bound_by={bd['bound_by']} "
+             f"grid={case['grid']} (clusters x blocks) "
+             f"smem_bytes={grid.smem} regs={regs} spill_bytes={spill} "
+             "(tolerance: exact)")
+        if W != words64(k):
+            raise AssertionError(f"K7 gave {W} planes at k={k}")
+    main = rec["cases"][f"card_k{ANY_K}_b10"]
+    rec.update({key: main[key] for key in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by")})
+    for k in WIDE_HLL_KS:
+        W = words64(k)
+        dead = tuple(torch.full((70_001,), SENTINEL_KEY, dtype=torch.int64,
+                                device=dev) for _ in range(W))
+        before = hk.launches
+        got = hk.hll_class_histogram(dead, torch.zeros(
+            70_001, dtype=torch.int8, device=dev), k=k, b=10)
+        empty = hk.hll_class_histogram(
+            tuple(p[:0] for p in dead),
+            torch.zeros(0, dtype=torch.int8, device=dev), k=k, b=10)
+        torch.cuda.synchronize()
+        if (hk.launches != before + 1 or int(got.abs().sum())
+                or int(empty.abs().sum())):
+            raise AssertionError(f"K5 plane mode on sentinel lanes only or "
+                                 f"an empty stream (k={k}) added or "
+                                 "launched wrongly")
+    _say("histogram_planes_check sentinel_only=zeros empty=no_launch "
+         f"ks={list(WIDE_HLL_KS)}")
+    return rec
+
+
+def wide_card(dev, path: str, small: str, exact_distinct: int) -> int:
+    """Phase 28a: `card` at k = 101, canonical: the class histogram on
+    the 50,000-read file equal to the plain version's; phase 4's corpus
+    (489 batches of K7 -> K5) within 15% of phase 27's exact distinct
+    count; `card -k 21 -k 101` through cli.main on the 50,000-read file
+    (K1, K7 and K5 a batch, the same numbers as the estimator).  Returns
+    K5's launches in the corpus run."""
+    from kmer_tpu_torch import KmerConfig
+    from kmer_tpu_torch.pipeline.sketch import (estimate_distinct_multi_k,
+                                                sketch_histograms)
+    cfg = KmerConfig(k=ANY_K, canonical=True, batch_reads=CARD_B)
+    t0 = time.perf_counter()
+    got, _ = sketch_histograms(small, [ANY_K], cfg, device=dev)
+    t1 = time.perf_counter()
+    want, _ = sketch_histograms(small, [ANY_K], cfg, device="cpu")
+    if not np.array_equal(got[ANY_K], want[ANY_K]):
+        raise AssertionError(f"card k={ANY_K} class histogram on the card "
+                             f"!= the plain version's ({ORACLE_READS} reads)")
+    _say(f"card_check k={ANY_K} reads={ORACLE_READS} histogram_equal=True "
+         f"sum={int(got[ANY_K].sum())} card_s={t1 - t0} "
+         f"cpu_s={time.perf_counter() - t1}")
+    k5 = phase_wide_card(dev, path, f"k={ANY_K}", cfg, exact_distinct,
+                         "k7_multi")
+    argv = ["card", small, "-k", str(K), "-k", str(ANY_K), "--canonical",
+            "--batch-reads", str(CARD_B), "--device", "cuda"]
+    t0 = time.perf_counter()
+    out, got = _run_counted(lambda: _cli(argv))
+    secs = time.perf_counter() - t0
+    est = estimate_distinct_multi_k(small, [K, ANY_K], cfg, device=dev)
+    want = "".join(f"k={kk}\tdistinct_estimate\t{round(e)}\n"
+                   f"k={kk}\ttotal_kmers\t{t}\n"
+                   for kk, (e, t) in zip((K, ANY_K), est))
+    batches = -(-ORACLE_READS // CARD_B)
+    if not (out == want and got["k1"] == batches
+            and got["k7_multi"] == batches and got["k5"] == 2 * batches):
+        raise AssertionError(f"card -k {K} -k {ANY_K}: {out!r} != {want!r}, "
+                             f"or launches {_launched(got)} wrong")
+    _say(f"card_cli ks={K},{ANY_K} reads={ORACLE_READS} "
+         f"equal_to_estimator=True launches={json.dumps(_launched(got))} "
+         f"s={secs} " + json.dumps(out))
+    return k5
+
+
+def wide_streaming(dev, path: str, small: str, k101_digest: str,
+                   gwide_path: str, gwide_digest: str, tmp: str) -> None:
+    """Phase 28b: streaming at k = 101 canonical on phase 4's corpus
+    through the device merge (K7 -> the grouped dedup -> K6), paused
+    after a third of the batches and resumed by a fresh counter: phase
+    27b's table by digest; the per-batch route at k = 101 on the
+    50,000-read file against the numpy oracle, and `count --two-pass` of
+    it through cli.main; gapped 40/40 by both routes on phase 27c's 1000
+    records: 27c's table."""
+    from kmer_tpu_torch import KmerConfig
+    cfg = KmerConfig(k=ANY_K, canonical=True, device_merge="on",
+                     partitions=STREAM_PARTS)
+    batches = -(-N_READS // cfg.batch_reads)
+    table, rec = stream_run(dev, path, cfg, os.path.join(tmp, "spill_w"),
+                            pause_after=batches // 3)
+    launches = rec["launches"]
+    digest = table_digest(table)
+    total = N_READS * (READ_LEN - ANY_K + 1)
+    if not (digest == k101_digest and table.total == total
+            and launches.get("k7_multi") == rec["batches"] == batches
+            and launches.get("k6", 0) >= rec["drains"] >= 1):
+        raise AssertionError(f"streaming k={ANY_K} (device merge) table != "
+                             f"phase 27b's, or launches wrong: {rec}")
+    _stream_say(f"stream_k{ANY_K}_devmerge", rec, equal_to_phase27b=True,
+                reads=N_READS, kmers=total, distinct=table.num_distinct,
+                digest=digest)
+    del table
+
+    want_keys, want_counts = oracle_keys(small, tuple(range(ANY_K)), True)
+    table, rec = stream_run(dev, small, cfg.replace(device_merge="off"),
+                            os.path.join(tmp, "spill_w_small"),
+                            pause_after=3)
+    if not (np.array_equal(table_pairs(table), want_keys)
+            and np.array_equal(table.counts, want_counts)
+            and rec["launches"].get("k7_multi") == rec["batches"]):
+        raise AssertionError(f"streaming k={ANY_K} per batch != numpy "
+                             f"oracle ({ORACLE_READS} reads): {rec}")
+    _stream_say(f"stream_k{ANY_K}_batches", rec, equal_to_oracle=True,
+                reads=ORACLE_READS, distinct=table.num_distinct)
+    argv = ["count", small, "-k", str(ANY_K), "--canonical", "--two-pass",
+            "--spill-dir", os.path.join(tmp, "spill_w_cli"), "--device",
+            "cuda"]
+    _cli_tsv_equal(f"count --two-pass -k {ANY_K}", argv, table, tmp,
+                   ("k7_multi",))
+
+    gcfg = KmerConfig(gapped=True, batch_reads=GAP_B, max_read_len=512,
+                      partitions=STREAM_PARTS, **GAP_WIDE)
+    gbatches = -(-GAP_WIDE_RECORDS // GAP_B)
+    for route in ("off", "on"):
+        table, rec = stream_run(dev, gwide_path,
+                                gcfg.replace(device_merge=route),
+                                os.path.join(tmp, f"spill_g40_{route}"),
+                                pause_after=gbatches // 2)
+        launches = rec["launches"]
+        if not (table_digest(table) == gwide_digest
+                and launches.get("k7_gapped") == gbatches
+                and not launches.get("k3")
+                and (route == "off") == ("k6" not in launches)):
+            raise AssertionError(f"streaming gapped 40/40 ({route}) != "
+                                 f"phase 27c's table, or launches: {rec}")
+        _stream_say(f"stream_g40_devmerge_{route}", rec,
+                    equal_to_phase27c=True, records=GAP_WIDE_RECORDS,
+                    chunks=table.total)
+
+
+def _cli_tsv_equal(label: str, argv: list[str], want_table, tmp: str,
+                   kernels) -> None:
+    """cli.main(argv) on the card, its stdout to a file: the bytes of
+    want_table's TSV, each of `kernels` launched."""
+    out, want = os.path.join(tmp, "cli.tsv"), os.path.join(tmp, "want.tsv")
+    t0 = time.perf_counter()
+    _, got = _run_counted(lambda: _cli(argv, out=out))
+    secs = time.perf_counter() - t0
+    with open(want, "wb") as f:
+        want_table.write_tsv(f)
+    with open(out, "rb") as a, open(want, "rb") as b:
+        equal = a.read() == b.read()
+    os.remove(out)
+    os.remove(want)
+    if not equal or not all(got[k] for k in kernels):
+        raise AssertionError(f"{label}: TSV equal {equal}, launches "
+                             f"{_launched(got)}")
+    _say(f"cli {label} reads={ORACLE_READS} tsv_equal=True "
+         f"launches={json.dumps(_launched(got))} s={secs}")
+
+
+def _mesh_run(label: str, fn, mesh, want, **extra) -> dict:
+    """fn() -> a table over `mesh` (None: meshes fn makes), counted and
+    staged: equal to `want` (a table or a digest), K7 (contiguous or
+    gapped lanes) and K6 launched; prints the stages and the exchange's
+    bytes.  Returns the launches."""
+    from kmer_tpu_torch.utils import stagetime
+    times: dict[str, float] = {}
+    with stagetime.collect(times):
+        got, launches = _run_counted(fn)
+    equal = (table_digest(got) == want if isinstance(want, str)
+             else got == want)
+    k7 = launches["k7"] + launches["k7_gapped"]
+    if not (equal and k7 and launches["k6"]):
+        raise AssertionError(f"{label}: table != the reference, or "
+                             f"launches {_launched(launches)}")
+    _say(f"mesh_wide {label} equal=True "
+         f"launches={json.dumps(_launched(launches))} "
+         f"wall_s={times['total']} route_sync_s={times.get('route_sync', 0)}"
+         f" exchange_s={times.get('exchange', 0)} "
+         + " ".join(f"{k}={v}" for k, v in extra.items())
+         + (" " + _mesh_line(mesh) if mesh is not None else ""))
+    _say(f"mesh_wide_{label.split()[0]}_stages_s "
+         + json.dumps(times, sort_keys=True))
+    return launches
+
+
+def wide_mesh(dev, path: str, small: str, gwide_path: str,
+              gwide_digest: str, tmp: str) -> None:
+    """Phase 28c, positions on one card at k = 101 canonical: (4, 1) on
+    the first 200,000 reads of phase 4's corpus against the single-device
+    device merge of that file; (2, 2) and (1, 4) on the 50,000-read file
+    (100-base halos over 80- and 40-base shards: several hops),
+    `count --multihost` through cli.main and the legacy sorted stream,
+    each against the single-device table;
+    gapped 40/40 over (2, 1) on phase 27c's records (27c's table);
+    StreamingCounter paused on (2, 1) and resumed on (4, 1)."""
+    from kmer_tpu_torch import KmerConfig, StreamingCounter, count_fasta
+    from kmer_tpu_torch.parallel.multihost import count_fasta_multihost
+    cfg = KmerConfig(k=ANY_K, canonical=True)
+    mid = os.path.join(tmp, "corpus_200k.fasta")
+    with open(path) as src, open(mid, "w") as dst:
+        for _ in range(2 * MESH_WIDE_READS):
+            dst.write(src.readline())
+    t0 = time.perf_counter()
+    want = count_fasta(mid, cfg.replace(device_merge="on"), device=dev)
+    _say(f"mesh_wide single_device_devmerge reads={MESH_WIDE_READS} "
+         f"distinct={want.num_distinct} total={want.total} "
+         f"wall_s={time.perf_counter() - t0}")
+    mesh = _mesh(dev, 4, 1)
+    _mesh_run("(4,1) k101 reads=200000",
+              lambda: count_fasta_multihost(mid, cfg, mesh=mesh), mesh,
+              want, batches=-(-MESH_WIDE_READS // cfg.batch_reads))
+    os.remove(mid)
+    del want
+    want_small = count_fasta(small, cfg, device=dev)
+    for shape in ((2, 2), (1, 4)):
+        mesh = _mesh(dev, *shape)
+        _mesh_run(f"({shape[0]},{shape[1]}) k101 reads=50000",
+                  lambda: count_fasta_multihost(small, cfg, mesh=mesh),
+                  mesh, want_small)
+    _cli_tsv_equal(f"count --multihost -k {ANY_K}",
+                   ["count", small, "-k", str(ANY_K), "--canonical",
+                    "--multihost", "--device", "cuda"], want_small, tmp,
+                   ("k7_multi", "k6"))
+    mesh = _mesh(dev, 4, 1)
+    with _env(KMER_TPU_MULTIHOST_STEP="legacy"):
+        got = _mesh_run("(4,1) k101 legacy reads=50000",
+                        lambda: count_fasta_multihost(small, cfg, mesh=mesh),
+                        mesh, want_small)
+    if not got["k7_multi"]:
+        raise AssertionError(f"legacy k={ANY_K} mesh launches {got}")
+    gcfg = KmerConfig(gapped=True, batch_reads=GAP_B, max_read_len=512,
+                      **GAP_WIDE)
+    mesh = _mesh(dev, 2, 1)
+    got = _mesh_run("(2,1) g40 records=1000",
+                    lambda: count_fasta_multihost(gwide_path, gcfg,
+                                                  mesh=mesh),
+                    mesh, gwide_digest)
+    if not got["k7_gapped"] or got["k3"]:
+        raise AssertionError(f"gapped 40/40 mesh launches {got}")
+    spill = os.path.join(tmp, "mesh_wide_spill")
+
+    def stream():
+        sc = StreamingCounter(small, cfg, spill, device=dev,
+                              mesh=_mesh(dev, 2, 1))
+        sc.run_pass1(max_batches=3)
+        sc = StreamingCounter(small, cfg, spill, device=dev,
+                              mesh=_mesh(dev, 4, 1))
+        sc.run()
+        return sc.final_table()
+    _mesh_run("streaming (2,1)->(4,1) k101 reads=50000", stream, None,
+              want_small)
+    shutil.rmtree(spill)
+
+
+def phase_wide_paths(dev, path: str, small: str, any_width: dict, tmp: str,
+                     seed: int) -> dict:
+    """Phase 28: (a) `card` at k = 101 and K5's plane mode; (b) streaming
+    at k = 101 and gapped 40/40; (c) the mesh at k = 101 and gapped
+    40/40, each part timed.  Returns K5's plane-mode row with its
+    launches on the `card` path."""
+    t0 = time.perf_counter()
+    parts = {}
+    rec = wide_hll_kernel(dev, seed)
+    parts["kernel_s"] = time.perf_counter() - t0
+    for name, fn in (
+            ("a", lambda: rec.__setitem__("launches", wide_card(
+                dev, path, small, any_width["k101_distinct"]))),
+            ("b", lambda: wide_streaming(
+                dev, path, small, any_width["k101_digest"],
+                any_width["gwide_path"], any_width["gwide_digest"], tmp)),
+            ("c", lambda: wide_mesh(dev, path, small,
+                                    any_width["gwide_path"],
+                                    any_width["gwide_digest"], tmp))):
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.empty_cache()
+        parts[f"{name}_s"] = time.perf_counter() - t1
+    _say("wide_paths_parts_s " + json.dumps(parts, sort_keys=True)
+         + f" wide_paths_wall_s={time.perf_counter() - t0}")
+    return rec
+
+
+def wide_paths_only(dev, seed: int) -> int:
+    """--only 28: phase 28 and the phases whose tables it reads (4, 6,
+    27), as main runs them."""
+    with tempfile.TemporaryDirectory() as tmp:
+        _, table, path, small, _ = phase_end_to_end(dev, seed, tmp)
+        del table
+        _, gtable, gpath, _ = phase_gapped_end_to_end(dev, seed, tmp)
+        rows, info = phase_any_width(dev, path, small, gpath, gtable, seed)
+        del gtable
+        k5w = phase_wide_paths(dev, path, small, info, tmp, seed)
+    _say(json.dumps({"kernels": [*rows, k5w]}))
+    _say("chip_smoke --only 28: done")
+    return 0
 
 
 def any_width_only(dev, seed: int) -> int:
@@ -3650,7 +4041,7 @@ def any_width_only(dev, seed: int) -> int:
         _, table, path, small, _ = phase_end_to_end(dev, seed, tmp)
         del table
         _, gtable, gpath, _ = phase_gapped_end_to_end(dev, seed, tmp)
-        rows = phase_any_width(dev, path, small, gpath, gtable, seed)
+        rows, _ = phase_any_width(dev, path, small, gpath, gtable, seed)
     _say(json.dumps({"kernels": rows}))
     _say("chip_smoke --only 27: done")
     return 0
@@ -3694,8 +4085,9 @@ def build_all() -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", type=int, choices=[26, 27],
-                    help="phase 26 or 27 alone, with the phases it reads")
+    ap.add_argument("--only", type=int, choices=[26, 27, 28],
+                    help="phase 26, 27 or 28 alone, with the phases it "
+                         "reads")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -3730,6 +4122,8 @@ def main(argv=None) -> int:
         return mesh_only(dev, args.seed)
     if args.only == 27:
         return any_width_only(dev, args.seed)
+    if args.only == 28:
+        return wide_paths_only(dev, args.seed)
 
     # phases 2-3, 7-8, 13, 16-17 and 20: each kernel against its plain
     # version
@@ -3807,8 +4201,13 @@ def main(argv=None) -> int:
 
         # phase 27: keys of any width
         del table
-        any_width = phase_any_width(dev, path, small, gpath, gtable,
-                                    args.seed)
+        any_width, any_width_info = phase_any_width(dev, path, small, gpath,
+                                                    gtable, args.seed)
+        del gtable
+
+        # phase 28: wide keys on streaming, `card` and the mesh
+        k5w = phase_wide_paths(dev, path, small, any_width_info, tmp,
+                               args.seed)
     # K5's launches: the dense k=8 run's, then each `card` run's (k = 21,
     # 55 and the mask)
     k5["card_launches"] = card_launches
@@ -3819,7 +4218,7 @@ def main(argv=None) -> int:
                                         sp["sort_group_keys=0"]["k7_spaced"])
 
     _say(json.dumps({"kernels": [k1, k1w, k1s, k2a, k2b, k2c, k3, k4, k5, k6,
-                                 k7, k7w, k7s, *any_width]}))
+                                 k7, k7w, k7s, *any_width, k5w]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

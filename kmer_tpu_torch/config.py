@@ -2,10 +2,8 @@
 
 Same field names and defaults as kmer_tpu.config.KmerConfig, so a config
 written for one package reads the same in the other.  Every key width
-kmer_tpu counts in sort mode counts here; the paths that do not take
-keys wider than two int64 words yet (streaming, `card`, the mesh; seed
-masks over 63 bases) raise NotImplementedError naming ROADMAP Queue 1
-item 19 (check_narrow).
+kmer_tpu counts, every path here counts; a seed mask selecting more than
+63 bases is refused, as kmer_tpu refuses it.
 """
 
 from __future__ import annotations
@@ -13,9 +11,8 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
-from .ops.encode import (HI_BASES, PAIR_BASES, gapped_bases, word_bases,
-                         words_per_key)
-from .ops.extract import check_window, parse_seed_mask, wide_not_ported
+from .ops.encode import gapped_bases, word_bases, words_per_key
+from .ops.extract import check_window, parse_seed_mask
 from .utils.linkspeed import dense_auto_ok
 
 
@@ -123,17 +120,6 @@ class KmerConfig:
         if self.gapped:
             return gapped_bases(self.l_len, self.r_len)
         return word_bases(self.n_bases)
-
-    def check_narrow(self, path: str) -> None:
-        """Raise NotImplementedError naming ROADMAP item 19 when `path`
-        (streaming, `card`, the mesh) is asked for keys it does not take
-        yet: more than two int64 words (over 63 bases), or a gapped
-        window over 31 bases."""
-        if self.n_bases > PAIR_BASES or (
-                self.gapped and max(self.l_len, self.r_len) > HI_BASES):
-            what = (f"gapped l_len={self.l_len}, r_len={self.r_len}"
-                    if self.gapped else f"{self.n_bases}-base keys")
-            raise wide_not_ported(f"{path} with {what}")
 
     @property
     def seed_positions(self) -> tuple[int, ...] | None:

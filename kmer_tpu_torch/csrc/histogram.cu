@@ -6,7 +6,7 @@
 // `index_histogram_mxu` (entry of `dense_histogram_mxu` too).
 //
 // What bounds it: memory.  Each lane costs an 8-byte key (16 bytes for a
-// (hi, lo) pair) and a 1-byte weight; the histogram is 2^bits int64.  What
+// (hi, lo) pair, 8 W for W planes) and a 1-byte weight; the histogram is 2^bits int64.  What
 // holds it back on an H100 is atomics: about two clocks an SM for each
 // shared-memory add, more for a remote one, and the flush's 64-bit adds
 // at the L2's atomic rate (PERF.md).  The TPU kernel builds bf16 one-hot
@@ -51,7 +51,17 @@
 // arithmetic bit for bit.  MODE 2 is MODE 1 for keys of 32 to 63 bases:
 // each is loaded as its (hi, lo) pair (kmer_tpu_torch/ops/encode.py) and
 // becomes its 2k-bit value hi * 4^(k - 31) + lo in a 128-bit register,
-// whose 3 or 4 words are hashed.
+// whose 3 or 4 words are hashed.  MODE 3 is MODE 1 for keys of more than
+// 63 bases, in W = words64(k) int64 planes (kmer_tpu_torch/ops/encode.py
+// word_bases: 31 bases each, the rest, 1 to 32, in the last, whose top
+// bit is flipped at 32): the planes travel by value as a struct of
+// MAX_PLANES pointers (as in sort.cu; a second parameter that the other
+// modes take at one pointer), a live lane reads its W words
+// one after another, and each is shifted into a 128-bit funnel that
+// hands the hash every 32 bits as they complete, most significant first,
+// so fewer than 96 bits of the 2k-bit value are ever held.  The 16
+// lanes of a thread's iteration still share one 16-byte weight load; a
+// lane of weight 0 (a sentinel) reads no key word.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -64,6 +74,9 @@ namespace {
 constexpr int THREADS = 512;
 constexpr int LANES = 16;               // lanes a thread takes an iteration
 constexpr int MAX_SMEM = 232448;        // 227 KB, the most a block can have
+// MODE 3's key planes, by value (a kernel's parameters hold 4 KB)
+constexpr int MAX_PLANES = 240;
+constexpr int WORD_BITS = 62;           // a full plane: 31 bases
 
 struct Params {
   const int64_t* keys;
@@ -78,6 +91,16 @@ struct Params {
   int n_words, lo_bits, b;  // HLL: words hashed, lo's bits, bucket bits
   int keys_vec;       // the key planes are 16-byte aligned at `head`
   unsigned long long* hist;
+  int n_planes;       // MODE 3: key planes
+  int last_bits;      // MODE 3: the last plane's value bits (64: flipped)
+  int pad;            // MODE 3: zero bits above the key in its words
+};
+
+// MODE 3's key planes, a second by-value parameter sized by the mode, so
+// the other modes launch with the parameters they always had
+template <int MODE>
+struct Planes {
+  const int64_t* w[MODE == 3 ? MAX_PLANES : 1];
 };
 
 __device__ __forceinline__ uint32_t mix32(uint32_t h) {
@@ -98,6 +121,39 @@ __device__ __forceinline__ int64_t hll_bin(uint32_t h, int b) {
   const uint32_t tail = h & ((1u << width) - 1u);
   const int rho = min(width - (32 - __clz(tail)) + 1, 31);
   return (int64_t)(h >> width) * 32 + rho;
+}
+
+// MODE 3: the bin of lane i's key of n_planes planes.  `funnel` holds the
+// bits not yet hashed in its low `pending` bits (with `pad` zero bits
+// above the key to start with); each plane's 64 bits are ORed in after a
+// shift by its value bits, and each complete 32-bit word goes to the
+// hash, most significant first.  A word waits while the next plane's
+// bits above its value bits (64 minus them: 2 for a full plane) could
+// still reach it, so the words are those of the OR of every plane at its
+// place (ops/sketch.key_words), whatever a lane holds; pending stays
+// below 96.
+__device__ __forceinline__ int64_t plane_bin(int64_t i, const Params& p,
+                                             const Planes<3>& planes) {
+  uint32_t h = 0x9E3779B9u;
+  unsigned __int128 funnel = 0;
+  int pending = p.pad;
+  for (int j = 0; j < p.n_planes; ++j) {
+    uint64_t v = (uint64_t)__ldg(planes.w[j] + i);
+    int bits = WORD_BITS, reach = 0;    // reach: the next plane's spill
+    if (j == p.n_planes - 1) {
+      bits = p.last_bits;
+      if (bits == 64) v ^= 1ull << 63;         // the stored flip
+    } else {
+      reach = 64 - (j + 1 == p.n_planes - 1 ? p.last_bits : WORD_BITS);
+    }
+    funnel = (funnel << bits) | v;
+    pending += bits;
+    while (pending >= 32 + reach) {
+      pending -= 32;
+      h = combine(h, (uint32_t)(funnel >> pending));
+    }
+  }
+  return hll_bin(h, p.b);
 }
 
 // the bin of one lane (MODE 0: the key itself, maybe out of range)
@@ -154,20 +210,25 @@ __device__ __forceinline__ void sync_bins(cg::cluster_group& cluster,
 template <int MODE>
 __device__ __forceinline__ void scalar_lane(cg::cluster_group& cluster,
                                             int32_t* bins, int64_t i,
-                                            const Params& p) {
+                                            const Params& p,
+                                            const Planes<MODE>& planes) {
   const int w = __ldg(p.weights + i);
   if (w == 0) return;
-  add(cluster, bins,
-      lane_bin<MODE>(__ldg(p.keys + i),
-                     MODE == 2 ? __ldg(p.keys_lo + i) : 0, p),
-      w, p);
+  if constexpr (MODE == 3) {
+    add(cluster, bins, plane_bin(i, p, planes), w, p);
+  } else {
+    add(cluster, bins,
+        lane_bin<MODE>(__ldg(p.keys + i),
+                       MODE == 2 ? __ldg(p.keys_lo + i) : 0, p),
+        w, p);
+  }
 }
 
 // two blocks an SM at most 64 registers a thread; a (hi, lo) pair's 16
 // lanes take 64 for their keys alone
 template <int MODE>
 __global__ void __launch_bounds__(THREADS, MODE == 2 ? 1 : 2)
-histogram_kernel(const Params p) {
+histogram_kernel(const Params p, const Planes<MODE> planes) {
   extern __shared__ int4 bins4[];
   int32_t* bins = reinterpret_cast<int32_t*>(bins4);
   cg::cluster_group cluster = cg::this_cluster();
@@ -186,6 +247,16 @@ histogram_kernel(const Params p) {
   for (int64_t i = lo + ((int64_t)rank * THREADS + threadIdx.x) * LANES;
        i < hi; i += step) {
     const int4 wv = __ldg(reinterpret_cast<const int4*>(p.weights + i));
+    if constexpr (MODE == 3) {
+      const uint32_t words[4] = {(uint32_t)wv.x, (uint32_t)wv.y,
+                                 (uint32_t)wv.z, (uint32_t)wv.w};
+#pragma unroll
+      for (int l = 0; l < LANES; ++l) {
+        const int w = (int8_t)(words[l >> 2] >> (8 * (l & 3)));
+        if (w != 0) add(cluster, bins, plane_bin(i + l, p, planes), w, p);
+      }
+      continue;
+    }
     int64_t key[LANES], key_lo[LANES];
     if (p.keys_vec) {
 #pragma unroll
@@ -221,7 +292,7 @@ histogram_kernel(const Params p) {
   if (blockIdx.x == 0) {                  // the scalar head and tail
     const int64_t t = threadIdx.x;
     const int64_t i = t < p.head ? t : p.body_end + (t - p.head);
-    if (i < p.n) scalar_lane<MODE>(cluster, bins, i, p);
+    if (i < p.n) scalar_lane<MODE>(cluster, bins, i, p, planes);
   }
   sync_bins(cluster, log_c);  // every lane is in; no bins are a target
 
@@ -242,7 +313,8 @@ histogram_kernel(const Params p) {
 }
 
 template <int MODE>
-int launch(const Params& p, int clusters, cudaStream_t st) {
+int launch(const Params& p, const Planes<MODE>& planes, int clusters,
+           cudaStream_t st) {
   const int smem = (int)(sizeof(int32_t) << p.shift);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -251,7 +323,8 @@ int launch(const Params& p, int clusters, cudaStream_t st) {
     if (err != cudaSuccess) return (int)err;
   }
   if (p.log_c == 0) {              // one block a cluster: a plain launch
-    histogram_kernel<MODE><<<(unsigned)clusters, THREADS, smem, st>>>(p);
+    histogram_kernel<MODE><<<(unsigned)clusters, THREADS, smem, st>>>(
+        p, planes);
     return (int)cudaGetLastError();
   }
   cudaLaunchConfig_t cfg = {};
@@ -266,39 +339,43 @@ int launch(const Params& p, int clusters, cudaStream_t st) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, histogram_kernel<MODE>, p);
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, histogram_kernel<MODE>, p, planes);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace
 
-// keys: n int64 (indices, or k-mer keys when hll != 0); weights: n int8;
-// hist: 2^bits int64, accumulated into.  hll != 0: bits = b + 5 with
-// 1 <= b <= 11, and the bin of a key is its HLL class for a k-mer of k
-// bases: 1 <= k <= 31 keys, or 32 <= k <= 63 (hi, lo) pairs with the lo
-// plane in keys_lo.  The grid: clusters of `cluster` blocks (1, 2, 4 or
-// 8, with bits >= 2 log2(cluster)), `clusters` of them, `chunk` lanes each
-// (a multiple of 16, clusters x chunk >= n, (chunk + 32) x 128 < 2^31).
+// planes: n_planes device pointers to n int64 each (indices, or k-mer
+// keys when hll != 0); weights: n int8; hist: 2^bits int64, accumulated
+// into.  hll != 0: bits = b + 5 with 1 <= b <= 11, and the bin of a key
+// is its HLL class for a k-mer of k bases: 1 <= k <= 31 one plane,
+// 32 <= k <= 63 the (hi, lo) pair, k > 63 words64(k) <= MAX_PLANES
+// planes.  The grid: clusters of `cluster` blocks (1, 2, 4 or 8, with
+// bits >= 2 log2(cluster)), `clusters` of them, `chunk` lanes each (a
+// multiple of 16, clusters x chunk >= n, (chunk + 32) x 128 < 2^31).
 // Returns the launch's cudaError_t.
-extern "C" int histogram_launch(const int64_t* keys, const int64_t* keys_lo,
+extern "C" int histogram_launch(const int64_t* const* planes, int n_planes,
                                 const int8_t* weights, int64_t n, int bits,
                                 int hll, int k, int b, int64_t* hist,
                                 int cluster, int clusters, int64_t chunk,
                                 void* stream) {
   int log_c = 0;
   while ((1 << log_c) < cluster) ++log_c;
-  if (n < 1 || bits < 1 || bits > 16 ||
-      (hll && (b < 1 || b > 11 || bits != b + 5 || k < 1 || k > 63 ||
-               (k > 31) != (keys_lo != nullptr))) ||
+  const int want_planes =
+      !hll || k <= 31 ? 1 : (k <= 63 ? 2 : (k - 2) / 31 + 1);
+  if (n < 1 || bits < 1 || bits > 16 || planes == nullptr ||
+      n_planes != want_planes || n_planes > MAX_PLANES ||
+      (hll && (b < 1 || b > 11 || bits != b + 5 || k < 1)) ||
       cluster < 1 || cluster > 8 || (1 << log_c) != cluster ||
       bits < 2 * log_c || clusters < 1 || chunk < 16 || chunk % 16 ||
       (double)clusters * (double)chunk < (double)n ||
       (chunk + 32) * 128 >= (1LL << 31) ||
       ((int64_t)sizeof(int32_t) << (bits - log_c)) > MAX_SMEM)
     return (int)cudaErrorInvalidValue;
-  Params p;
-  p.keys = keys;
-  p.keys_lo = keys_lo;
+  Params p = {};
+  p.keys = planes[0];
+  p.keys_lo = n_planes == 2 ? planes[1] : nullptr;
   p.weights = weights;
   p.n = n;
   p.head = (int64_t)((16 - (reinterpret_cast<uintptr_t>(weights) & 15)) & 15);
@@ -309,20 +386,29 @@ extern "C" int histogram_launch(const int64_t* keys, const int64_t* keys_lo,
   p.log_c = log_c;
   p.shift = bits - log_c;
   p.n_words = (2 * k + 1 + 31) / 32;
-  p.lo_bits = k > 31 ? 2 * (k - 31) : 0;
+  p.lo_bits = k > 31 && k <= 63 ? 2 * (k - 31) : 0;
   p.b = b;
-  p.keys_vec = (reinterpret_cast<uintptr_t>(keys + p.head) & 15) == 0 &&
-               (keys_lo == nullptr ||
-                (reinterpret_cast<uintptr_t>(keys_lo + p.head) & 15) == 0);
+  p.keys_vec = (reinterpret_cast<uintptr_t>(p.keys + p.head) & 15) == 0 &&
+               (p.keys_lo == nullptr ||
+                (reinterpret_cast<uintptr_t>(p.keys_lo + p.head) & 15) == 0);
   p.hist = reinterpret_cast<unsigned long long*>(hist);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!hll) return launch<0>(p, clusters, st);
-  if (k <= 31) return launch<1>(p, clusters, st);
-  return launch<2>(p, clusters, st);
+  if (!hll) return launch<0>(p, {}, clusters, st);
+  if (k <= 31) return launch<1>(p, {}, clusters, st);
+  if (k <= 63) return launch<2>(p, {}, clusters, st);
+  const int rest = k - 31 * (n_planes - 1);         // 1 to 32
+  p.n_planes = n_planes;
+  p.last_bits = rest == 32 ? 64 : 2 * rest;
+  p.pad = 32 * p.n_words - 2 * k;                   // 1 to 32
+  Planes<3> w = {};
+  for (int j = 0; j < n_planes; ++j) w.w[j] = planes[j];
+  return launch<3>(p, w, clusters, st);
 }
 
+extern "C" int histogram_max_planes() { return MAX_PLANES; }
+
 // registers a thread and local (spill) bytes of the histogram kernel's
-// MODE 0, 1 or 2; returns the cudaError_t
+// MODE 0, 1, 2 or 3; returns the cudaError_t
 extern "C" int histogram_attributes(int mode, int* regs, int* local_bytes) {
   cudaFuncAttributes a;
   cudaError_t err;
@@ -330,6 +416,7 @@ extern "C" int histogram_attributes(int mode, int* regs, int* local_bytes) {
     case 0: err = cudaFuncGetAttributes(&a, histogram_kernel<0>); break;
     case 1: err = cudaFuncGetAttributes(&a, histogram_kernel<1>); break;
     case 2: err = cudaFuncGetAttributes(&a, histogram_kernel<2>); break;
+    case 3: err = cudaFuncGetAttributes(&a, histogram_kernel<3>); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;

@@ -25,22 +25,6 @@ import torch
 from .encode import (LO_FLIP, PAIR_BASES, SENTINEL_KEY, check_n_bases,
                      gapped_bases, word_bases)
 
-# ROADMAP Queue 1 item 19: the paths that take keys of at most two int64
-# words (or K3's gapped split) so far
-ITEM_19 = "ROADMAP Queue 1 item 19 (wide keys on the remaining paths)"
-
-
-class WideNotPorted(NotImplementedError, ValueError):
-    """A path of item 19 asked for at a width it does not take yet.  Also
-    a ValueError, as kmer_tpu's refusal of a seed mask over 63 bases
-    is."""
-
-
-def wide_not_ported(what: str) -> WideNotPorted:
-    return WideNotPorted(f"{what} is not ported to kmer_tpu_torch yet "
-                         f"({ITEM_19})")
-
-
 def valid_mask(B: int, P: int, lengths: torch.Tensor, span: int,
                limits: torch.Tensor | None, device) -> torch.Tensor:
     """(B, P) bool: window start p lies inside its row and its limit."""
@@ -181,8 +165,8 @@ def check_window(n_bases: int, positions=None,
                  canonical: bool = False) -> int:
     """Check a key of n_bases bases and return its window span: contiguous
     (positions None, any n_bases >= 1) or a spaced seed's n_bases window
-    offsets -- ascending from 0, at most PAIR_BASES of them (wider masks
-    are ROADMAP item 19), a palindromic mask when canonical.  The one
+    offsets -- ascending from 0, at most PAIR_BASES of them (kmer_tpu's
+    limit), a palindromic mask when canonical.  The one
     check of a seed: KmerConfig, spaced_lanes and the K1 and K7 wrappers
     call it, and the kernels take what it passed."""
     if positions is None:
@@ -194,8 +178,7 @@ def check_window(n_bases: int, positions=None,
         raise ValueError(f"positions {positions} are not {n_bases} "
                          "ascending window offsets from 0")
     if n_bases > PAIR_BASES:
-        raise wide_not_ported(f"a seed mask that selects more than "
-                              f"{PAIR_BASES} bases ({n_bases})")
+        raise ValueError(f"seed mask selects more than {PAIR_BASES} bases")
     mask = mask_from_positions(positions)
     if canonical and not seed_mask_palindromic(mask):
         raise ValueError("canonical spaced seeds need a palindromic mask, "

@@ -13,7 +13,9 @@ kmer_tpu's histogram of every valid lane gives.  Indices outside
 
 hll_class_histogram is the same kernel with the HyperLogLog class of
 ops/sketch.hll_classes computed from each key as it is loaded: an int64
-key of up to 31 bases, or the (hi, lo) pair of a key of 32 to 63.
+key of up to 31 bases, the (hi, lo) pair of a key of 32 to 63, or the
+words64(k) int64 planes of a wider key (ops/encode.word_bases; at most
+MAX_PLANES of them, the most the kernel's parameters carry).
 
 Both accumulate into `out` ((2**bits,) int64, made zero when not given)
 and dispatch on where their inputs lie: CPU tensors run the plain
@@ -36,11 +38,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..encode import key_planes
+from ..encode import key_planes, words64
 
 SOURCE = "kmer_tpu_torch/csrc/histogram.cu"
 REPLACES = "kmer_tpu/ops/pallas/histogram.py:110"
 MAX_BITS = 16
+# the most key planes a launch takes (csrc/histogram.cu MAX_PLANES, as
+# csrc/sort.cu's): keys of up to 7440 bases
+MAX_PLANES = 240
 # the lanes a thread of the kernel takes an iteration (csrc/histogram.cu)
 LANES = 16
 # the plan's choices, measured on an H100 (PERF.md): at most
@@ -68,8 +73,12 @@ def load():
                          "kmer_histogram", cuda=True)
         vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.histogram_launch.restype = i
-        lib.histogram_launch.argtypes = [vp, vp, vp, i64, i, i, i, i, vp, i,
+        lib.histogram_launch.argtypes = [vp, i, vp, i64, i, i, i, i, vp, i,
                                          i, i64, vp]
+        if lib.histogram_max_planes() != MAX_PLANES:
+            raise RuntimeError(f"histogram.cu takes "
+                               f"{lib.histogram_max_planes()} planes, this "
+                               f"wrapper {MAX_PLANES}")
         lib.histogram_attributes.restype = i
         lib.histogram_attributes.argtypes = [i, ctypes.POINTER(i),
                                              ctypes.POINTER(i)]
@@ -125,7 +134,8 @@ def _sm_count(index: int) -> int:
 
 def attributes(mode: int) -> tuple[int, int]:
     """(registers a thread, local bytes) of the kernel's MODE `mode`: 0
-    indices, 1 HLL classes of keys, 2 of (hi, lo) pairs."""
+    indices, 1 HLL classes of keys, 2 of (hi, lo) pairs, 3 of keys of
+    three or more planes."""
     regs, local = ctypes.c_int(), ctypes.c_int()
     rc = load().histogram_attributes(mode, ctypes.byref(regs),
                                      ctypes.byref(local))
@@ -180,6 +190,9 @@ def _launch(keys, weight, bits, out, hll_k: int, b: int,
             or weight.dtype != torch.int8 or not weight.is_contiguous()):
         raise ValueError("keys and weight must be contiguous int64 and int8 "
                          "tensors of one shape on one device")
+    if len(planes) > MAX_PLANES:
+        raise ValueError(f"the histogram kernel takes keys of at most "
+                         f"{MAX_PLANES} planes, got {len(planes)}")
     n = weight.numel()
     if n == 0:
         return out
@@ -187,13 +200,12 @@ def _launch(keys, weight, bits, out, hll_k: int, b: int,
     dev = weight.device
     if grid is None:
         grid = plan(n, bits, _sm_count(dev.index))
+    ptrs = (ctypes.c_void_p * len(planes))(*[p.data_ptr() for p in planes])
     with torch.cuda.device(dev):
         rc = lib.histogram_launch(
-            planes[0].data_ptr(),
-            planes[1].data_ptr() if len(planes) == 2 else None,
-            weight.data_ptr(), n, bits, int(hll_k > 0), hll_k, b,
-            out.data_ptr(), grid.cluster, grid.clusters, grid.chunk,
-            torch.cuda.current_stream().cuda_stream)
+            ptrs, len(planes), weight.data_ptr(), n, bits, int(hll_k > 0),
+            hll_k, b, out.data_ptr(), grid.cluster, grid.clusters,
+            grid.chunk, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"histogram kernel launch failed: cudaError {rc}")
     global launches
@@ -215,12 +227,14 @@ def index_histogram(idx: torch.Tensor, weight: torch.Tensor, bits: int,
 def hll_class_histogram(keys, weight: torch.Tensor, *, k: int, b: int,
                         out: torch.Tensor | None = None) -> torch.Tensor:
     """out[hll_class(key)] += weight over k-mer keys (int64 for 1 <= k <=
-    31, the (hi, lo) pair for 32 <= k <= 63) and int8 weights; returns out
-    ((2**(b + 5),) int64), 1 <= b <= 11."""
-    if not (1 <= b <= 11 and 1 <= k <= 63
-            and isinstance(keys, tuple) == (k > 31)):
-        raise ValueError(f"HLL classes need 1 <= b <= 11 and 1 <= k <= 63 "
-                         f"(a (hi, lo) pair past 31), got b={b}, k={k}")
+    31, past 31 the tuple of words64(k) int64 planes: (hi, lo) up to 63)
+    and int8 weights; returns out ((2**(b + 5),) int64), 1 <= b <= 11."""
+    if not (1 <= b <= 11 and k >= 1 and (
+            len(keys) == words64(k) if isinstance(keys, tuple)
+            else k <= 31)):
+        raise ValueError(f"HLL classes need 1 <= b <= 11 and keys of k >= 1 "
+                         f"bases (a tuple of words64(k) planes past 31), got "
+                         f"b={b}, k={k}")
     if weight.device.type == "cpu":
         return hll_class_histogram_ref(keys, weight, k=k, b=b, out=out)
     if weight.device.type != "cuda":

@@ -15,9 +15,13 @@ masks back to 32 bits.
 
 The hash runs over kmer_tpu's uint32 key words, most significant first
 (words_per_key(k) of them: one for k <= 15, two for 16 <= k <= 31, three
-or four for the (hi, lo) pairs of 32 <= k <= 63); they are formed from
-the int64 key value, or from the pair's value hi * 4**(k - 31) + lo,
-here.  A spaced seed's key hashes as a k-mer of its popcount.
+or four for the (hi, lo) pairs of 32 <= k <= 63, ceil((2 k + 1) / 32)
+for any k); they are cut here from the key's int64 planes in the layout
+of ops/encode.word_bases, whose values concatenate to the key's 2k-bit
+value.  A spaced seed's key hashes as a k-mer of its popcount.  Keys of
+up to 63 bases come from the fused count step (kernel K1), wider ones
+from the row-layout extraction (kernel K7), every valid window at weight
+1.
 """
 
 from __future__ import annotations
@@ -25,8 +29,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .encode import HI_BASES, LO_FLIP, PAIR_BASES, words_per_key
-from .extract import wide_not_ported
+from .encode import (LO_FLIP, PAIR_BASES, SENTINEL_KEY, key_planes,
+                     word_bases, words_per_key)
+from .kernels.extract import extract_keys
 from .kernels.fused_extract import fused_extract_count
 from .kernels.histogram import hll_class_histogram
 
@@ -74,33 +79,42 @@ def _rho32(tail: torch.Tensor, width: int) -> torch.Tensor:
 
 
 def key_words(keys, k: int) -> list[torch.Tensor]:
-    """k-mer keys (int64, or the (hi, lo) pair for k > 31) -> kmer_tpu's
-    uint32 key words as int64 tensors, most significant first."""
-    if not 1 <= k <= PAIR_BASES:
-        raise wide_not_ported(f"card with {k}-base keys")
-    W = words_per_key(k)
-    if k <= HI_BASES:
-        return [keys & _M32] if W == 1 else [keys >> 32, keys & _M32]
-    hi, lo = keys
-    s = 2 * (k - HI_BASES)                      # lo's value bits
-    raw = lo ^ LO_FLIP if s == 64 else lo
+    """k-mer keys, the int64 planes of ops/encode.word_bases(k) (one
+    tensor up to 31 bases, a tuple beyond) -> kmer_tpu's uint32 key words
+    as int64 tensors, most significant first: word j is bits [32 (W - 1 -
+    j), 32 (W - j)) of the 2k-bit value, which each plane holds a slice of
+    (a 32-base plane with its top bit flipped).  The value is the OR of
+    each plane's 64 bits, as unsigned, shifted to its place, which is how
+    the kernel reads a plane too; so even a lane that holds no key (a
+    sentinel) hashes the same in both."""
+    planes, bases = key_planes(keys), word_bases(k)
+    if len(planes) != len(bases):
+        raise ValueError(f"{len(planes)} key planes for a {k}-base key "
+                         f"({len(bases)} expected)")
+    # each plane's value and the place of its lowest bit in the key value
+    values, places, pos = [], [], 2 * k
+    for p, b in zip(planes, bases):
+        pos -= 2 * b
+        values.append(p ^ LO_FLIP if b == 32 else p)
+        places.append(pos)
 
-    def bits(p: int) -> torch.Tensor:
-        """Bits [p, p + 32) of hi * 2**s + raw."""
-        out = (raw >> p) & _M32 if p < s else torch.zeros_like(hi)
-        if p >= s:
-            out = out | ((hi >> (p - s)) & _M32)
-        elif p + 32 > s:                         # hi's low bits reach in
-            sh = s - p
-            out = out | ((hi & ((1 << (32 - sh)) - 1)) << sh)
+    def bits(lo: int) -> torch.Tensor:
+        """Bits [lo, lo + 32) of the key value."""
+        out = torch.zeros_like(planes[0])
+        for v, b, place in zip(values, bases, places):
+            a, e = max(lo, place), min(lo + 32, place + 64)
+            if a < e:
+                out = out | (((v >> (a - place)) & ((1 << (e - a)) - 1))
+                             << (a - lo))
         return out
+    W = words_per_key(k)
     return [bits(32 * (W - 1 - j)) for j in range(W)]
 
 
 def hll_classes(keys, k: int, b: int) -> torch.Tensor:
-    """int64 class index bucket * 32 + min(rho, 31) of each key (int64,
-    or the (hi, lo) pair for k > 31): bucket = the top b hash bits, rho
-    over the other 32 - b."""
+    """int64 class index bucket * 32 + min(rho, 31) of each key (the
+    int64 planes of ops/encode.word_bases(k)): bucket = the top b hash
+    bits, rho over the other 32 - b."""
     h = hash_words(key_words(keys, k))
     tail = h & ((1 << (32 - b)) - 1)
     rho = torch.clamp(_rho32(tail, 32 - b), max=_RHO_SLOTS - 1)
@@ -112,15 +126,23 @@ def hll_step(codes: torch.Tensor, lengths: torch.Tensor,
              canonical: bool, b: int = 10, mask_ambiguous: bool = False,
              packed_width: int = 0, seg: int = 2,
              positions=None) -> torch.Tensor:
-    """One device batch of the estimator: the fused count step (kernel
-    K1), then the class histogram (kernel K5) accumulated in place into
+    """One device batch of the estimator, accumulated in place into
     `hist` ((2**(b + 5),) int64 on the batch's device); returns hist.
-    positions: a spaced seed's k window offsets (k its popcount)."""
-    keys, counts = fused_extract_count(codes, lengths, limits, k,
-                                       canonical=canonical,
-                                       mask_ambiguous=mask_ambiguous, seg=seg,
-                                       packed_width=packed_width,
-                                       positions=positions)
+    Up to 63 bases: the fused count step (kernel K1) and its in-segment
+    counts as weights; wider keys: the row-layout extraction (kernel K7,
+    W planes, sentinel lanes) at weight 1 a valid window.  Then the class
+    histogram (kernel K5).  positions: a spaced seed's k window offsets
+    (k its popcount)."""
+    if k > PAIR_BASES:
+        keys = extract_keys(codes, lengths, limits, k, canonical=canonical,
+                            mask_ambiguous=mask_ambiguous,
+                            packed_width=packed_width)
+        counts = (keys[0] != SENTINEL_KEY).to(torch.int8)
+    else:
+        keys, counts = fused_extract_count(
+            codes, lengths, limits, k, canonical=canonical,
+            mask_ambiguous=mask_ambiguous, seg=seg,
+            packed_width=packed_width, positions=positions)
     return hll_class_histogram(keys, counts, k=k, b=b, out=hist)
 
 

@@ -16,15 +16,21 @@ sentinel key, or count 0) are routed nowhere.
 
 - The pairs steps (make_distributed_count_pairs, K1 on each position;
   make_distributed_gapped_pairs, K3) count locally with the fused step's
-  in-segment collapse, partition the (key, count) pairs by owner with one
-  stable digit pass of K6 (keys and counts as payload), and exchange
-  them; the host aggregates each owner's pairs
+  in-segment collapse -- or, for keys K1 and K3 do not take (over 63
+  bases, gapped windows over 31), with the single-device unfused step
+  (K7 and the grouped dedup) -- partition the (key, count) pairs by
+  owner with one stable digit pass of K6 (key planes and counts as
+  payload), and exchange them; the host aggregates each owner's pairs
   (pipeline/table.KmerTable.from_routed_pairs).
 - The sorted-stream steps (make_distributed_count, K7; and
-  make_distributed_gapped, K3 with its counts as payload) sort each
-  position's keys with K6, exchange, sort again and take run lengths:
-  each owner's stream is sorted, and their concatenation is globally
-  sorted.  KMER_TPU_MULTIHOST_STEP=legacy selects them.
+  make_distributed_gapped, K3 or K7's gapped lanes with their counts as
+  payload) sort each position's key planes with K6, exchange, sort again
+  and take run lengths: each owner's stream is sorted, and their
+  concatenation is globally sorted.  KMER_TPU_MULTIHOST_STEP=legacy
+  selects them.
+
+A key travels as the int64 planes of ops/encode (KmerConfig.plane_bases),
+W of them at any width, and the exchange carries W + 1 planes a row.
 - make_distributed_dense: K1 + K5 (k <= 8) or K1 + index_add_ (k =
   9..12) into an int64 4**k table on each position, then an all-reduce or
   a reduce-scatter.
@@ -37,18 +43,19 @@ retry, whatever the skew.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import torch
 
 from ..ops import count as count_ops
-from ..ops.encode import LO_FLIP, SENTINEL_KEY, key_planes, pair_r_len, \
-    plane_bits
+from ..ops.encode import (LO_FLIP, PAIR_BASES, SENTINEL_KEY, bases_bits,
+                          gapped_bases, key_planes, word_bases)
 from ..ops.extract import check_window, parse_seed_mask
 from ..ops.kernels.extract import extract_keys
 from ..pipeline.count import (DENSE_DEVICE_K_MAX, count_step_dense,
-                              count_step_scatter, fused_step,
-                              gapped_step_sort)
+                              count_step_scatter, count_step_sort,
+                              fused_step, gapped_step_sort)
 from ..utils import stagetime
 from . import comm
 from .halo import halo_extend, seq_shard_bounds
@@ -58,27 +65,24 @@ from .mesh import Mesh, ShardedBatch
 ROUTE_BITS = 16
 
 
-def route_dest(words, n_bases: int, n_dev: int, r_len: int = 0):
+def route_dest(planes, bases, n_dev: int):
     """Owner of each key, top * n_dev >> tb, top the key value's top tb =
     min(ROUTE_BITS, 2 n_bases) bits: monotone in the key, so routing keeps
-    the global order for any n_dev.  words: the key's int64 planes (torch
-    tensors, or numpy arrays of int64), (keys,) for a key of one word, or
-    (hi, lo) with lo the last r_len bases (its top bit flipped at r_len =
-    32, ops/encode).  Dead lanes get an owner too; callers mark them."""
-    tb = min(ROUTE_BITS, 2 * n_bases)
-    if len(words) == 1:
-        top = words[0] >> (2 * n_bases - tb)
+    the global order for any n_dev.  planes: the key's int64 planes (torch
+    tensors, or numpy arrays of int64), most significant first; bases:
+    each plane's bases (ops/encode: KmerConfig.plane_bases; a 32-base
+    plane's top bit is flipped; plane 0 may hold 0 bases).  The top bits
+    lie in plane 0, or straddle planes 0 and 1.  Dead lanes get an owner
+    too; callers mark them."""
+    tb = min(ROUTE_BITS, 2 * sum(bases))
+    bits0 = 2 * bases[0]
+    if bits0 >= tb:
+        top = planes[0] >> (bits0 - tb)
     else:
-        hi, lo = words
-        hi_bits = 2 * (n_bases - r_len)
-        if hi_bits >= tb:
-            top = hi >> (hi_bits - tb)
-        else:
-            need = tb - hi_bits
-            if r_len == 32:
-                lo = lo ^ LO_FLIP
-            top = (hi << need) | ((lo >> (2 * r_len - need))
-                                  & ((1 << need) - 1))
+        need = tb - bits0
+        lo = planes[1] ^ LO_FLIP if bases[1] == 32 else planes[1]
+        top = (planes[0] << need) | ((lo >> (2 * bases[1] - need))
+                                     & ((1 << need) - 1))
     return (top * n_dev) >> tb
 
 
@@ -126,13 +130,14 @@ def _owner_sizes(dest: torch.Tensor, n_dev: int) -> torch.Tensor:
     return bounds[1:] - bounds[:-1]
 
 
-def _route_pairs(planes, counts, n_bases: int, r_len: int, n_dev: int):
-    """One position's (key, count) lanes partitioned by owner: a stable
-    sort on the owner id alone (K6, one digit; keys and counts as payload,
-    dead lanes last).  Returns (the C planes, lanes per owner)."""
+def _route_pairs(planes, counts, bases, n_dev: int):
+    """One position's (key, count) lanes, the key planes of the layout
+    `bases`, partitioned by owner: a stable sort on the owner id alone
+    (K6, one digit; keys and counts as payload, dead lanes last).
+    Returns (the W + 1 planes, lanes per owner)."""
     planes = [p.reshape(-1) for p in planes]
     counts = counts.reshape(-1).to(torch.int64)
-    dest = route_dest(planes, n_bases, n_dev, r_len)
+    dest = route_dest(planes, bases, n_dev)
     dest = torch.where((planes[0] == SENTINEL_KEY) | (counts == 0), n_dev,
                        dest)
     s = count_ops.sort_words([dest, *planes, counts], num_keys=1,
@@ -155,28 +160,33 @@ def make_distributed_count_pairs(mesh: Mesh, *, k: int,
                                  canonical: bool = False,
                                  use_seq: bool | None = None,
                                  mask_ambiguous: bool = False,
-                                 seed_mask: str | None = None):
+                                 seed_mask: str | None = None,
+                                 group_keys: int = 256):
     """The fused-local distributed count over `mesh`.  Returns
     fn(batch: ShardedBatch) -> [(key planes, counts int64) for each of
     this process's owners]: the routed pairs, keys as the port's int64
-    planes (one, or (hi, lo) for 32 to 63 bases), equal keys possibly
-    repeated; aggregate with KmerTable.from_routed_pairs.  Each position
-    runs K1 (spaced seeds and two-word keys included), then the owner
-    partition (K6)."""
+    planes (ops/encode.word_bases: one, (hi, lo) for 32 to 63 bases, W
+    beyond), equal keys possibly repeated; aggregate with
+    KmerTable.from_routed_pairs.  Each position runs K1 (spaced seeds and
+    two-word keys included) or, past 63 bases, the single-device unfused
+    step (K7, then the grouped dedup at m = group_keys, or K6's flat sort
+    at 0; pipeline/count.count_step_sort), then the owner partition
+    (K6)."""
     _check_use_seq(mesh, use_seq)
     positions = None
     if seed_mask is not None:
         positions = parse_seed_mask(seed_mask)
         k = len(positions)                # key width = popcount
     span = check_window(k, positions, canonical)
-    r_len = pair_r_len(k)
+    bases = word_bases(k)
+    step = fused_step if k <= PAIR_BASES else functools.partial(
+        count_step_sort, group_keys=group_keys)
 
     def local(codes, lengths, limits, pw):
-        keys, counts = fused_step(codes, lengths, limits, k=k,
-                                  canonical=canonical,
-                                  mask_ambiguous=mask_ambiguous,
-                                  packed_width=pw, positions=positions)
-        return _route_pairs(key_planes(keys), counts, k, r_len, mesh.n_dev)
+        keys, counts = step(codes, lengths, limits, k=k, canonical=canonical,
+                            mask_ambiguous=mask_ambiguous, packed_width=pw,
+                            positions=positions)
+        return _route_pairs(key_planes(keys), counts, bases, mesh.n_dev)
 
     def fn(batch: ShardedBatch):
         return _pairs_step(mesh, batch, span, local)
@@ -187,21 +197,25 @@ def make_distributed_gapped_pairs(mesh: Mesh, *, l_len: int = 27,
                                   r_len: int = 27, c_min: int = 80,
                                   c_max: int = 140,
                                   use_seq: bool | None = None,
-                                  mask_ambiguous: bool = False):
-    """The fused-local distributed gapped count: K3 on each position (the
-    chunk keys of every c and the in-segment collapse), then the owner
-    partition (K6).  fn(batch) -> [((hi, lo), counts) an owner], hi the
-    l-mer and lo the r-mer value.  A shard with its halo, L / n_seq +
-    c_max - 1 bases, must fit fused_gapped.MAX_ROW."""
+                                  mask_ambiguous: bool = False,
+                                  group_keys: int = 256):
+    """The fused-local distributed gapped count: the single-device gapped
+    step on each position (K3, the chunk keys of every c and the
+    in-segment collapse, for windows of at most 31 bases; else K7's
+    gapped lanes and the grouped dedup: pipeline/count.gapped_step_sort),
+    then the owner partition (K6).  fn(batch) -> [(key planes, counts) an
+    owner], the planes those of ops/encode.gapped_bases.  A K3 shard with
+    its halo, L / n_seq + c_max - 1 bases, must fit
+    fused_gapped.MAX_ROW."""
     _check_use_seq(mesh, use_seq)
     win = dict(l_len=l_len, r_len=r_len, c_min=c_min, c_max=c_max,
-               mask_ambiguous=mask_ambiguous)
+               mask_ambiguous=mask_ambiguous, group_keys=group_keys)
+    bases = gapped_bases(l_len, r_len)
 
     def local(codes, lengths, limits, pw):
-        hi, lo, counts = gapped_step_sort(codes, lengths, limits,
-                                          packed_width=pw, **win)
-        return _route_pairs((hi, lo), counts, l_len + r_len, r_len,
-                            mesh.n_dev)
+        *planes, counts = gapped_step_sort(codes, lengths, limits,
+                                           packed_width=pw, **win)
+        return _route_pairs(planes, counts, bases, mesh.n_dev)
 
     def fn(batch: ShardedBatch):
         return _pairs_step(mesh, batch, c_max, local)
@@ -224,12 +238,13 @@ def _run_sums(words, weights: torch.Tensor | None) -> torch.Tensor:
 
 
 def _sorted_stream(mesh: Mesh, batch: ShardedBatch, span: int, local,
-                   n_bases: int, r_len: int, bits):
+                   bases):
     """The sorted-stream step's phases: local(codes, lengths, limits, pw)
     -> (key planes, weights or None) on each position; K6 sorts them, the
     sorted stream routes by owner (monotone, so dead lanes trail), the
-    exchange, K6 again and the run counts."""
-    W = len(bits)
+    exchange, K6 again and the run counts.  bases: the key planes'
+    layout."""
+    W, bits = len(bases), bases_bits(bases)
     sends, sizes = [], []
     with stagetime.stage("dispatch"):
         for codes, lengths, limits, pw in _shards(mesh, batch, span):
@@ -238,7 +253,7 @@ def _sorted_stream(mesh: Mesh, batch: ShardedBatch, span: int, local,
             if weights is not None:
                 words.append(weights.reshape(-1).to(torch.int64))
             s = count_ops.sort_words(words, num_keys=W, bits=bits)
-            dest = route_dest(s[:W], n_bases, mesh.n_dev, r_len)
+            dest = route_dest(s[:W], bases, mesh.n_dev)
             dest = torch.where(s[0] == SENTINEL_KEY, mesh.n_dev, dest)
             sends.append(s)
             sizes.append(_owner_sizes(dest, mesh.n_dev))
@@ -271,8 +286,7 @@ def make_distributed_count(mesh: Mesh, *, k: int, canonical: bool = False,
                                        packed_width=pw)), None
 
     def fn(batch: ShardedBatch):
-        return _sorted_stream(mesh, batch, k, local, k, pair_r_len(k),
-                              plane_bits(k))
+        return _sorted_stream(mesh, batch, k, local, word_bases(k))
     return fn
 
 
@@ -280,8 +294,9 @@ def make_distributed_gapped(mesh: Mesh, *, l_len: int = 27, r_len: int = 27,
                             c_min: int = 80, c_max: int = 140,
                             use_seq: bool | None = None,
                             mask_ambiguous: bool = False):
-    """The sorted-stream distributed gapped count: K3 on each position,
-    its (hi, lo) lanes sorted with their in-segment counts as payload
+    """The sorted-stream distributed gapped count: the single-device
+    gapped step on each position (K3, or K7's gapped lanes and the grouped
+    dedup past 31 bases), its planes sorted with their counts as payload
     (K6), the exchange, K6 and the runs' count sums.  Same contract as
     make_distributed_count."""
     _check_use_seq(mesh, use_seq)
@@ -289,45 +304,43 @@ def make_distributed_gapped(mesh: Mesh, *, l_len: int = 27, r_len: int = 27,
                mask_ambiguous=mask_ambiguous)
 
     def local(codes, lengths, limits, pw):
-        hi, lo, counts = gapped_step_sort(codes, lengths, limits,
-                                          packed_width=pw, **win)
-        return (hi, lo), counts
+        *planes, counts = gapped_step_sort(codes, lengths, limits,
+                                           packed_width=pw, **win)
+        return planes, counts
 
     def fn(batch: ShardedBatch):
-        return _sorted_stream(mesh, batch, c_max, local, l_len + r_len,
-                              r_len, (2 * l_len, 2 * r_len))
+        return _sorted_stream(mesh, batch, c_max, local,
+                              gapped_bases(l_len, r_len))
     return fn
 
 
 def make_step(mesh: Mesh, cfg):
     """The sort-mode step of `cfg` over `mesh`, the one
     count_fasta_multihost and StreamingCounter(mesh=) run: the pairs step
-    (K3's for gapped keys) unless pairs_eligible says legacy.  Keys of
-    more than two int64 words, or gapped windows over 31 bases, raise
-    (ROADMAP item 19)."""
-    cfg.check_narrow("the mesh")
+    unless pairs_eligible says legacy, at every key width; its routed
+    planes are those of cfg.plane_bases."""
     use_pairs = pairs_eligible(cfg)
     if cfg.seed_mask is not None and not use_pairs:
         raise ValueError("spaced seeds need the pairs step; unset "
                          "KMER_TPU_MULTIHOST_STEP=legacy")
     mask = cfg.skip_invalid
     if cfg.gapped:
-        make = (make_distributed_gapped_pairs if use_pairs
-                else make_distributed_gapped)
-        return make(mesh, l_len=cfg.l_len, r_len=cfg.r_len, c_min=cfg.c_min,
-                    c_max=cfg.c_max, mask_ambiguous=mask)
+        if use_pairs:
+            return make_distributed_gapped_pairs(
+                mesh, l_len=cfg.l_len, r_len=cfg.r_len, c_min=cfg.c_min,
+                c_max=cfg.c_max, mask_ambiguous=mask,
+                group_keys=cfg.sort_group_keys)
+        return make_distributed_gapped(mesh, l_len=cfg.l_len,
+                                       r_len=cfg.r_len, c_min=cfg.c_min,
+                                       c_max=cfg.c_max, mask_ambiguous=mask)
     if use_pairs:
         return make_distributed_count_pairs(mesh, k=cfg.k,
                                             canonical=cfg.canonical,
                                             mask_ambiguous=mask,
-                                            seed_mask=cfg.seed_mask)
+                                            seed_mask=cfg.seed_mask,
+                                            group_keys=cfg.sort_group_keys)
     return make_distributed_count(mesh, k=cfg.k, canonical=cfg.canonical,
                                   mask_ambiguous=mask)
-
-
-def step_r_len(cfg) -> int:
-    """lo's bases in the (hi, lo) keys of cfg's steps; 0 for one word."""
-    return cfg.r_len if cfg.gapped else pair_r_len(cfg.n_bases)
 
 
 def gather_owners(routed) -> list[torch.Tensor]:

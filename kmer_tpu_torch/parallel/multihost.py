@@ -184,7 +184,6 @@ def count_fasta_multihost(path: str, cfg=None, gather: bool = True,
     cfg = cfg or KmerConfig()
     if cfg_kw:
         cfg = cfg.replace(**cfg_kw)
-    cfg.check_narrow("the mesh")
     mesh = mesh or make_mesh(devices=[process_device(device)])
     pc = mesh.world
     if cfg.batch_reads % pc:
@@ -265,7 +264,7 @@ def count_fasta_multihost(path: str, cfg=None, gather: bool = True,
         return KmerTable.from_dense(hist, cfg.k)
 
     step = distributed.make_step(mesh, cfg)
-    r_len = distributed.step_r_len(cfg)
+    bases = cfg.plane_bases
     merge = HostMerge()
 
     def take(rb: _Readback) -> None:
@@ -273,7 +272,7 @@ def count_fasta_multihost(path: str, cfg=None, gather: bool = True,
             rb.wait()
         with stagetime.stage("table_build"):
             *words, counts = rb.host()
-            part = routed_pairs(cfg.n_bases, words, counts, r_len)
+            part = routed_pairs(words, counts, bases)
         merge.add(part)
 
     pending = None

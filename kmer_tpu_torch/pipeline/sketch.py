@@ -2,7 +2,8 @@
 `card` command.
 
 One pass over the corpus: each batch is shipped once and sketched at
-every k.  The (2**(b + 5),) int64 class histogram of each k lives on the
+every k (kernel K1 up to 63 bases, K7 beyond, then K5; a list such as
+21 and 101 mixes them).  The (2**(b + 5),) int64 class histogram of each k lives on the
 device across all batches and crosses to the host once at the end, so
 peak host memory and the device-to-host copy are O(2**b) whatever the
 corpus size.
@@ -14,8 +15,6 @@ import numpy as np
 import torch
 
 from ..config import KmerConfig
-from ..ops.encode import PAIR_BASES
-from ..ops.extract import wide_not_ported
 from ..ops.sketch import estimate_from_histogram, hll_step
 from ..utils.stats import StatsLogger
 from .count import dispatch_batches, iter_chunks, resolve_device
@@ -50,8 +49,6 @@ def sketch_histograms(paths, ks, cfg: KmerConfig, *, b: int = 10,
     ks = list(dict.fromkeys(ks))      # a repeated k would double-count
     if not ks or any(kk < 1 for kk in ks):
         raise ValueError(f"bad k list {ks}")
-    if max(ks) > PAIR_BASES:
-        raise wide_not_ported(f"card with {max(ks)}-base keys")
     span = cfg.window_span if positions is not None else max(ks)
     if cfg.max_read_len < span:
         raise ValueError(f"max_read_len={cfg.max_read_len} < window "

@@ -29,13 +29,18 @@ in memory and a crash loses at most one unit of work:
 Routing is monotone in the key, so the partition tables concatenated in
 order ARE the global sorted table.
 
-Spill records are the port's own format: the fused uint64 key columns of
-pipeline/table.fuse_words (one column up to 31 bases, [high, low] for 32
-to 63), then the int64 count, in native byte order.  kmer_tpu spills
-uint32 key words and uint32 counts and drains its device table before a
-total reaches 2**31; int64 counts need no such drain.  The manifest's
-fingerprint names the format and its version, and a spill directory of
-another format or version is refused, never misread.
+Spill records are the port's own format: the C = fused_columns(n_bases)
+fused uint64 key columns of pipeline/table.fuse_words, most significant
+first (one column up to 31 bases, [high, low] for 32 to 63, ceil(W32 / 2)
+beyond, W32 = words_per_key(n_bases)), then the int64 count, in native
+byte order: 8 (C + 1) bytes a record at every key width.  Records of one
+and two columns are those version 1 has always written, and no earlier
+version-1 directory holds a wider key (its constructor refused one), so
+the version stands.  kmer_tpu spills uint32 key words and uint32 counts
+and drains its device table before a total reaches 2**31; int64 counts
+need no such drain.  The manifest's fingerprint names the format and its
+version, and a spill directory of another format or version is refused,
+never misread.
 
 Crash model: the manifest (manifest.json) is written atomically
 (tmp + fsync + rename) after every unit and records the exact byte
@@ -57,7 +62,7 @@ import numpy as np
 import torch
 
 from ..config import KmerConfig
-from ..ops.encode import words_per_key
+from ..ops.encode import fused_columns, words_per_key
 from ..ops.kernels import fused_gapped
 from ..parallel import distributed
 from ..parallel.distributed import route_dest
@@ -71,8 +76,8 @@ from .table import (KmerTable, fuse_words, reduce_fused, routed_pairs,
 
 MANIFEST = "manifest.json"
 SPILL_FORMAT = "kmer_tpu_torch"
-# 1: fused uint64 key columns + an int64 count a record; tight batch
-# widths a chunk (pipeline/count.batch_width)
+# 1: fused uint64 key columns (any number) + an int64 count a record;
+# tight batch widths a chunk (pipeline/count.batch_width)
 SPILL_VERSION = 1
 
 
@@ -94,19 +99,23 @@ def route_partition(keys: np.ndarray, n_bases: int, n_parts: int
 
 def route_fused(fused: np.ndarray, n_bases: int, n_parts: int) -> np.ndarray:
     """route_partition of fused keys (fuse_words' layout: (M,) uint64
-    values, or (M, 2) [high, low] with 2 n_bases - 64 bits in high), by
-    the one routing definition, parallel/distributed.route_dest: the
-    [high, low] halves are its (hi, lo) pair at r_len = 32."""
+    values, or (M, C) columns, most significant first, column 0 holding
+    2 n_bases - 64 (C - 1) bits), by the one routing definition,
+    parallel/distributed.route_dest.  The top tb <= 16 bits lie in the
+    top two columns, taken as planes of n_bases - 32 (C - 1) and 32 bases
+    (the second with its top bit flipped, as ops/encode stores a 32-base
+    plane)."""
     if fused.ndim == 1:
-        words = (torch.from_numpy(fused.view(np.int64)),)
-        r_len = 0
+        planes = (torch.from_numpy(fused.view(np.int64)),)
+        bases = (n_bases,)
     else:
-        words = (torch.from_numpy(np.ascontiguousarray(fused[:, 0])
-                                  .view(np.int64)),
-                 torch.from_numpy((fused[:, 1] ^ np.uint64(1 << 63))
-                                  .view(np.int64)))
-        r_len = 32
-    return route_dest(words, n_bases, n_parts, r_len).numpy()
+        C = fused.shape[1]
+        planes = (torch.from_numpy(np.ascontiguousarray(fused[:, 0])
+                                   .view(np.int64)),
+                  torch.from_numpy((fused[:, 1] ^ np.uint64(1 << 63))
+                                   .view(np.int64)))
+        bases = (n_bases - 32 * (C - 1), 32)
+    return route_dest(planes, bases, n_parts).numpy()
 
 
 def _atomic_write_json(path: str, obj) -> None:
@@ -190,7 +199,7 @@ class _MeshPass(_BatchPass):
         self.sc, self.pending = sc, None
         mesh, cfg = sc.mesh, sc.cfg
         run = distributed.make_step(mesh, cfg)
-        r_len = distributed.step_r_len(cfg)
+        bases = cfg.plane_bases
 
         def step(codes_d, lengths_d, limits_d, pw):
             codes_d, pw = pad_columns(codes_d, pw, mesh.n_seq)
@@ -199,7 +208,7 @@ class _MeshPass(_BatchPass):
 
         def batch_pairs(rb):
             *words, counts = rb.host()
-            return routed_pairs(cfg.n_bases, words, counts, r_len)
+            return routed_pairs(words, counts, bases)
         self.step, self.batch_pairs = step, batch_pairs
 
 
@@ -246,8 +255,6 @@ class StreamingCounter:
                  stats: StatsLogger | None = None, device="cuda", mesh=None):
         if cfg.partitions < 1:
             raise ValueError(f"partitions must be >= 1, got {cfg.partitions}")
-        # spill records hold one or two fused key columns (ROADMAP item 19)
-        cfg.check_narrow("streaming")
         self.fasta = fasta
         self.cfg = cfg
         self.dir = spill_dir
@@ -261,7 +268,7 @@ class StreamingCounter:
         self.P = cfg.partitions
         self.n_bases = cfg.n_bases
         # fused key columns a record (pipeline/table.fuse_words)
-        self.cols = 1 if words_per_key(self.n_bases) <= 2 else 2
+        self.cols = fused_columns(self.n_bases)
         os.makedirs(spill_dir, exist_ok=True)
         self.manifest_path = os.path.join(spill_dir, MANIFEST)
         self.state = self._load_or_init_state()

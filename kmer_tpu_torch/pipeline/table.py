@@ -22,8 +22,8 @@ import numpy as np
 
 from ..ops.encode import (SENTINEL_KEY, check_n_bases, chunks_to_u32,
                           decode_key_words, encode_seq, key_words_from_codes,
-                          pair_r_len, pairs_to_value, planes_to_chunks,
-                          revcomp_str, u32_to_chunks, words_per_key)
+                          pairs_to_value, planes_to_chunks, revcomp_str,
+                          u32_to_chunks, word_bases, words_per_key)
 
 
 def _fused(chunks) -> np.ndarray:
@@ -191,14 +191,14 @@ class KmerTable:
 
     @staticmethod
     def from_routed_pairs(n_bases: int, words, counts,
-                          r_len: int | None = None) -> "KmerTable":
+                          bases=None) -> "KmerTable":
         """Aggregate a distributed step's routed pairs (parallel/
-        distributed): words the int64 key planes, (keys,) or (hi, lo)
-        with lo the last r_len bases (default: the contiguous pair of
-        n_bases, ops/encode.pair_r_len; a gapped step's r_len), counts
-        int64; dead lanes (count 0, or the sentinel key) dropped."""
+        distributed): words the int64 key planes of the layout `bases`
+        (each plane's bases; default ops/encode.word_bases(n_bases), a
+        gapped step's KmerConfig.plane_bases), counts int64; dead lanes
+        (count 0, or the sentinel key) dropped."""
         return KmerTable.from_fused(n_bases, *routed_pairs(
-            n_bases, words, counts, r_len))
+            words, counts, word_bases(n_bases) if bases is None else bases))
 
     @staticmethod
     def from_pairs(k: int, keys: np.ndarray, counts: np.ndarray
@@ -407,18 +407,15 @@ def plane_run_pairs(planes, counts, bases) -> tuple[np.ndarray, np.ndarray]:
             counts[live].astype(np.int64))
 
 
-def routed_pairs(n_bases: int, words, counts, r_len: int | None = None
-                 ) -> tuple[np.ndarray, np.ndarray]:
-    """The live lanes of routed int64 key planes (host arrays or CPU
-    tensors) as unsorted fused (key, int64 count) pairs
-    (KmerTable.from_routed_pairs)."""
+def routed_pairs(words, counts, bases) -> tuple[np.ndarray, np.ndarray]:
+    """The live lanes of routed int64 key planes of the layout `bases`
+    (host arrays or CPU tensors) as unsorted fused (key, int64 count)
+    pairs (KmerTable.from_routed_pairs)."""
     words = [np.asarray(w).reshape(-1) for w in words]
     counts = np.asarray(counts).reshape(-1)
-    counts = np.where(words[0] == SENTINEL_KEY, 0, counts)
-    if len(words) == 1:
-        return device_run_pairs(words[0], counts)
-    r_len = pair_r_len(n_bases) if r_len is None else r_len
-    return gapped_run_pairs(words[0], words[1], counts, r_len, n_bases)
+    return plane_run_pairs(words,
+                           np.where(words[0] == SENTINEL_KEY, 0, counts),
+                           bases)
 
 
 class TableAccumulator:

@@ -100,11 +100,16 @@ def test_cli_errors(tmp_path, capsys):
     bad.write_text(">r\nACGTN\n")
     assert main(["count", str(bad), "--device", "cpu"]) == 1
     assert "invalid base" in capsys.readouterr().err
-    # keys over 63 bases count now; `card` at k = 64 is ROADMAP item 19
+    # keys over 63 bases count on every path: `card -k 64` prints
+    # kmer_tpu's bytes
+    from kmer_tpu.cli import main as jax_main
     good = tmp_path / "good.fasta"
     good.write_text(">r\n" + "ACGTTGCA" * 12 + "\n")
-    assert main(["card", str(good), "-k", "64", "--device", "cpu"]) == 1
-    assert "ROADMAP Queue 1 item 19" in capsys.readouterr().err
+    args = ["card", str(good), "-k", "64"]
+    assert jax_main(args) == 0
+    want = capsys.readouterr().out
+    assert main(args + ["--device", "cpu"]) == 0
+    assert capsys.readouterr().out == want and "total_kmers\t33" in want
 
 
 def test_port_never_imports_jax_or_kmer_tpu(corpora):

@@ -1,10 +1,12 @@
 """The CUDA kernels K1, K2a-c, K3, K4, K5, K6 and K7 against their plain
 torch versions (K1 and K7 also for keys of 32 to 63 bases and for spaced
-seeds, K4 and K5 also on (hi, lo) pairs), and the whole count (sort, the
-unfused steps, compact, device merge and dense, at k <= 31, at 32 <= k <=
-63 and with seed masks), the parity dump, the HyperLogLog estimate,
-BGZF ingest, `count --profile-dir` and the mesh of positions on one card
-(in a one-rank NCCL group too) on the card against the CPU.  Every test
+seeds, K4 and K5 also on (hi, lo) pairs, K5 on W planes), and the whole
+count (sort, the unfused steps, compact, device merge and dense, at
+k <= 31, at 32 <= k <= 63, at any width and with seed masks), the parity
+dump, the HyperLogLog estimate (k = 101 too), streaming, BGZF ingest,
+`count --profile-dir` and the mesh of positions on one card (in a
+one-rank NCCL group too; k = 101 and gapped 40/40) on the card against
+the CPU.  Every test
 here needs a GPU and skips without one.  This file imports neither jax nor kmer_tpu,
 so it also runs on a machine that has only the port:
 
@@ -17,6 +19,7 @@ import torch
 
 import kmer_tpu_torch
 from kmer_tpu_torch.io.fasta import pack_batch_codes
+from kmer_tpu_torch.ops.encode import SENTINEL_KEY, word_bases, words64
 from kmer_tpu_torch.io.generator import (genome_reads_fasta,
                                          reference_style_fasta)
 from kmer_tpu_torch.ops.kernels import compact as ck
@@ -1508,3 +1511,136 @@ def test_any_width_count_cuda_equals_cpu(cuda, tmp_path, monkeypatch, kw,
         assert got.total == 200 * (150 - 100) and ek.multi_launches > 0
     elif env or max(cfg.l_len, cfg.r_len) > 31:
         assert ek.gapped_launches > 0
+
+
+# ------------------------------ streaming, `card` and the mesh at W words
+
+@pytest.mark.parametrize("k,b", [(64, 10), (101, 11), (130, 4)])
+def test_hll_plane_mode_kernel_equals_plain(cuda, k, b):
+    """K5's plane mode on K7's W = 3, 4 and 5 planes (u8 rows with
+    ambiguous codes, short rows: sentinel lanes at weight 0), into a
+    pre-filled histogram, then on views one lane off the allocation's
+    alignment."""
+    host = _wide_batch(k, 301, 160, True, False)
+    planes = ek.extract_keys(*(t.to(cuda) for t in host), k, canonical=True,
+                             mask_ambiguous=True)
+    assert len(planes) == {64: 3, 101: 4, 130: 5}[k]
+    w = (planes[0] != SENTINEL_KEY).to(torch.int8)
+    out = torch.arange(1 << (b + 5), dtype=torch.int64, device=cuda)
+    before = hk.launches
+    got = hk.hll_class_histogram(planes, w, k=k, b=b, out=out.clone())
+    want = hk.hll_class_histogram_ref(planes, w, k=k, b=b, out=out.clone())
+    torch.cuda.synchronize()
+    assert hk.launches == before + 1
+    assert torch.equal(got, want) and int((got - out).sum()) == int(w.sum())
+    flat = tuple(p.reshape(-1)[1:] for p in planes)
+    got = hk.hll_class_histogram(flat, w.reshape(-1)[:-1], k=k, b=b)
+    want = hk.hll_class_histogram_ref(flat, w.reshape(-1)[:-1], k=k, b=b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [64, 101, 130])
+def test_hll_plane_mode_kernel_edges(cuda, k):
+    """An empty stream launches nothing; a stream of sentinel lanes only
+    (weight 0) launches and adds nothing; random weights of either sign
+    on random keys equal the plain version."""
+    W = words64(k)
+    empty = tuple(torch.zeros(0, dtype=torch.int64, device=cuda)
+                  for _ in range(W))
+    before = hk.launches
+    got = hk.hll_class_histogram(empty, torch.zeros(0, dtype=torch.int8,
+                                                    device=cuda), k=k, b=10)
+    assert hk.launches == before and int(got.abs().sum()) == 0
+    n = 70_001
+    dead = tuple(torch.full((n,), SENTINEL_KEY, dtype=torch.int64, device=cuda)
+                 for _ in range(W))
+    got = hk.hll_class_histogram(dead, torch.zeros(n, dtype=torch.int8,
+                                                   device=cuda), k=k, b=10)
+    torch.cuda.synchronize()
+    assert hk.launches == before + 1 and int(got.abs().sum()) == 0
+    rng = np.random.default_rng(k)
+    planes = tuple(torch.from_numpy(rng.integers(0, 1 << (2 * nb), n)).to(
+        cuda) for nb in word_bases(k))
+    w = torch.from_numpy(rng.integers(-3, 4, n).astype(np.int8)).to(cuda)
+    got = hk.hll_class_histogram(planes, w, k=k, b=10)
+    want = hk.hll_class_histogram_ref(planes, w, k=k, b=10)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and int(got.sum()) == int(w.sum())
+
+
+def _wide_corpus(tmp_path):
+    path = tmp_path / "w.fasta"
+    path.write_text(genome_reads_fasta(400, 150, genome_len=4000, seed=19,
+                                       error_rate=0.002))
+    return str(path)
+
+
+def test_card_k101_cuda_launches_k7_and_k5(cuda, tmp_path):
+    """`card -k 21 -k 101` on the card: K1 at k = 21, K7's multi-word
+    entry at k = 101, K5 for both, a batch each; the CPU's estimates."""
+    path = _wide_corpus(tmp_path)
+    cfg = kmer_tpu_torch.KmerConfig(k=101, canonical=True, batch_reads=64,
+                                    max_read_len=160)
+    want = kmer_tpu_torch.estimate_distinct_multi_k(path, [21, 101], cfg,
+                                                    device="cpu")
+    fe.launches = ek.multi_launches = hk.launches = 0
+    got = kmer_tpu_torch.estimate_distinct_multi_k(path, [21, 101], cfg,
+                                                   device="cuda")
+    torch.cuda.synchronize()
+    batches = -(-400 // 64)
+    assert got == want and want[1][1] == 400 * 50
+    assert (fe.launches, ek.multi_launches, hk.launches) == (
+        batches, batches, 2 * batches)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(k=101, canonical=True, device_merge="off"),
+    dict(k=101, canonical=True, device_merge="on"),
+    dict(gapped=True, l_len=40, r_len=40, c_min=80, c_max=100,
+         device_merge="on")])
+def test_streaming_wide_cuda_equals_cpu(cuda, tmp_path, kw):
+    """StreamingCounter at k = 101 and gapped 40/40 on the card, paused
+    after 3 batches and resumed by a fresh counter: the single-device
+    in-memory table; K7 a batch, K6 on the device merge."""
+    path = _wide_corpus(tmp_path)
+    cfg = kmer_tpu_torch.KmerConfig(batch_reads=64, max_read_len=160,
+                                    partitions=5, **kw)
+    want = kmer_tpu_torch.count_fasta(path, cfg, device="cpu")
+    spill = str(tmp_path / "sp")
+    ek.launches = ek.gapped_launches = sk.launches = 0
+    sc = kmer_tpu_torch.StreamingCounter(path, cfg, spill, device="cuda")
+    sc.run_pass1(max_batches=3)
+    sc = kmer_tpu_torch.StreamingCounter(path, cfg, spill, device="cuda")
+    sc.run()
+    assert sc.final_table() == want and want.num_distinct > 0
+    assert (ek.launches + ek.gapped_launches
+            == sc.state["pass1_next_batch"])
+    assert (sk.launches > 0) == (kw["device_merge"] == "on")
+
+
+@pytest.mark.parametrize("shape,kw,env", [
+    ((4, 1), dict(k=101, canonical=True), None),
+    ((2, 2), dict(k=101, canonical=True), None),
+    ((1, 4), dict(k=101, canonical=True), None),
+    ((2, 2), dict(k=101, canonical=True), "legacy"),
+    ((2, 1), dict(gapped=True, l_len=40, r_len=40, c_min=80, c_max=100),
+     None)])
+def test_mesh_wide_cuda_equals_single_device(cuda, tmp_path, monkeypatch,
+                                             shape, kw, env):
+    """count_fasta_multihost at k = 101 (multi-hop halos on the seq
+    meshes) and gapped 40/40 over positions on cuda:0: the single-device
+    table, K7 and K6 launched."""
+    from kmer_tpu_torch.parallel.mesh import make_mesh
+    from kmer_tpu_torch.parallel.multihost import count_fasta_multihost
+    if env:
+        monkeypatch.setenv("KMER_TPU_MULTIHOST_STEP", env)
+    path = _wide_corpus(tmp_path)
+    cfg = kmer_tpu_torch.KmerConfig(batch_reads=64, max_read_len=160, **kw)
+    want = kmer_tpu_torch.count_fasta(path, cfg, device="cpu")
+    ek.launches = ek.gapped_launches = sk.launches = 0
+    got = count_fasta_multihost(path, cfg, mesh=make_mesh(
+        *shape, devices=[cuda] * (shape[0] * shape[1])))
+    torch.cuda.synchronize()
+    assert got == want and want.num_distinct > 0
+    assert ek.launches + ek.gapped_launches > 0 and sk.launches > 0

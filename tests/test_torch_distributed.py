@@ -34,7 +34,7 @@ from kmer_tpu.parallel import mesh as jmesh
 from kmer_tpu.pipeline.table import KmerTable as JaxTable
 from kmer_tpu_torch.io.fasta import pack_batch_codes
 from kmer_tpu_torch.ops.encode import (key_planes, key_words_from_codes,
-                                       u32_to_pairs)
+                                       u32_to_pairs, word_bases)
 from kmer_tpu_torch.ops.extract import window_keys
 from kmer_tpu_torch.parallel import distributed as td
 from kmer_tpu_torch.parallel import halo
@@ -96,7 +96,7 @@ def _jax_out(maker: str, seed: int, amb: bool, **kw):
     return table, parts
 
 
-def _port_out(fn, shape, seed: int, amb: bool, n_bases: int, r_len=None):
+def _port_out(fn, shape, seed: int, amb: bool, n_bases: int, bases=None):
     """The port's step on an in-process CPU mesh: (table, owner tables,
     the routed output)."""
     codes, lengths, limits = _batch(seed, amb)
@@ -107,7 +107,7 @@ def _port_out(fn, shape, seed: int, amb: bool, n_bases: int, r_len=None):
         batch = split_batch(mesh, pack_batch_codes(codes).view(np.int32),
                             lengths, limits, packed_width=L)
     routed = fn(mesh)(batch)
-    parts = [KmerTable.from_routed_pairs(n_bases, w, c, r_len)
+    parts = [KmerTable.from_routed_pairs(n_bases, w, c, bases)
              for w, c in routed]
     table = KmerTable.from_pairs(
         n_bases, np.concatenate([p.keys for p in parts]),
@@ -179,7 +179,7 @@ def test_gapped_steps_equal_kmer_tpu(shape, legacy):
     name = "make_distributed_gapped" + ("" if legacy else "_pairs")
     n = GAP["l_len"] + GAP["r_len"]
     port = _port_out(lambda m: getattr(td, name)(m, **GAP), shape, 3,
-                     False, n, GAP["r_len"])
+                     False, n, (GAP["l_len"], GAP["r_len"]))
     _same(port, _jax_out(name, 3, False, **GAP))
 
 
@@ -236,15 +236,14 @@ def test_route_dest_equals_kmer_tpu_and_route_fused(n_bases, n_dev):
     want = np.asarray(jd._route_dest(
         jnp.asarray(words[:, 0]), jnp.asarray(words[:, 1]) if W > 1 else None,
         n_bases, n_dev))
+    bases = word_bases(n_bases)
     if n_bases <= 31:
         planes = (torch.from_numpy(fuse_words(words, n_bases)
                                    .view(np.int64)),)
-        r_len = 0
     else:
-        r_len = n_bases - 31
         planes = tuple(torch.from_numpy(p)
-                       for p in u32_to_pairs(words, 31, r_len))
-    got = td.route_dest(planes, n_bases, n_dev, r_len).numpy()
+                       for p in u32_to_pairs(words, 31, n_bases - 31))
+    got = td.route_dest(planes, bases, n_dev).numpy()
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(
         streaming.route_fused(fuse_words(words, n_bases), n_bases, n_dev),
@@ -263,8 +262,8 @@ def test_route_dest_gapped_keys(l_len, r_len):
         want = np.asarray(jd._route_dest(
             jnp.asarray(words[:, 0]),
             jnp.asarray(words[:, 1]) if W > 1 else None, n, n_dev))
-        got = td.route_dest((torch.from_numpy(hi), torch.from_numpy(lo)), n,
-                            n_dev, r_len)
+        got = td.route_dest((torch.from_numpy(hi), torch.from_numpy(lo)),
+                            (l_len, r_len), n_dev)
         np.testing.assert_array_equal(got.numpy(), want)
 
 

@@ -12,8 +12,10 @@ against kmer_tpu, on the CPU, exactly (integer keys: tolerance zero).
   test_very_wide_keys_k101's configuration (also against the string
   oracle); k = 112 with compact raises as in kmer_tpu;
 - the table layer past two fused columns (np.lexsort), `count -k 101`
-  bytes, and `dump` / `query` on a saved k = 101 table;
-- the paths ROADMAP item 19 defers raise NotImplementedError naming it.
+  bytes, and `dump` / `query` on a saved k = 101 table.
+
+Streaming, `card` and the mesh at these widths are held against
+kmer_tpu in test_torch_wide_paths.py.
 
 kmer_tpu is imported only as the reference; inputs are made from seeds
 with numpy.
@@ -243,27 +245,3 @@ def test_dump_and_query_k101(corpus, tmp_path, capsys):
         want = capsys.readouterr().out
         assert main(args) == 0
         assert capsys.readouterr().out == want and want
-
-
-def test_item_19_paths_raise(corpus, tmp_path):
-    """Streaming, `card`, the mesh and a seed mask selecting over 63
-    bases raise NotImplementedError naming ROADMAP item 19."""
-    from kmer_tpu_torch.parallel.mesh import make_mesh
-    from kmer_tpu_torch.parallel.multihost import count_fasta_multihost
-    from kmer_tpu_torch.pipeline.sketch import estimate_distinct_multi_k
-    from kmer_tpu_torch.pipeline.streaming import StreamingCounter
-    cfg = KmerConfig(k=101, canonical=True, **SMALL)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        StreamingCounter(corpus, cfg, str(tmp_path / "spill"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 19"):
-        estimate_distinct_multi_k([corpus], [101], cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 19"):
-        count_fasta_multihost(corpus, cfg, mesh=make_mesh(
-            2, 1, devices=["cpu"] * 2))
-    with pytest.raises(NotImplementedError, match="item 19"):
-        KmerConfig(seed_mask="1" * 64)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        StreamingCounter(corpus, KmerConfig(gapped=True, l_len=40,
-                                            r_len=40),
-                         str(tmp_path / "spill2"), device="cpu")
-    assert main(["card", corpus, "-k", "101", "--device", "cpu"]) == 1
