@@ -71,8 +71,9 @@ few) to stdout:
  12. `card -k 21 --canonical` on phase 4's corpus: the class histogram
      equals the plain version's on the first 50,000 reads, and the
      estimate falls within 15% of phase 4's exact distinct count;
- 13. kernel K6 (kmer_tpu_torch/csrc/sort.cu, the stable radix sort)
-     against its plain version, bit for bit, payload order included: the
+ 13. kernel K6 (kmer_tpu_torch/csrc/sort.cu, the hybrid MSD radix
+     sort) against its plain version, bit for bit, payload order
+     included: the
      k = 21 device merge as merge_batch calls it (a 2**24-row state plus
      2**23 lanes of K1 output: one 42-bit key word, counts as payload),
      the same rows with the counts keyed at 32 bits and with every word
@@ -80,10 +81,16 @@ few) to stdout:
      and 48 bits, counts), k = 63 lo words (64 bits: negatives, a real
      INT64_MAX), the span-55 mask's sort_group_keys=0 lanes, the parity
      shape (K3's live (hi, lo, counts) at B=256, L=416) with and without
-     bits, and edge cases (N = 1, N around the 4096-row tile, an odd
+     bits, edge cases (N = 1, N around the 4096-row tile, an odd
      pass count, a non-power-of-two N, all sentinels, all equal rows,
-     W = 4); each caller's shape timed beside the plain version and
-     torch.sort of one word at the same N;
+     W = 4) and the MSD levels' hard cases (a key repeated over 3 M of
+     5 M rows, every row in one top-level bucket, presorted and
+     reversed input, the device merge with half the rows sentinel,
+     6 planes of 5 keys, 240 planes, near-duplicate pairs for the local
+     sort's run fix-up and 6000 ties for its fallback); each caller's
+     shape timed beside
+     the plain version and torch.sort of one word at the same N, with
+     K6's plan and launch geometry (levels, local rows, grids);
  14. phase 4's run with device_merge="on" (the table on the card, merged
      by K6): its table equals phase 4's, K6 launches once a merge, the
      stage breakdown and wall beside phase 4's host-merge wall; then the
@@ -1012,6 +1019,20 @@ def phase_sort_kernel(dev, seed: int) -> dict:
     def payload(n):
         return torch.randperm(n, generator=gen, device=dev)
 
+    def near_duplicates(n):
+        hi, lo = rand(n, 1 << 62), rand(n, 1 << 48)
+        twin = torch.rand(n, generator=gen, device=dev) < 0.2
+        hi[1:] = torch.where(twin[1:], hi[:-1], hi[1:])
+        dup = torch.rand(n, generator=gen, device=dev) < 0.05
+        hi, lo = torch.where(dup, hi[0], hi), torch.where(dup, lo[0], lo)
+        return with_sentinels([hi, lo], 0.1) + [payload(n)], 2, (62, 48)
+
+    def fix_fallback(n):
+        hi, lo, count = rand(n, 1 << 54), rand(n, 1 << 54), rand(n, 1000) + 1
+        hot = payload(n)[:6000]
+        hi[hot], lo[hot] = 12345, 678
+        return [hi, lo, count], 3, (54, 54, 31)
+
     # (words, num_keys, bits): None is every word at 64 bits
     cases = {
         "k21_merge": (k21, 1, (2 * K,)),                  # merge_batch
@@ -1040,6 +1061,41 @@ def phase_sort_kernel(dev, seed: int) -> dict:
         "w4_keys2": (with_sentinels([rand(300_001, 4), rand(300_001, 4)])
                      + [payload(300_001), payload(300_001)], 2, (3, 64)),
     }
+    # the MSD levels' hard cases: a bucket that stays large, one bucket
+    # for every row, order already there or reversed, the sentinel
+    # padding of a device-merge state, lineages down to the fifth key
+    # word, the most planes
+    n = 3_000_000
+    repeated = rand(5_000_000, 1 << 42)
+    repeated[:3_000_000] = 123_456_789
+    repeated = repeated[payload(5_000_000)]
+    ordered = torch.sort(rand(n, 1 << 42)).values
+    state = torch.unique(rand(1 << 23, 1 << 42))
+    half = torch.cat([state, torch.full(((1 << 24) - state.numel(),), sent,
+                                        device=dev),
+                      with_sentinels([rand(1 << 23, 1 << 42)], 0.5)[0]])
+    b130 = (62, 62, 62, 62, 12)
+    cases.update({
+        "msd_key_repeated": ([repeated, payload(5_000_000)], 1, (42,)),
+        "msd_one_top_bucket": ([rand(n, 1 << 20), payload(n)], 1, (42,)),
+        "msd_presorted": ([ordered, payload(n)], 1, (42,)),
+        "msd_reversed": ([ordered.flip(0).contiguous(), payload(n)], 1,
+                         (42,)),
+        "msd_devmerge_half_sentinel": ([half, payload(half.numel())], 1,
+                                       (42,)),
+        "msd_planes6_keys5": (with_sentinels(
+            [rand(n, 8 if q < 3 else 1 << b) for q, b in enumerate(b130)])
+            + [payload(n)], 5, b130),
+        "msd_planes240": ([rand(50_000, 5), rand(50_000, 3),
+                           rand(50_000, 1 << 16)]
+                          + [payload(50_000) for _ in range(237)], 3,
+                          (3, 2, 16)),
+        # ties on the first key word: the local sort's run fix-up
+        # (near-duplicate k = 55 pairs) and its fallback (6000 rows of one
+        # (hi, lo) with varying counts, as parity rows)
+        "msd_near_duplicates": near_duplicates(n),
+        "msd_fix_fallback": fix_fallback(1_000_000),
+    })
     max_err = 0
     for name, (words, num_keys, bits) in cases.items():
         before = sk.launches
@@ -1086,6 +1142,8 @@ def phase_sort_kernel(dev, seed: int) -> dict:
         # comparisons of num_keys words each
         b = bound(2 * n * W * 8,
                   n * math.ceil(math.log2(n)) * (num_keys or W))
+        _say(f"sort_launch case={name} "
+             + json.dumps(sk.launch_info(n, W, num_keys, bits)))
         _say(f"sort_time case={name} W={W} N={n} "
              f"num_keys={num_keys or W} bits={bits} kernel_ms={ms} "
              f"plain_ms={plain_ms} speedup={plain_ms / ms} "
@@ -3341,9 +3399,10 @@ def any_width_sort(dev, rng) -> dict:
     # one read and one write of N rows of W words; N log2 N row
     # comparisons of the key words
     b = bound(2 * n * W * 8, n * math.ceil(math.log2(n)) * len(bits))
+    info = sk.launch_info(n, W, len(bits), bits)
+    _say("sort_launch case=k101_merge " + json.dumps(info))
     _say(f"any_width_time kernel=sort_words case=k101_merge W={W} N={n} "
-         f"num_keys={len(bits)} bits={bits} passes="
-         f"{sum(-(-(x + 1) // 8) if x < 64 else 8 for x in bits)} "
+         f"num_keys={len(bits)} bits={bits} levels={info['levels']} "
          f"kernel_ms={ms} plain_ms={plain_ms} speedup={plain_ms / ms} "
          f"library_ms={library_ms} (torch.sort, one word) "
          f"bound_ms={b['bound_ms']} bound_by={b['bound_by']} "

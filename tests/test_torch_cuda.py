@@ -560,6 +560,90 @@ def test_sort_kernel_all_sentinel_keys(cuda, bits):
     assert torch.equal(got[1], payload)            # stable: order kept
 
 
+def _msd_case(cuda, case):
+    """(planes, num_keys, bits) of the distributions K6's MSD levels must
+    survive, a permutation as payload so that order within equal keys
+    shows (chip_smoke.py phase 13 runs the same)."""
+    g = torch.Generator(device=cuda).manual_seed(len(case))
+    n = 3_000_000
+
+    def rand(hi, rows=n):
+        return torch.randint(0, hi, (rows,), generator=g, device=cuda)
+
+    def perm(rows=n):
+        return torch.randperm(rows, generator=g, device=cuda)
+    if case == "one_key_repeated":
+        key = rand(1 << 42)
+        key[torch.rand(n, generator=g, device=cuda) < 0.4] = 123_456_789
+        return [key, perm()], 1, (42,)
+    if case == "one_top_bucket":
+        return [rand(1 << 20), perm()], 1, (42,)
+    if case in ("presorted", "reversed"):
+        key = torch.sort(rand(1 << 42)).values
+        return [key if case == "presorted" else key.flip(0).contiguous(),
+                perm()], 1, (42,)
+    if case == "devmerge_half_sentinel":
+        state = torch.unique(rand(1 << 42, n // 4))
+        batch = rand(1 << 42, n - n // 2)
+        batch[torch.rand(batch.numel(), generator=g, device=cuda)
+              < 0.2] = sk.SENTINEL
+        key = torch.cat([state, torch.full((n // 2 - state.numel(),),
+                                           sk.SENTINEL, device=cuda), batch])
+        return [key, rand(50)], 1, (42,)
+    if case == "planes6_keys5":
+        bits = (62, 62, 62, 62, 12)
+        keys = [rand(8 if q < 3 else 1 << b) for q, b in enumerate(bits)]
+        dead = torch.rand(n, generator=g, device=cuda) < 0.2
+        return [torch.where(dead, sk.SENTINEL, k) for k in keys] + [perm()], \
+            5, bits
+    if case == "near_duplicates":
+        hi, lo = rand(1 << 62), rand(1 << 48)
+        twin = torch.rand(n, generator=g, device=cuda) < 0.2
+        hi[1:] = torch.where(twin[1:], hi[:-1], hi[1:])
+        dup = torch.rand(n, generator=g, device=cuda) < 0.05
+        hi, lo = torch.where(dup, hi[0], hi), torch.where(dup, lo[0], lo)
+        return [hi, lo, perm()], 2, (62, 48)
+    if case == "fix_fallback":
+        hi, lo, count = rand(1 << 54), rand(1 << 54), rand(1000) + 1
+        hot = perm()[:6000]
+        hi[hot], lo[hot] = 12345, 678
+        return [hi, lo, count], 3, (54, 54, 31)
+    assert case == "planes240"
+    rows = 50_000
+    return ([rand(5, rows), rand(3, rows), rand(1 << 16, rows)]
+            + [perm(rows) for _ in range(237)], 3, (3, 2, 16))
+
+
+@pytest.mark.parametrize("case", ["one_key_repeated", "one_top_bucket",
+                                  "presorted", "reversed",
+                                  "devmerge_half_sentinel", "planes6_keys5",
+                                  "planes240", "near_duplicates",
+                                  "fix_fallback"])
+def test_sort_kernel_msd_adversarial(cuda, case):
+    """K6's MSD levels on a key repeated over 1.2 M of 3 M rows, every row
+    in one top-level bucket, presorted and reversed input, the device
+    merge with half the rows sentinel, 6 planes of 5 keys and 240 planes;
+    its local sort's run fix-up on near-duplicate k = 55 pairs and its
+    fallback on 6000 rows of one (hi, lo) with varying counts: bit for
+    bit with the plain version, payload order included."""
+    words, num_keys, bits = _msd_case(cuda, case)
+    assert _sort_both(words, num_keys=num_keys, bits=bits) == 1
+
+
+def test_sort_kernel_launch_info(cuda):
+    """launch_info: the plan's levels and launches, grids within the
+    capacities, and the resident blocks the grids are sized for (three
+    scatter blocks an SM, two local ones)."""
+    info = sk.launch_info(25_165_824, 2, 1, (42,))
+    assert info["body"] == "msd"
+    assert (info["levels"], info["launches"]) == (6, 24)
+    assert 1 <= info["scatter_grid"] <= info["run_grid"] <= info["cap_runs"]
+    assert 1 <= info["local_grid"] <= info["cap_tiles"]
+    assert info["scatter_blocks_per_sm"] >= 3
+    assert info["local_blocks_per_sm"] >= 2
+    assert sk.launch_info(1000, 5, 4, (62, 62, 62, 16))["param_planes"] == 16
+
+
 def test_devmerge_count_cuda_equals_cpu(cuda, tmp_path):
     path = tmp_path / "g.fasta"
     path.write_text(genome_reads_fasta(300, 150, genome_len=3000, seed=3,

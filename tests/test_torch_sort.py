@@ -224,3 +224,92 @@ def test_parity_step_sorts_live_rows():
     np.testing.assert_array_equal(hi.numpy(), h[order])
     np.testing.assert_array_equal(lo.numpy(), l_[order])
     np.testing.assert_array_equal(counts.numpy(), c[order])
+
+
+def _signed_u32(planes):
+    """int64 planes as kmer_tpu's uint32 words, most significant first:
+    each word's high half with its sign bit flipped, then its low half,
+    so that unsigned word order is signed int64 order."""
+    cols = []
+    for p in planes:
+        u = p.view(np.uint64)
+        cols += [((u >> np.uint64(32)) ^ np.uint64(1 << 31)).astype(np.uint32),
+                 (u & np.uint64(0xFFFFFFFF)).astype(np.uint32)]
+    return cols
+
+
+def _adversarial(rng, case, n):
+    """(planes, num_keys, bits) of the distributions K6's MSD levels must
+    survive (tests/test_torch_cuda.py and chip_smoke.py phase 13 run them
+    on the card); the payload is a permutation, so order within equal
+    keys shows."""
+    def perm():
+        return rng.permutation(n).astype(np.int64)
+    if case == "one_key_repeated":
+        key = rng.integers(0, 1 << 42, n)
+        key[rng.random(n) < 0.4] = 123_456_789
+        return [key, perm()], 1, (42,)
+    if case == "one_top_bucket":
+        return [rng.integers(0, 1 << 20, n), perm()], 1, (42,)
+    if case in ("presorted", "reversed"):
+        key = np.sort(rng.integers(0, 1 << 42, n))
+        return [key if case == "presorted" else key[::-1].copy(),
+                perm()], 1, (42,)
+    if case == "devmerge_half_sentinel":
+        half = n // 2
+        state = np.unique(rng.integers(0, 1 << 42, half // 2))
+        batch = rng.integers(0, 1 << 42, n - half)
+        batch[rng.random(n - half) < 0.2] = SENTINEL_KEY
+        key = np.concatenate([state, np.full(half - state.size,
+                                             SENTINEL_KEY), batch])
+        return [key, rng.integers(0, 50, n)], 1, (42,)
+    if case == "planes6_keys5":
+        bits = (62, 62, 62, 62, 12)
+        keys = [rng.integers(0, 8 if q < 3 else 1 << b, n)
+                for q, b in enumerate(bits)]
+        dead = rng.random(n) < 0.2
+        for k in keys:
+            k[dead] = SENTINEL_KEY
+        return keys + [perm()], 5, bits
+    if case == "near_duplicates":
+        hi, lo = rng.integers(0, 1 << 62, n), rng.integers(0, 1 << 48, n)
+        twin = rng.random(n) < 0.2
+        hi[1:][twin[1:]] = hi[:-1][twin[1:]]
+        dup = rng.random(n) < 0.05
+        hi[dup], lo[dup] = hi[0], lo[0]
+        return [hi, lo, perm()], 2, (62, 48)
+    if case == "fix_fallback":
+        hi, lo = rng.integers(0, 1 << 54, n), rng.integers(0, 1 << 54, n)
+        count = rng.integers(1, 1001, n)
+        hot = rng.permutation(n)[:n // 3]
+        hi[hot], lo[hot] = 12345, 678
+        return [hi, lo, count], 3, (54, 54, 31)
+    assert case == "planes240"
+    return ([rng.integers(0, 5, n), rng.integers(0, 3, n),
+             rng.integers(0, 1 << 16, n)] + [perm() for _ in range(237)],
+            3, (3, 2, 16))
+
+
+@pytest.mark.parametrize("case", ["one_key_repeated", "one_top_bucket",
+                                  "presorted", "reversed",
+                                  "devmerge_half_sentinel", "planes6_keys5",
+                                  "planes240", "near_duplicates",
+                                  "fix_fallback"])
+def test_plain_sort_adversarial_equals_kmer_tpu(case):
+    """The plain version on K6's adversarial distributions against
+    kmer_tpu's sort_words on its XLA backend (KMER_TPU_SORT=xla): the key
+    words as uint32 words and the row index last, so that the index column
+    is the stable order; every plane, payload included, must be the input
+    gathered by it."""
+    from kmer_tpu.ops.count import sort_words as tpu_sort_words
+    rng = np.random.default_rng(len(case))
+    n = 3001
+    planes, num_keys, bits = _adversarial(rng, case, n)
+    cols = _signed_u32(planes[:num_keys]) + [np.arange(n, dtype=np.uint32)]
+    order = np.asarray(tpu_sort_words([jnp.asarray(c) for c in cols],
+                                      backend="xla")[-1]).astype(np.int64)
+    got = sort_words([torch.from_numpy(p) for p in planes],
+                     num_keys=num_keys, bits=bits)
+    assert len(got) == len(planes)
+    for g, p in zip(got, planes):
+        np.testing.assert_array_equal(g.numpy(), p[order])
