@@ -222,10 +222,14 @@ few) to stdout:
      (a) K7's multi-word entry at k = 64, 101 and 125 and its gapped
      entry at (27, 27) and (40, 40), c in [80, 140], canonical or not,
      on packed rows and on u8 rows with ambiguous codes and short rows,
-     B = 8192, L = 160; K6 at the k = 101 device merge's 5 planes; K2a,
-     K2b and K2c at W = 4 and 5; K4 on 3- and 4-word records: each bit
-     for bit against its plain version, timed with CUDA events, with its
-     launch geometry;
+     B = 8192, L = 160, and the multi-word entry at its edges (tiles
+     ending inside rows, B P no multiple of 32, one window a row, P
+     below a block, rows shorter than k, W = 3, 4, 5 and 7, rows too
+     wide to stage, which take its row body); K6 at the k = 101 device
+     merge's 5 planes; K2a, K2b and K2c at W = 4 and 5; K4 on 3- and
+     4-word records: each bit for bit against its plain version, timed
+     with CUDA events, with its launch geometry (the multi-word entry
+     also at `card`'s batch of 2048 reads);
      (b) k = 101 canonical on phase 4's corpus (50 M k-mers) by the
      default route (K7, the grouped dedup, the host merge) and the
      device merge (K6 on 5 planes): the tables equal, the total
@@ -247,7 +251,9 @@ few) to stdout:
      (a) K5's plane mode on K7's keys of one `card` batch (2048 reads)
      at k = 64, 101 and 130 (W = 3, 4, 5), bit for bit against its plain
      version, timed, with its grid and registers; sentinel lanes only
-     and an empty stream; the class histogram of the 50,000-read file at
+     and an empty stream; random keys and weights at lane counts no
+     multiple of 32, W = 3 to 6 and 9; the class histogram of the
+     50,000-read file at
      k = 101 equal to the plain version's; `card -k 101` on phase 4's
      corpus (489 batches of K7 -> K5) within 15% of phase 27's exact
      distinct count; `card -k 21 -k 101` through cli.main;
@@ -269,7 +275,8 @@ few) to stdout:
      where one PyTorch call computes the same function, that call's
      time; K1 and K7 with a row for each of their two-word and spaced
      variants, a row for each variant phase 27 widened and K5's plane
-     mode), then the result line {"ok": true, "device": {...}} last.
+     mode; K7's multi-word row with `card`'s batch under `cases`), then
+     the result line {"ok": true, "device": {...}} last.
 
 --only 26 runs phase 1, then phase 26 and the phases whose tables and
 walls it reads (4, 14, 6, 11), in about a quarter of the whole run, and
@@ -3219,11 +3226,69 @@ def _check_planes(label: str, got, want, launched: int) -> int:
     return err
 
 
+# K7's multi-word edges (phase 27a): (B, L, k, canonical, packed,
+# ambiguous, lengths) with lengths "full" (rows of L bases), "short"
+# (random lengths and limits) or "below_k" (every row shorter than k):
+# tiles ending inside rows and B P no multiple of 32, one window a row,
+# P below a block, rows shorter than k, W = 3, 4, 5 and 7 (k = 200), and
+# rows too wide to stage (k = 1000: the row body)
+MULTI_EDGES = [(301, 161, ANY_K, True, True, False, "full"),
+               (257, ANY_K, ANY_K, True, False, True, "full"),
+               (333, 102, 100, False, True, False, "short"),
+               (300, MAIN_L, ANY_K, True, True, False, "below_k"),
+               (129, MAIN_L, 64, True, False, True, "short"),
+               (77, MAIN_L, 130, True, True, False, "full"),
+               (517, 256, 200, True, False, True, "short"),
+               (300, 1000, 1000, True, True, False, "full")]
+
+
+def multi_word_edges(dev, rng) -> int:
+    """Phase 27a, K7's multi-word entry at MULTI_EDGES, bit for bit
+    against its plain version, one launch each, with the body its plan
+    takes; returns the largest error."""
+    from kmer_tpu_torch.ops.encode import SENTINEL_KEY, words64
+    from kmer_tpu_torch.ops.kernels import extract as ek
+    err_all = 0
+    for B, L, k, canon, packed, amb, lens in MULTI_EDGES:
+        host = gapped_batch(rng, B, L, packed=packed, amb=amb,
+                            short=lens == "short", full_len=L)
+        if lens == "below_k":
+            host[1] = torch.from_numpy(
+                rng.integers(0, k, B).astype(np.int32))
+        on_dev = [t.to(dev) for t in host]
+        kw = dict(canonical=canon, mask_ambiguous=amb,
+                  packed_width=L if packed else 0)
+        before = ek.multi_launches
+        got = ek.extract_keys(*on_dev, k, **kw)
+        want = ek.extract_keys_ref(*on_dev, k, **kw)
+        torch.cuda.synchronize()
+        err = _check_planes(f"K7 edge B={B} L={L} k={k}", got, want,
+                            ek.multi_launches - before)
+        live = int((want[0] != SENTINEL_KEY).sum())
+        body = ek.launch_info(B, L, k, **{key: v for key, v in kw.items()
+                                          if key != "packed_width"},
+                              packed=packed)
+        _say(f"any_width_check kernel=extract_keys edge=True B={B} L={L} "
+             f"n_bases={k} W={words64(k)} lanes={B * (L - k + 1)} "
+             f"canonical={canon} packed={packed} ambiguous={amb} "
+             f"lengths={lens} live_lanes={live} body={body['body']} "
+             f"iters={body['iters']} blocks={body['blocks']} "
+             f"max_abs_err={err}")
+        if (live == 0) != (lens == "below_k") or (body["body"] == "row") != (
+                k == 1000):
+            raise AssertionError(f"K7 edge B={B} L={L} k={k}: live lanes "
+                                 f"{live} or body {body['body']} unexpected")
+        err_all = max(err_all, err)
+    return err_all
+
+
 def any_width_extract(dev, rng) -> list[dict]:
     """Phase 27a, K7: the multi-word entry at k = 64, 101 and 125 and the
     gapped entry at (27, 27) and (40, 40), c in [80, 140], canonical or
     not, on packed rows and on u8 rows with ambiguous codes and short
-    rows, B = 8192, L = 160, bit for bit; each timed with its launch."""
+    rows, B = 8192, L = 160, and at MULTI_EDGES, bit for bit; each timed
+    with its launch, the multi-word entry also at `card`'s batch of 2048
+    reads."""
     from kmer_tpu_torch.ops.encode import SENTINEL_KEY, gapped_bases, words64
     from kmer_tpu_torch.ops.extract import gapped_lane_count
     from kmer_tpu_torch.ops.kernels import extract as ek
@@ -3251,6 +3316,7 @@ def any_width_extract(dev, rng) -> list[dict]:
                 if live == 0:
                     raise AssertionError(f"K7 k={k}: no live lane")
                 err_multi = max(err_multi, err)
+    err_multi = max(err_multi, multi_word_edges(dev, rng))
     for lr in ((27, 27), (40, 40)):
         win = dict(l_len=lr[0], r_len=lr[1], c_min=GAP["c_min"],
                    c_max=GAP["c_max"])
@@ -3282,28 +3348,36 @@ def any_width_extract(dev, rng) -> list[dict]:
                                             packed=True, amb=False,
                                             short=False)]
     in_bytes = main[0].numel() * 4 + MAIN_B * 8
-    for k in ANY_KS:
+    card = [t.to(dev) for t in kernel_batch(rng, CARD_B, MAIN_L, ANY_K,
+                                            packed=True, amb=False,
+                                            short=False)]
+    for B, k, rows in [(MAIN_B, k, main) for k in ANY_KS] + [
+            (CARD_B, ANY_K, card)]:
         W = words64(k)
-        lanes = MAIN_B * (MAIN_L - k + 1)
+        lanes = B * (MAIN_L - k + 1)
         kw = dict(canonical=True, packed_width=MAIN_L)
         ms, plain_ms = time_pair(
-            functools.partial(ek.extract_keys, *main, k, **kw),
-            functools.partial(ek.extract_keys_ref, *main, k, **kw))
+            functools.partial(ek.extract_keys, *rows, k, **kw),
+            functools.partial(ek.extract_keys_ref, *rows, k, **kw))
         # W int64 words out a lane; each word a forward and a reverse cut
         # (three words and four funnel shifts each), the compare and the
         # store: ~24 operations a word
-        b = bound(in_bytes + lanes * W * 8, lanes * W * 24)
-        launch_line(f"extract_keys[multi_word k={k}]", ek, MAIN_B, MAIN_L, k,
+        b = bound(rows[0].numel() * 4 + B * 8 + lanes * W * 8,
+                  lanes * W * 24)
+        launch_line(f"extract_keys[multi_word k={k}]", ek, B, MAIN_L, k,
                     canonical=True)
         _say(f"any_width_time kernel=extract_keys variant=multi_word "
-             f"B={MAIN_B} L={MAIN_L} n_bases={k} W={W} canonical=True "
+             f"B={B} L={MAIN_L} n_bases={k} W={W} canonical=True "
              f"packed=True kernel_ms={ms} plain_ms={plain_ms} "
              f"speedup={plain_ms / ms} "
              f"out_GB_per_s={lanes * W * 8 / (ms * 1e-3) / 1e9} "
              f"bound_ms={b['bound_ms']} bound_by={b['bound_by']} "
              f"library_ms=None (no single PyTorch call extracts k-mers) "
              f"(tolerance: exact, max_abs_err must be 0)")
-        if k == ANY_K:
+        if B == CARD_B:            # `card`'s batch: phase 28a's launches
+            recs[0]["cases"] = {f"card_batch_k{k}": dict(
+                ms=ms, plain_ms=plain_ms, lanes=lanes, **b)}
+        elif k == ANY_K:
             recs.append({"name": "extract_keys[multi_word]", "route": "cuda",
                          "source": ek.SOURCE, "replaces": ek.REPLACES,
                          "max_abs_err": err_multi, "ms": ms,
@@ -3739,6 +3813,11 @@ def phase_any_width(dev, path: str, small: str, gpath: str, gtable,
 
 CARD_B = 2048                 # `card`'s batch (phases 12 and 23)
 WIDE_HLL_KS = (64, ANY_K, 130)
+# K5's plane-mode edges (phase 28a): (lanes, k) -- lane counts no multiple
+# of 32, W = 3 to 6 (the body that holds a key's words in registers) and
+# W = 9 at k = 250 (the one that loads them in turn)
+HLL_EDGES = [(1, 130), (31, ANY_K), (70_001, 64), (70_001, ANY_K),
+             (70_001, 130), (33_333, 160), (33_333, 250)]
 # phase 28c's (4, 1) run counts the first 200,000 reads of phase 4's
 # corpus: its owners' pairs merge on the host, by np.lexsort past two
 # fused columns (~93 s on all 1M reads, phase 27b)
@@ -3750,9 +3829,10 @@ def wide_hll_kernel(dev, seed: int) -> dict:
     version, bit for bit, on K7's canonical keys of one `card` batch
     (2048 reads at L = 160) at k = 64, 101 and 130 (W = 3, 4, 5), each
     timed with its grid and registers; then a stream of sentinel lanes
-    only and an empty one.  Returns the k = 101 row (the `card` path's
-    shape) with the other widths under `cases`."""
-    from kmer_tpu_torch.ops.encode import SENTINEL_KEY, words64
+    only and an empty one, and random keys and weights at HLL_EDGES.
+    Returns the k = 101 row (the `card` path's shape) with the other
+    widths under `cases`."""
+    from kmer_tpu_torch.ops.encode import SENTINEL_KEY, word_bases, words64
     from kmer_tpu_torch.ops.kernels import extract as ek
     from kmer_tpu_torch.ops.kernels import histogram as hk
     rng = np.random.default_rng(seed + 28)
@@ -3787,7 +3867,7 @@ def wide_hll_kernel(dev, seed: int) -> dict:
         bd = bound(lanes + live * 8 * W + (8 << 15),
                    lanes + live * (9 * words + 6 + 2 * W))
         grid = hk.plan(lanes, 15, sms)
-        regs, spill = hk.attributes(3)
+        regs, spill = hk.attributes(3, W)
         case = dict(ms=ms, plain_ms=plain_ms, lanes=lanes, live=live,
                     planes=W, grid=f"{grid.clusters}x{grid.cluster}",
                     smem_bytes=grid.smem, regs=regs, spill_bytes=spill,
@@ -3823,6 +3903,30 @@ def wide_hll_kernel(dev, seed: int) -> dict:
                                  "launched wrongly")
     _say("histogram_planes_check sentinel_only=zeros empty=no_launch "
          f"ks={list(WIDE_HLL_KS)}")
+    for n, k in HLL_EDGES:
+        keys = [rng.integers(0, 1 << (2 * nb), n) if nb < 32 else
+                rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+                for nb in word_bases(k)]
+        w = rng.integers(-3, 4, n).astype(np.int8)
+        dead = rng.random(n) < 0.1
+        w[dead] = 0
+        for p in keys:
+            p[dead] = SENTINEL_KEY
+        planes = tuple(torch.from_numpy(p).to(dev) for p in keys)
+        w = torch.from_numpy(w).to(dev)
+        before = hk.launches
+        got = hk.hll_class_histogram(planes, w, k=k, b=10)
+        want = hk.hll_class_histogram_ref(planes, w, k=k, b=10)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        regs, spill = hk.attributes(3, len(planes))
+        _say(f"histogram_planes_check edge=True k={k} planes={len(planes)} "
+             f"lanes={n} max_abs_err={err} regs={regs} spill_bytes={spill} "
+             "(tolerance: exact)")
+        if err or hk.launches != before + 1 or int(got.sum()) != int(
+                w.sum()):
+            raise AssertionError(f"K5 plane mode != plain version at "
+                                 f"{n} lanes, k={k}")
     return rec
 
 
@@ -4078,6 +4182,12 @@ def phase_wide_paths(dev, path: str, small: str, any_width: dict, tmp: str,
     return rec
 
 
+def card_case(k7_multi: dict, k5w: dict) -> None:
+    """K7's multi-word `card` batch case takes its launches from phase
+    28a's `card -k 101` run, where K7 launched once a batch, as K5 did."""
+    k7_multi["cases"][f"card_batch_k{ANY_K}"]["launches"] = k5w["launches"]
+
+
 def wide_paths_only(dev, seed: int) -> int:
     """--only 28: phase 28 and the phases whose tables it reads (4, 6,
     27), as main runs them."""
@@ -4088,6 +4198,7 @@ def wide_paths_only(dev, seed: int) -> int:
         rows, info = phase_any_width(dev, path, small, gpath, gtable, seed)
         del gtable
         k5w = phase_wide_paths(dev, path, small, info, tmp, seed)
+    card_case(rows[0], k5w)
     _say(json.dumps({"kernels": [*rows, k5w]}))
     _say("chip_smoke --only 28: done")
     return 0
@@ -4270,6 +4381,7 @@ def main(argv=None) -> int:
     # K5's launches: the dense k=8 run's, then each `card` run's (k = 21,
     # 55 and the mask)
     k5["card_launches"] = card_launches
+    card_case(any_width[0], k5w)
     k1w, k7w, k1s, k7s = wide
     k1w["launches"], k7w["launches"] = (k55["sort"]["k1_wide"],
                                         k55["legacy"]["k7_wide"])

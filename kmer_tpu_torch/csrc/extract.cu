@@ -7,17 +7,17 @@
 // (pallas_call at :88, entry extract_repacked :65).
 //
 // What bounds it: memory, and there the key stores.  Each output lane is
-// one 8-byte key store (16 for a (hi, lo) pair); the input is L/4 bytes of
-// packed codes a row (L bytes for u8 rows) and two int32 a row; the
-// arithmetic is a few integer operations a key.
+// one 8-byte key store (16 for a (hi, lo) pair, 8 W for W words); the
+// input is L/4 bytes of packed codes a row (L bytes for u8 rows) and two
+// int32 a row; the arithmetic is a few integer operations a key word.
 //
 // Design: the TPU kernel builds every window of a row block at once from k
 // shifted slices and splits the key into the (top, bot) uint32 words of its
 // sort layout, so it takes only 17 <= k <= 31 and no ambiguous codes
 // (kmer_tpu's unfused route extracts every other key outside a kernel).
-// Here a key is one int64 or an int64 (hi, lo) pair, so every k <= 63,
-// spaced seeds and the ambiguity mask come at no cost.  Three bodies
-// (kmer_window.cuh, shared with csrc/fused_extract.cu):
+// Here a key is one int64, an int64 (hi, lo) pair or W int64 words, so
+// every k, spaced seeds and the ambiguity mask come at no cost.  The bodies
+// (kmer_window.cuh holds what they share with csrc/fused_extract.cu):
 // - extract_cut_kernel, a contiguous key: a block takes a tile of
 //   consecutive outputs of the flat (B, P) row-major output, `iters` a
 //   thread, and thread i takes flat index f0 + i of each round, so a
@@ -35,20 +35,31 @@
 //   for ambiguity;
 // - extract_gather_kernel, a spaced seed of span over 64: one thread walks
 //   a chunk of 16 windows of one row and gathers each key's bases;
-// - extract_wide_kernel, a contiguous key of more than 63 bases in W int64
-//   words (ops/encode's general layout), and extract_gapped_kernel, the
-//   gapped L+R lanes of the unfused route: one thread a lane, each word cut
-//   straight from the row in device memory (GlobalRow: three words and a
-//   few funnel shifts a cut), with no staging and no cap on the row's
-//   width; the canonical wide key compares the two strands word by word
-//   first and writes the chosen one's words second, so no word is held.
-// The last two stage their keys in shared memory (one plane a key word)
-// and store the block's contiguous range of the output with neighbouring
-// threads on neighbouring addresses; thread t of the grid takes chunk t of
-// the flat output, row-major, and the staging index skips one slot every
-// chunk, so the 16 threads of a half-warp that write key j of their chunks
-// fall in different banks.  The rolled body takes blocks of 64 threads, so
-// that its staging stays 33.8 KB, under the 48 KB of static shared memory.
+// - extract_wide_tile_kernel, a contiguous key of more than 63 bases in W
+//   int64 words (ops/encode's general layout), on the cut body's plan: a
+//   block takes a tile of consecutive flat outputs, stages the rows they
+//   touch once (CutTile) with each row's last valid window, finds each
+//   thread's first (row, window) by one 32-bit division and the next ones
+//   by steps of CUT_THREADS outputs, cuts each 31-base word and its
+//   reverse complement out of shared memory, and stores plane by plane,
+//   neighbouring threads on neighbouring addresses; the canonical key
+//   compares the two strands word by word first and cuts the chosen
+//   one's words second, one cut a word chosen by selects, so no word is
+//   held.  Rows so wide that one output a thread would outgrow the
+//   block's shared memory take extract_wide_kernel, the same key with
+//   each word cut straight from the row in device memory (GlobalRow:
+//   three words and a few funnel shifts a cut), one thread a lane;
+// - extract_gapped_kernel, the gapped L+R lanes of the unfused route: one
+//   thread a lane, each window cut straight from the row in device memory,
+//   with no staging and no cap on the row's width.
+// The rolled and gathered bodies stage their keys in shared memory (one
+// plane a key word) and store the block's contiguous range of the output
+// with neighbouring threads on neighbouring addresses; thread t of the
+// grid takes chunk t of the flat output, row-major, and the staging index
+// skips one slot every chunk, so the 16 threads of a half-warp that write
+// key j of their chunks fall in different banks.  The rolled body takes
+// blocks of 64 threads, so that its staging stays 33.8 KB, under the 48 KB
+// of static shared memory.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -290,16 +301,142 @@ __device__ __forceinline__ int64_t stored(uint64_t v, int b) {
   return (int64_t)(b == 32 ? v ^ (1ull << 63) : v);
 }
 
+// the forward word j of a key of n bases (W words, the last of `rest`
+// bases) at q of a slot's packed words f: its bases' cut, shifted down
+__device__ __forceinline__ uint64_t fw_word(const uint32_t* f, int q, int n,
+                                            int W, int rest, int j) {
+  const int bj = j < W - 1 ? kmer::HI_BASES : rest;
+  return kmer::cut64(f, q + kmer::HI_BASES * j) >> (64 - 2 * bj);
+}
+
+// the reverse complement's word j: the top 62 bits of rc64 of the cut at
+// q + n - 31 j - 32, and for the last word the low 2 rest bits of rc64 of
+// the cut at q
+__device__ __forceinline__ uint64_t rc_word(const uint32_t* f, int q, int n,
+                                            int W, int rest, int j) {
+  if (j < W - 1)
+    return kmer::rc64(kmer::cut64(f, q + n - kmer::HI_BASES * j - 32)) >> 2;
+  const uint64_t x = kmer::rc64(kmer::cut64(f, q));
+  return rest == 32 ? x : x & ((1ull << 2 * rest) - 1);
+}
+
+// some base of the n from q of a slot's ambiguity words a is ambiguous
+__device__ __forceinline__ bool span_ambiguous(const uint32_t* a, int q,
+                                               int n) {
+  for (int t = 0; t < n; t += 32) {
+    const int m = n - t < 32 ? n - t : 32;
+    if (kmer::cut64(a, q + t) >> (64 - 2 * m)) return true;
+  }
+  return false;
+}
+
 // A contiguous key of n > 63 bases in W = words64(n) words (ops/encode's
 // general layout; `rest` the last word's bases), out: W planes of the flat
-// (B, P) lanes, plane stride B P.  One thread a lane, its bases cut
-// straight from the row.  Word j of the forward key is the cut of 31 bases
-// at o + 31 j (rest for the last); word j of the reverse complement is the
-// top 62 bits of rc64 of the cut at o + n - 31 j - 32, and its last word
-// the low 2 rest bits of rc64 of the cut at o.  The canonical key takes
-// two passes, so that no word is held: the first compares the two strands
-// word by word up to the first difference, the second writes the chosen
-// strand's words.
+// (B, P) lanes, plane stride B P, cut out of the block's tile.  A block
+// takes `iters` x CUT_THREADS consecutive outputs, as extract_cut_kernel
+// takes its tile, and stages the rows they touch once (CutTile: packed
+// words and, for u8 rows under the ambiguity mask, ambiguity words, each
+// slot from its first window), with each row's last valid window after
+// them.  Thread t takes outputs l0 + t, l0 + t + CUT_THREADS, ...: one
+// 32-bit division gives its first (slot, window), and each step adds the
+// host's (CUT_THREADS / P, CUT_THREADS % P) with one carry.  Word j of the
+// forward key is the cut of 31 bases at o + 31 j (rest for the last);
+// rc_word gives the reverse complement's.  The canonical key compares the
+// two strands word by word up to the first difference (one word but for a
+// 31-base tie), which gives the chosen strand's first word, then cuts the
+// chosen strand's other words, so no word is held: one cut a word at a
+// position and with a transform chosen by selects, not by branches (the
+// lanes of a warp take either strand).  The stores go plane by plane, a
+// warp's 32 lanes on 256 contiguous bytes of each plane.
+template <bool PACKED, bool CANON>
+__global__ void __launch_bounds__(CUT_THREADS)
+extract_wide_tile_kernel(const void* __restrict__ codes, int row_stride,
+                         const int32_t* __restrict__ lengths,
+                         const int32_t* __restrict__ limits,
+                         int64_t* __restrict__ out, int B, int L, int n,
+                         int W, int P, int mask_amb, int iters, int cap,
+                         int stride, int step_rows, int step_rest) {
+  extern __shared__ uint32_t wide_sm[];
+  const int rest = n - kmer::HI_BASES * (W - 1);
+  const int64_t total = (int64_t)B * P;
+  const int64_t f0 = (int64_t)blockIdx.x * CUT_THREADS * iters;
+  const int64_t f_end = f0 + (int64_t)CUT_THREADS * iters;
+  const int64_t f1 = f_end < total ? f_end : total;
+  // the tile's rows b0 .. and its outputs [l0, l1) counted from row b0's
+  // first; slot s serves row b0 + s over windows [first(s), l1 - s P)
+  const int b0 = (int)(f0 / P);
+  const int64_t base = (int64_t)b0 * P;
+  const int l0 = (int)(f0 - base), l1 = (int)(f1 - base);
+  const int slots = (l1 - 1) / P + 1;
+  auto first = [=](int s) { return max(l0 - s * P, 0); };
+  const bool amb = !PACKED && mask_amb != 0;
+  const kmer::CutTile tile = {wide_sm, cap, stride, n, (L + 15) / 16, amb};
+  // window o of slot s is valid iff o < o_hi[s] (o <= len - n, o < limit)
+  // and no base of it is ambiguous
+  int* o_hi = reinterpret_cast<int*>(wide_sm + slots * stride);
+  for (int s = threadIdx.x; s < slots; s += CUT_THREADS)
+    o_hi[s] = min(lengths[b0 + s] - n + 1, limits[b0 + s]);
+  tile.stage<PACKED>(codes, row_stride, L, b0, slots, first);
+
+  // the last word: its shift down from a forward cut, its mask in rc64 of
+  // the cut at o, the stored flip of a 32-base word
+  const int last_shift = 64 - 2 * rest;
+  const uint64_t last_mask = rest == 32 ? ~0ull : (1ull << 2 * rest) - 1;
+  const uint64_t last_flip = rest == 32 ? 1ull << 63 : 0;
+  int i = l0 + threadIdx.x;
+  int s = i / P, o = i - s * P;
+  for (; i < l1; i += CUT_THREADS) {
+    const uint32_t* f = wide_sm + s * stride;
+    const int q = o - 16 * (first(s) >> 4);
+    bool ok = o < o_hi[s];
+    if (amb && ok) ok = !span_ambiguous(f + cap, q, n);
+    int64_t* dst = out + base + i;
+    // the strand, and its word 0
+    uint64_t w0 = fw_word(f, q, n, W, rest, 0);
+    bool rc = false;
+    if constexpr (CANON) {
+      const uint64_t r0 = rc_word(f, q, n, W, rest, 0);
+      rc = r0 < w0;
+      for (int j = 1; j < W && r0 == w0; ++j) {
+        const uint64_t x = fw_word(f, q, n, W, rest, j),
+                       y = rc_word(f, q, n, W, rest, j);
+        if (x != y) {
+          rc = y < x;
+          break;
+        }
+      }
+      w0 = rc ? r0 : w0;
+    }
+    dst[0] = ok ? (int64_t)w0 : kmer::SENTINEL;
+    // words 1 .. W - 1: the forward cut at q + 31 j, or the reverse
+    // complement's at q + n - 31 j - 32 (q for the last word)
+    int at = rc ? q + n - kmer::HI_BASES - 32 : q + kmer::HI_BASES;
+    const int step = rc ? -kmer::HI_BASES : kmer::HI_BASES;
+    for (int j = 1; j < W; ++j, at += step) {
+      const bool last = j == W - 1;
+      const uint64_t x = kmer::cut64(f, rc && last ? q : at);
+      uint64_t v = x >> (last ? last_shift : 2);
+      if constexpr (CANON) {
+        const uint64_t r = kmer::rc64(x);
+        v = rc ? (last ? r & last_mask : r >> 2) : v;
+      }
+      if (last) v ^= last_flip;
+      dst[j * total] = ok ? (int64_t)v : kmer::SENTINEL;
+    }
+    o += step_rest;
+    s += step_rows;
+    if (o >= P) {
+      o -= P;
+      ++s;
+    }
+  }
+}
+
+// A contiguous key of n > 63 bases, as extract_wide_tile_kernel computes
+// it, for a batch whose tile would not fit the block's shared memory
+// (rows so wide that even CUT_THREADS outputs touch over CUT_SMEM bytes of
+// them): one thread a lane, its bases cut straight from the row in device
+// memory (GlobalRow), the canonical key in the same two walks.
 template <bool PACKED, bool CANON>
 __global__ void __launch_bounds__(CUT_THREADS)
 extract_wide_kernel(const void* __restrict__ codes, int row_stride,
@@ -346,6 +483,7 @@ extract_wide_kernel(const void* __restrict__ codes, int row_stride,
     }
   }
 }
+
 
 // The gapped L+R lanes of the unfused route: lane t of row b is chunk size
 // c and offset o of the c-major stream (ops/extract.gapped_lanes: O_c = L
@@ -574,12 +712,78 @@ unsigned flat_blocks(K kernel, int64_t total) {
   return (unsigned)(need < cap ? need : cap);
 }
 
+// The multi-word body's plan: the tile body with `iters` outputs a
+// thread (the fewest that keep the grid within one wave of the card's
+// `thread_slots`, at most MAX_ITERS) and its tile's (cap, stride) and
+// shared bytes (the staged words and o_hi), fewer iters where the tile's
+// rows would outgrow CUT_SMEM; the row body when even one output a thread
+// would.
+struct WidePlan {
+  bool tile;
+  int iters, cap, stride;
+  int64_t smem;
+};
+
+WidePlan wide_plan(int B, int n, int P, bool amb, int64_t thread_slots) {
+  const int64_t total = (int64_t)B * P;
+  const int64_t slots_all = std::max<int64_t>(1, thread_slots);
+  WidePlan pl = {};
+  pl.iters = (int)std::min<int64_t>(
+      MAX_ITERS, std::max<int64_t>(1, (total + slots_all - 1) / slots_all));
+  for (;; --pl.iters) {
+    // a tile's outputs touch at most `slots` rows, each over at most
+    // min(P, outputs) windows
+    const int t = CUT_THREADS * pl.iters;
+    const int64_t slots = std::min<int64_t>(B, (t + P - 2) / P + 1);
+    kmer::tile_shape(std::min(P, t), n, amb, pl.cap, pl.stride);
+    pl.smem = slots * (pl.stride + 1) * 4;
+    pl.tile = pl.smem <= CUT_SMEM;
+    if (pl.tile || pl.iters == 1) return pl;
+  }
+}
+
+// the card's thread slots for `kernel`: SMs x its resident blocks an SM
+// (its registers decide) x CUT_THREADS
+template <typename K>
+int64_t thread_slots(K kernel) {
+  int dev = 0, sms = 1, blocks = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, CUT_THREADS,
+                                                0);
+  return (int64_t)sms * std::max(blocks, 1) * CUT_THREADS;
+}
+
+int64_t wide_slots(bool packed, bool canon) {
+  if (packed)
+    return canon ? thread_slots(extract_wide_tile_kernel<true, true>)
+                 : thread_slots(extract_wide_tile_kernel<true, false>);
+  return canon ? thread_slots(extract_wide_tile_kernel<false, true>)
+               : thread_slots(extract_wide_tile_kernel<false, false>);
+}
+
 template <bool PACKED, bool CANON>
 int wide_launch(const void* codes, int row_stride, const int32_t* lengths,
                 const int32_t* limits, int64_t* out, int B, int L, int n,
                 int W, int P, int mask_amb, cudaStream_t st, int* info) {
+  const int64_t total = (int64_t)B * P;
+  const WidePlan pl = wide_plan(B, n, P, !PACKED && mask_amb != 0,
+                                wide_slots(PACKED, CANON));
+  if (pl.tile) {
+    auto kern = extract_wide_tile_kernel<PACKED, CANON>;
+    const int64_t per_block = (int64_t)CUT_THREADS * pl.iters;
+    const unsigned blocks = (unsigned)((total + per_block - 1) / per_block);
+    if (info) {
+      kmer::report(info, kern, blocks, CUT_THREADS, (size_t)pl.smem);
+      return info[kmer::INFO_INTS - 1];
+    }
+    kern<<<blocks, CUT_THREADS, (size_t)pl.smem, st>>>(
+        codes, row_stride, lengths, limits, out, B, L, n, W, P, mask_amb,
+        pl.iters, pl.cap, pl.stride, CUT_THREADS / P, CUT_THREADS % P);
+    return (int)cudaGetLastError();
+  }
   auto kern = extract_wide_kernel<PACKED, CANON>;
-  const unsigned blocks = flat_blocks(kern, (int64_t)B * P);
+  const unsigned blocks = flat_blocks(kern, total);
   if (info) {
     kmer::report(info, kern, blocks, CUT_THREADS, 0);
     return info[kmer::INFO_INTS - 1];
@@ -613,7 +817,9 @@ int wide_or_report(const void* codes, int packed, int row_stride,
   const int P = L - n + 1;
   if (n <= kmer::MAX_BASES || B < 1 || P < 1 || W < 3 ||
       (n - 2) / kmer::HI_BASES + 1 != W ||
-      (packed && row_stride < (L + 15) / 16) || (!packed && row_stride < L))
+      (packed && row_stride < (L + 15) / 16) || (!packed && row_stride < L) ||
+      ((int64_t)B * P + CUT_THREADS - 1) / CUT_THREADS > 0x7FFFFFFF ||
+      P > 0x7FFFFFFF - CUT_THREADS * MAX_ITERS)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (packed)
@@ -680,6 +886,22 @@ extern "C" int extract_wide_info(int packed, int row_stride, int B, int L,
   int64_t dummy[1];
   return wide_or_report(nullptr, packed, row_stride, nullptr, nullptr, dummy,
                         B, L, n, W, canonical, mask_amb, nullptr, info);
+}
+
+// The multi-word body's plan for a (B, L) batch of keys of n bases (amb:
+// u8 rows under the ambiguity mask) on a card of `slots` thread slots (0:
+// the current device's for the launch's kernel): out[0] 1 for the tile
+// body, 0 for the row body; then iters, cap, stride and the tile's shared
+// bytes.
+extern "C" void extract_wide_plan(int packed, int B, int L, int n,
+                                  int canonical, int mask_amb, int64_t slots,
+                                  int64_t* out) {
+  const WidePlan pl =
+      wide_plan(B, n, L - n + 1, !packed && mask_amb != 0,
+                slots > 0 ? slots : wide_slots(packed != 0, canonical != 0));
+  const int64_t v[5] = {(int64_t)pl.tile, pl.iters, pl.cap, pl.stride,
+                        pl.smem};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
 }
 
 // The gapped L+R lanes of chunk sizes c_min .. min(c_max, L): T lanes a

@@ -56,12 +56,20 @@
 // word_bases: 31 bases each, the rest, 1 to 32, in the last, whose top
 // bit is flipped at 32): the planes travel by value as a struct of
 // MAX_PLANES pointers (as in sort.cu; a second parameter that the other
-// modes take at one pointer), a live lane reads its W words
-// one after another, and each is shifted into a 128-bit funnel that
-// hands the hash every 32 bits as they complete, most significant first,
-// so fewer than 96 bits of the 2k-bit value are ever held.  The 16
-// lanes of a thread's iteration still share one 16-byte weight load; a
-// lane of weight 0 (a sentinel) reads no key word.
+// modes take at one pointer), and each of a key's W words is shifted
+// into a 128-bit funnel that hands the hash every 32 bits as they
+// complete, most significant first, so fewer than 96 bits of the 2k-bit
+// value are ever held.  A key costs 8 W bytes of loads and a few dozen
+// operations, so a `card` batch pays the latency of its loads and the
+// fixed cost of zeroing and scanning each block's bins (which holds most
+// of its time once the loads overlap: PERF.md).  MODE 3 therefore
+// takes one lane a thread, consecutive threads on consecutive lanes (a
+// warp's load of plane j is one run of 256 bytes, its weights one of 32),
+// with no group of 16 and so no scalar head or tail; a thread issues its
+// lane's weight and all of its W key loads before it uses the first
+// (template PW = W for W = 3 to 8, registers for the words), and hashes
+// the words, but adds nothing for a lane of weight 0.  Past 8 planes the
+// words are loaded one after another, and only for a live lane.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -123,37 +131,58 @@ __device__ __forceinline__ int64_t hll_bin(uint32_t h, int b) {
   return (int64_t)(h >> width) * 32 + rho;
 }
 
-// MODE 3: the bin of lane i's key of n_planes planes.  `funnel` holds the
-// bits not yet hashed in its low `pending` bits (with `pad` zero bits
-// above the key to start with); each plane's 64 bits are ORed in after a
-// shift by its value bits, and each complete 32-bit word goes to the
-// hash, most significant first.  A word waits while the next plane's
-// bits above its value bits (64 minus them: 2 for a full plane) could
-// still reach it, so the words are those of the OR of every plane at its
-// place (ops/sketch.key_words), whatever a lane holds; pending stays
-// below 96.
-__device__ __forceinline__ int64_t plane_bin(int64_t i, const Params& p,
-                                             const Planes<3>& planes) {
+// MODE 3's funnel over a key's words, plane by plane (PW planes, or
+// p.n_planes at PW = 0).  `held` holds the bits not yet hashed in its
+// low `pending` bits (with `pad` zero bits above the key to start with);
+// each plane's 64 bits are ORed in after a shift by its value bits, and
+// each complete 32-bit word goes to the hash, most significant first.  A
+// word waits while the next plane's bits above its value bits (64 minus
+// them: 2 for a full plane) could still reach it, so the words are those
+// of the OR of every plane at its place (ops/sketch.key_words), whatever
+// a lane holds; pending stays below 96.
+struct Funnel {
   uint32_t h = 0x9E3779B9u;
-  unsigned __int128 funnel = 0;
-  int pending = p.pad;
-  for (int j = 0; j < p.n_planes; ++j) {
-    uint64_t v = (uint64_t)__ldg(planes.w[j] + i);
+  unsigned __int128 held = 0;
+  int pending;
+  __device__ explicit Funnel(int pad) : pending(pad) {}
+
+  template <int PW>
+  __device__ __forceinline__ void push(uint64_t v, int j, const Params& p) {
+    const int last = (PW > 0 ? PW : p.n_planes) - 1;
     int bits = WORD_BITS, reach = 0;    // reach: the next plane's spill
-    if (j == p.n_planes - 1) {
+    if (j == last) {
       bits = p.last_bits;
       if (bits == 64) v ^= 1ull << 63;         // the stored flip
     } else {
-      reach = 64 - (j + 1 == p.n_planes - 1 ? p.last_bits : WORD_BITS);
+      reach = 64 - (j + 1 == last ? p.last_bits : WORD_BITS);
     }
-    funnel = (funnel << bits) | v;
+    held = (held << bits) | v;
     pending += bits;
     while (pending >= 32 + reach) {
       pending -= 32;
-      h = combine(h, (uint32_t)(funnel >> pending));
+      h = combine(h, (uint32_t)(held >> pending));
     }
   }
-  return hll_bin(h, p.b);
+};
+
+// MODE 3: the bin of a key whose PW words are in registers
+template <int PW>
+__device__ __forceinline__ int64_t plane_bin(const uint64_t (&v)[PW],
+                                             const Params& p) {
+  Funnel f(p.pad);
+#pragma unroll
+  for (int j = 0; j < PW; ++j) f.push<PW>(v[j], j, p);
+  return hll_bin(f.h, p.b);
+}
+
+// MODE 3 past 8 planes: the bin of lane i's key, its words loaded one
+// after another
+__device__ __forceinline__ int64_t plane_bin(int64_t i, const Params& p,
+                                             const Planes<3>& planes) {
+  Funnel f(p.pad);
+  for (int j = 0; j < p.n_planes; ++j)
+    f.push<0>((uint64_t)__ldg(planes.w[j] + i), j, p);
+  return hll_bin(f.h, p.b);
 }
 
 // the bin of one lane (MODE 0: the key itself, maybe out of range)
@@ -210,23 +239,42 @@ __device__ __forceinline__ void sync_bins(cg::cluster_group& cluster,
 template <int MODE>
 __device__ __forceinline__ void scalar_lane(cg::cluster_group& cluster,
                                             int32_t* bins, int64_t i,
-                                            const Params& p,
-                                            const Planes<MODE>& planes) {
+                                            const Params& p) {
   const int w = __ldg(p.weights + i);
   if (w == 0) return;
-  if constexpr (MODE == 3) {
-    add(cluster, bins, plane_bin(i, p, planes), w, p);
-  } else {
-    add(cluster, bins,
-        lane_bin<MODE>(__ldg(p.keys + i),
-                       MODE == 2 ? __ldg(p.keys_lo + i) : 0, p),
-        w, p);
+  add(cluster, bins,
+      lane_bin<MODE>(__ldg(p.keys + i), MODE == 2 ? __ldg(p.keys_lo + i) : 0,
+                     p),
+      w, p);
+}
+
+// MODE 3: lanes lo, lo + step, ... below hi, one a thread.  The weight
+// and every word are loaded before any is used (PW > 0); the words are
+// hashed whatever the weight, so that no load waits on its test.
+template <int PW>
+__device__ __forceinline__ void plane_lanes(cg::cluster_group& cluster,
+                                            int32_t* bins, int64_t lo,
+                                            int64_t hi, int64_t step,
+                                            const Params& p,
+                                            const Planes<3>& planes) {
+  for (int64_t i = lo; i < hi; i += step) {
+    const int w = __ldg(p.weights + i);
+    if constexpr (PW > 0) {
+      uint64_t v[PW];
+#pragma unroll
+      for (int j = 0; j < PW; ++j) v[j] = (uint64_t)__ldg(planes.w[j] + i);
+      const int64_t bin = plane_bin<PW>(v, p);
+      add(cluster, bins, bin, w, p);
+    } else if (w != 0) {
+      add(cluster, bins, plane_bin(i, p, planes), w, p);
+    }
   }
 }
 
 // two blocks an SM at most 64 registers a thread; a (hi, lo) pair's 16
-// lanes take 64 for their keys alone
-template <int MODE>
+// lanes take 64 for their keys alone.  PW: MODE 3's planes when they are
+// 3 to 8, else 0
+template <int MODE, int PW = 0>
 __global__ void __launch_bounds__(THREADS, MODE == 2 ? 1 : 2)
 histogram_kernel(const Params p, const Planes<MODE> planes) {
   extern __shared__ int4 bins4[];
@@ -241,58 +289,56 @@ histogram_kernel(const Params p, const Planes<MODE> planes) {
   sync_bins(cluster, log_c);              // every block's bins are zero
 
   const int64_t g = blockIdx.x >> log_c;  // the cluster
-  const int64_t lo = p.head + g * p.chunk;
-  const int64_t hi = min(lo + p.chunk, p.body_end);
-  const int64_t step = ((int64_t)THREADS * LANES) << log_c;
-  for (int64_t i = lo + ((int64_t)rank * THREADS + threadIdx.x) * LANES;
-       i < hi; i += step) {
-    const int4 wv = __ldg(reinterpret_cast<const int4*>(p.weights + i));
-    if constexpr (MODE == 3) {
+  if constexpr (MODE == 3) {
+    const int64_t lo = g * p.chunk;
+    plane_lanes<PW>(cluster, bins,
+                    lo + (int64_t)rank * THREADS + threadIdx.x,
+                    min(lo + p.chunk, p.n), (int64_t)THREADS << log_c, p,
+                    planes);
+  } else {
+    const int64_t lo = p.head + g * p.chunk;
+    const int64_t hi = min(lo + p.chunk, p.body_end);
+    const int64_t step = ((int64_t)THREADS * LANES) << log_c;
+    for (int64_t i = lo + ((int64_t)rank * THREADS + threadIdx.x) * LANES;
+         i < hi; i += step) {
+      const int4 wv = __ldg(reinterpret_cast<const int4*>(p.weights + i));
+      int64_t key[LANES], key_lo[LANES];
+      if (p.keys_vec) {
+#pragma unroll
+        for (int j = 0; j < LANES / 2; ++j) {
+          const longlong2 v =
+              __ldg(reinterpret_cast<const longlong2*>(p.keys + i) + j);
+          key[2 * j] = v.x;
+          key[2 * j + 1] = v.y;
+          if constexpr (MODE == 2) {
+            const longlong2 u =
+                __ldg(reinterpret_cast<const longlong2*>(p.keys_lo + i) + j);
+            key_lo[2 * j] = u.x;
+            key_lo[2 * j + 1] = u.y;
+          }
+        }
+      } else {                  // keys not aligned with the weights
+#pragma unroll
+        for (int j = 0; j < LANES; ++j) {
+          key[j] = __ldg(p.keys + i + j);
+          if constexpr (MODE == 2) key_lo[j] = __ldg(p.keys_lo + i + j);
+        }
+      }
       const uint32_t words[4] = {(uint32_t)wv.x, (uint32_t)wv.y,
                                  (uint32_t)wv.z, (uint32_t)wv.w};
 #pragma unroll
       for (int l = 0; l < LANES; ++l) {
         const int w = (int8_t)(words[l >> 2] >> (8 * (l & 3)));
-        if (w != 0) add(cluster, bins, plane_bin(i + l, p, planes), w, p);
-      }
-      continue;
-    }
-    int64_t key[LANES], key_lo[LANES];
-    if (p.keys_vec) {
-#pragma unroll
-      for (int j = 0; j < LANES / 2; ++j) {
-        const longlong2 v =
-            __ldg(reinterpret_cast<const longlong2*>(p.keys + i) + j);
-        key[2 * j] = v.x;
-        key[2 * j + 1] = v.y;
-        if constexpr (MODE == 2) {
-          const longlong2 u =
-              __ldg(reinterpret_cast<const longlong2*>(p.keys_lo + i) + j);
-          key_lo[2 * j] = u.x;
-          key_lo[2 * j + 1] = u.y;
-        }
-      }
-    } else {                  // keys not aligned with the weights
-#pragma unroll
-      for (int j = 0; j < LANES; ++j) {
-        key[j] = __ldg(p.keys + i + j);
-        if constexpr (MODE == 2) key_lo[j] = __ldg(p.keys_lo + i + j);
+        if (w != 0)
+          add(cluster, bins,
+              lane_bin<MODE>(key[l], MODE == 2 ? key_lo[l] : 0, p), w, p);
       }
     }
-    const uint32_t words[4] = {(uint32_t)wv.x, (uint32_t)wv.y,
-                               (uint32_t)wv.z, (uint32_t)wv.w};
-#pragma unroll
-    for (int l = 0; l < LANES; ++l) {
-      const int w = (int8_t)(words[l >> 2] >> (8 * (l & 3)));
-      if (w != 0)
-        add(cluster, bins,
-            lane_bin<MODE>(key[l], MODE == 2 ? key_lo[l] : 0, p), w, p);
+    if (blockIdx.x == 0) {                // the scalar head and tail
+      const int64_t t = threadIdx.x;
+      const int64_t i = t < p.head ? t : p.body_end + (t - p.head);
+      if (i < p.n) scalar_lane<MODE>(cluster, bins, i, p);
     }
-  }
-  if (blockIdx.x == 0) {                  // the scalar head and tail
-    const int64_t t = threadIdx.x;
-    const int64_t i = t < p.head ? t : p.body_end + (t - p.head);
-    if (i < p.n) scalar_lane<MODE>(cluster, bins, i, p, planes);
   }
   sync_bins(cluster, log_c);  // every lane is in; no bins are a target
 
@@ -312,18 +358,18 @@ histogram_kernel(const Params p, const Planes<MODE> planes) {
   }
 }
 
-template <int MODE>
+template <int MODE, int PW = 0>
 int launch(const Params& p, const Planes<MODE>& planes, int clusters,
            cudaStream_t st) {
   const int smem = (int)(sizeof(int32_t) << p.shift);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        histogram_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        histogram_kernel<MODE, PW>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
   if (p.log_c == 0) {              // one block a cluster: a plain launch
-    histogram_kernel<MODE><<<(unsigned)clusters, THREADS, smem, st>>>(
+    histogram_kernel<MODE, PW><<<(unsigned)clusters, THREADS, smem, st>>>(
         p, planes);
     return (int)cudaGetLastError();
   }
@@ -340,7 +386,7 @@ int launch(const Params& p, const Planes<MODE>& planes, int clusters,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, histogram_kernel<MODE>, p, planes);
+      cudaLaunchKernelEx(&cfg, histogram_kernel<MODE, PW>, p, planes);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
@@ -402,21 +448,44 @@ extern "C" int histogram_launch(const int64_t* const* planes, int n_planes,
   p.pad = 32 * p.n_words - 2 * k;                   // 1 to 32
   Planes<3> w = {};
   for (int j = 0; j < n_planes; ++j) w.w[j] = planes[j];
-  return launch<3>(p, w, clusters, st);
+  switch (n_planes) {
+    case 3: return launch<3, 3>(p, w, clusters, st);
+    case 4: return launch<3, 4>(p, w, clusters, st);
+    case 5: return launch<3, 5>(p, w, clusters, st);
+    case 6: return launch<3, 6>(p, w, clusters, st);
+    case 7: return launch<3, 7>(p, w, clusters, st);
+    case 8: return launch<3, 8>(p, w, clusters, st);
+    default: return launch<3>(p, w, clusters, st);
+  }
 }
 
 extern "C" int histogram_max_planes() { return MAX_PLANES; }
 
 // registers a thread and local (spill) bytes of the histogram kernel's
-// MODE 0, 1, 2 or 3; returns the cudaError_t
-extern "C" int histogram_attributes(int mode, int* regs, int* local_bytes) {
+// MODE 0, 1, 2 or 3 (MODE 3 for keys of `planes` planes); returns the
+// cudaError_t
+namespace {
+template <int MODE, int PW = 0>
+cudaError_t attributes_of(cudaFuncAttributes* a) {
+  return cudaFuncGetAttributes(a, histogram_kernel<MODE, PW>);
+}
+}  // namespace
+
+extern "C" int histogram_attributes(int mode, int planes, int* regs,
+                                    int* local_bytes) {
   cudaFuncAttributes a;
   cudaError_t err;
-  switch (mode) {
-    case 0: err = cudaFuncGetAttributes(&a, histogram_kernel<0>); break;
-    case 1: err = cudaFuncGetAttributes(&a, histogram_kernel<1>); break;
-    case 2: err = cudaFuncGetAttributes(&a, histogram_kernel<2>); break;
-    case 3: err = cudaFuncGetAttributes(&a, histogram_kernel<3>); break;
+  switch (mode == 3 && planes >= 3 && planes <= 8 ? 10 + planes : mode) {
+    case 0: err = attributes_of<0>(&a); break;
+    case 1: err = attributes_of<1>(&a); break;
+    case 2: err = attributes_of<2>(&a); break;
+    case 3: err = attributes_of<3>(&a); break;
+    case 13: err = attributes_of<3, 3>(&a); break;
+    case 14: err = attributes_of<3, 4>(&a); break;
+    case 15: err = attributes_of<3, 5>(&a); break;
+    case 16: err = attributes_of<3, 6>(&a); break;
+    case 17: err = attributes_of<3, 7>(&a); break;
+    case 18: err = attributes_of<3, 8>(&a); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;

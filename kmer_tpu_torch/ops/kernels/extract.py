@@ -14,6 +14,12 @@ validity), or the tuple of words64(k) such planes for keys of more than
 31 bases (the (hi, lo) pair up to 63); ops/encode.words_to_tpu_repacked
 gives kmer_tpu's repacked words up to 63 bases.
 
+Keys of more than 63 bases take the kernel's multi-word body, whose
+plan `wide_plan` mirrors (the library's own plan is held against it when
+it loads): a block's tile of consecutive outputs cut out of the rows it
+stages in shared memory, or, for rows too wide to stage, one thread a
+lane cut from device memory; launch_info says which.
+
 extract_gapped_keys is the same kernel's gapped entry: the unfused
 route's gapped L+R lanes (ops/extract.gapped_lanes, c-major), in the
 planes of ops/encode.gapped_bases.
@@ -26,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -47,6 +54,19 @@ spaced_launches = 0
 multi_launches = 0
 gapped_launches = 0
 _lib = None
+# the cut bodies' threads a block, most outputs a thread and shared bytes
+# a block (csrc/extract.cu)
+CUT_THREADS, MAX_ITERS, CUT_SMEM = 256, 8, 48 * 1024
+# (B, L, n, amb, thread slots) at which load() holds the kernel's plan
+# against wide_plan: the main and `card` batches on an H100 (132 SMs of
+# six resident blocks), P below a block, one window a row, rows too wide
+# to stage
+H100_THREAD_SLOTS = 132 * 6 * CUT_THREADS
+PLAN_CHECKS = ((8192, 160, 101, False, H100_THREAD_SLOTS),
+               (2048, 160, 101, True, H100_THREAD_SLOTS),
+               (300, 200, 130, True, H100_THREAD_SLOTS),
+               (300, 500, 500, True, H100_THREAD_SLOTS),
+               (5, 64, 64, False, 1000))
 
 
 def load():
@@ -66,12 +86,19 @@ def load():
             vp]
         lib.extract_wide_info.restype = i
         lib.extract_wide_info.argtypes = [i] * 8 + [vp]
+        lib.extract_wide_plan.restype = None
+        lib.extract_wide_plan.argtypes = [i] * 6 + [ctypes.c_int64, vp]
         lib.extract_gapped_launch.restype = i
         lib.extract_gapped_launch.argtypes = [vp, i, i, vp, vp, vp] + [
             i] * 8 + [vp]
         lib.extract_gapped_info.restype = i
         lib.extract_gapped_info.argtypes = [i] * 10 + [vp]
         check_cut_layout(lib)
+        for shape in PLAN_CHECKS:
+            got = c_wide_plan(lib, *shape)
+            if got != wide_plan(*shape):
+                raise RuntimeError(f"extract.cu's multi-word plan {got} != "
+                                   f"wide_plan{shape} {wide_plan(*shape)}")
         _lib = lib
     return _lib
 
@@ -100,6 +127,57 @@ def seed_args(positions, span: int):
     return offs, cut
 
 
+class WidePlan(NamedTuple):
+    """The multi-word body's plan (csrc/extract.cu `wide_plan`): the tile
+    body (`tile`) with `iters` outputs a thread, each slot `cap` staged
+    words at a pitch of `stride`, `smem` shared bytes a block; or, where
+    even one output a thread outgrows CUT_SMEM, the row body."""
+    tile: bool
+    iters: int
+    cap: int
+    stride: int
+    smem: int
+
+
+def tile_cap(windows: int, n: int) -> int:
+    """Words of a slot serving `windows` consecutive windows of n bases:
+    those the windows span and the two a cut reads past them
+    (kmer_window.cuh `tile_cap`)."""
+    return ((windows + n + 13) >> 4) + 3
+
+
+def wide_plan(B: int, L: int, n: int, amb: bool,
+              thread_slots: int) -> WidePlan:
+    """The plan extract_keys' multi-word launch takes for a (B, L) batch of
+    keys of n > 63 bases (amb: u8 rows under the ambiguity mask) on a card
+    of `thread_slots` resident threads of its kernel: iters the fewest
+    outputs a thread that keep the grid within one wave (at most
+    MAX_ITERS), fewer while a tile's t = CUT_THREADS x iters outputs
+    touch rows (at most min(B, (t + P - 2) // P + 1) slots of cap words,
+    and an int a slot) that outgrow CUT_SMEM."""
+    P = L - n + 1
+    iters = min(MAX_ITERS, max(1, -(-(B * P) // max(1, thread_slots))))
+    while True:
+        t = CUT_THREADS * iters
+        slots = min(B, (t + P - 2) // P + 1)
+        cap = tile_cap(min(P, t), n)
+        stride = cap * (1 + bool(amb)) | 1
+        smem = slots * (stride + 1) * 4
+        if smem <= CUT_SMEM or iters == 1:
+            return WidePlan(smem <= CUT_SMEM, iters, cap, stride, smem)
+        iters -= 1
+
+
+def c_wide_plan(lib, B: int, L: int, n: int, amb: bool, thread_slots: int,
+                *, packed: bool = False, canonical: bool = False) -> WidePlan:
+    """A K7 library's own multi-word plan (thread_slots 0: the current
+    device's for the kernel of a `packed`, `canonical` launch)."""
+    out = (ctypes.c_int64 * 5)()
+    lib.extract_wide_plan(int(packed), B, L, n, int(canonical), int(amb),
+                          thread_slots, out)
+    return WidePlan(bool(out[0]), *out[1:])
+
+
 # what the kernels' *_info entries report of a launch (kmer::report)
 INFO_KEYS = ("threads", "blocks", "smem", "registers", "spill_bytes",
              "blocks_per_sm")
@@ -120,13 +198,19 @@ def launch_info(B: int, L: int, k: int, *, canonical: bool = False,
                 positions=None) -> dict:
     """The launch extract_keys makes for a (B, L) batch on the current
     CUDA device, without making it: threads a block, blocks, dynamic
-    shared bytes, registers a thread, spill bytes, resident blocks an SM."""
+    shared bytes, registers a thread, spill bytes, resident blocks an SM;
+    for keys of more than 63 bases also the body ("tile", or "row" for
+    rows too wide to stage) and the outputs a thread."""
     span = check_window(k, positions, canonical)
     stride = (L + 15) // 16 if packed else L
     if positions is None and k > PAIR_BASES:
-        return report_info(load().extract_wide_info, int(packed), stride, B,
-                           L, k, words64(k), int(canonical),
-                           int(mask_ambiguous))
+        plan = c_wide_plan(load(), B, L, k, mask_ambiguous and not packed, 0,
+                           packed=packed, canonical=canonical)
+        return {**report_info(load().extract_wide_info, int(packed), stride,
+                              B, L, k, words64(k), int(canonical),
+                              int(mask_ambiguous)),
+                "body": "tile" if plan.tile else "row",
+                "iters": plan.iters}
     offs, cut = seed_args(positions, span)
     return report_info(load().extract_info, int(packed),
                        (L + 15) // 16 if packed else L, B, L, k, span,

@@ -46,7 +46,9 @@ MAX_BITS = 16
 # the most key planes a launch takes (csrc/histogram.cu MAX_PLANES, as
 # csrc/sort.cu's): keys of up to 7440 bases
 MAX_PLANES = 240
-# the lanes a thread of the kernel takes an iteration (csrc/histogram.cu)
+# the kernel's threads a block, and the lanes a thread takes an iteration
+# in MODE 0 to 2 (MODE 3 takes one; csrc/histogram.cu)
+THREADS = 512
 LANES = 16
 # the plan's choices, measured on an H100 (PERF.md): at most
 # SMEM_TARGET bytes of bins a block, in clusters of at most MAX_CLUSTER
@@ -80,7 +82,7 @@ def load():
                                f"{lib.histogram_max_planes()} planes, this "
                                f"wrapper {MAX_PLANES}")
         lib.histogram_attributes.restype = i
-        lib.histogram_attributes.argtypes = [i, ctypes.POINTER(i),
+        lib.histogram_attributes.argtypes = [i, i, ctypes.POINTER(i),
                                              ctypes.POINTER(i)]
         _lib = lib
     return _lib
@@ -132,12 +134,13 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def attributes(mode: int) -> tuple[int, int]:
+def attributes(mode: int, planes: int = 0) -> tuple[int, int]:
     """(registers a thread, local bytes) of the kernel's MODE `mode`: 0
     indices, 1 HLL classes of keys, 2 of (hi, lo) pairs, 3 of keys of
-    three or more planes."""
+    `planes` planes (its body for 3 to 8 planes holds a key's words in
+    registers; any other count takes the one that loads them in turn)."""
     regs, local = ctypes.c_int(), ctypes.c_int()
-    rc = load().histogram_attributes(mode, ctypes.byref(regs),
+    rc = load().histogram_attributes(mode, planes, ctypes.byref(regs),
                                      ctypes.byref(local))
     if rc != 0:
         raise RuntimeError(f"histogram kernel attributes: cudaError {rc}")

@@ -1491,6 +1491,63 @@ def test_multi_word_extract_kernel_equals_plain(cuda, k, canon, amb, packed):
     assert int((want[0] != sk.SENTINEL).sum()) > 0
 
 
+@pytest.mark.parametrize("B,L,k,canon,packed,amb,short", [
+    (301, 161, 101, True, True, False, False),   # tiles end inside rows
+    (257, 101, 101, True, False, True, False),   # one window a row
+    (333, 102, 100, False, True, False, True),   # P = 3, B P odd
+    (129, 160, 64, True, False, True, True),     # W = 3
+    (77, 160, 130, True, True, False, False),    # W = 5
+    (517, 256, 200, True, False, True, True),    # W = 7
+    (300, 1000, 1000, True, True, False, False)])  # too wide: the row body
+def test_multi_word_extract_kernel_edges(cuda, B, L, k, canon, packed, amb,
+                                         short):
+    """K7's multi-word tile body at its edges, and the row body for rows
+    too wide to stage, bit for bit; then every row shorter than k (every
+    lane a sentinel)."""
+    host = _wide_batch(k + B, B, L, amb, packed)
+    if not short:
+        host[1][:] = L
+        host[2][:] = L
+    kw = dict(canonical=canon, mask_ambiguous=amb,
+              packed_width=L if packed else 0)
+    info = ek.launch_info(B, L, k, canonical=canon, mask_ambiguous=amb,
+                          packed=packed)
+    assert info["body"] == ("row" if k == 1000 else "tile")
+    want = ek.extract_keys(*host, k, **kw)
+    before = ek.multi_launches
+    got = ek.extract_keys(*(t.to(cuda) for t in host), k, **kw)
+    torch.cuda.synchronize()
+    assert ek.multi_launches == before + 1
+    assert _same_keys(got, want)
+    assert int((want[0] != sk.SENTINEL).sum()) > 0
+    host[1][:] = torch.from_numpy(np.random.default_rng(k).integers(
+        0, k, B).astype(np.int32))
+    got = ek.extract_keys(*(t.to(cuda) for t in host), k, **kw)
+    torch.cuda.synchronize()
+    assert all(bool((g == sk.SENTINEL).all()) for g in got)
+
+
+def test_multi_word_plan_matches_the_wrapper(cuda):
+    """extract.cu's multi-word plan equals ops/kernels/extract.wide_plan,
+    on given thread slots and on the card's own (SMs x the tile body's
+    resident blocks x CUT_THREADS), and launch_info reports it."""
+    lib = ek.load()
+    for B, L, k, amb in [(8192, 160, 101, False), (2048, 160, 101, True),
+                         (1, 64, 64, False), (300, 1000, 1000, False),
+                         (4096, 300, 130, True)]:
+        for slots in (1, 1000, ek.H100_THREAD_SLOTS, 10 ** 7):
+            assert ek.c_wide_plan(lib, B, L, k, amb, slots) == ek.wide_plan(
+                B, L, k, amb, slots)
+        info = ek.launch_info(B, L, k, canonical=True, mask_ambiguous=amb,
+                              packed=not amb)
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        plan = ek.wide_plan(B, L, k, amb, sms * info["blocks_per_sm"]
+                            * ek.CUT_THREADS)
+        assert info["body"] == ("tile" if plan.tile else "row")
+        if plan.tile:
+            assert info["iters"] == plan.iters and info["smem"] == plan.smem
+
+
 @pytest.mark.parametrize("llen,rlen,cmin,cmax,L,amb,packed", [
     (27, 27, 80, 140, 160, False, True),     # K3's split, as K3 cuts it
     (27, 27, 60, 70, 66, True, False),       # c_max past L
@@ -1651,6 +1708,34 @@ def test_hll_plane_mode_kernel_edges(cuda, k):
     want = hk.hll_class_histogram_ref(planes, w, k=k, b=10)
     torch.cuda.synchronize()
     assert torch.equal(got, want) and int(got.sum()) == int(w.sum())
+
+
+@pytest.mark.parametrize("n,k", [(1, 130), (31, 101), (70_001, 64),
+                                 (70_001, 101), (70_001, 130), (33_333, 160),
+                                 (33_333, 250)])
+def test_hll_plane_mode_kernel_lane_counts(cuda, n, k):
+    """K5's plane mode at lane counts no multiple of 32, W = 3 to 6 (a
+    key's words in registers) and W = 9 (loaded in turn): random keys,
+    weights of either sign, a tenth of the lanes dead."""
+    rng = np.random.default_rng(n + k)
+    keys = [rng.integers(0, 1 << (2 * nb), n) if nb < 32 else
+            rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+            for nb in word_bases(k)]
+    w = rng.integers(-3, 4, n).astype(np.int8)
+    dead = rng.random(n) < 0.1
+    w[dead] = 0
+    for p in keys:
+        p[dead] = SENTINEL_KEY
+    planes = tuple(torch.from_numpy(p).to(cuda) for p in keys)
+    w = torch.from_numpy(w).to(cuda)
+    before = hk.launches
+    got = hk.hll_class_histogram(planes, w, k=k, b=10)
+    want = hk.hll_class_histogram_ref(planes, w, k=k, b=10)
+    torch.cuda.synchronize()
+    assert hk.launches == before + 1
+    assert torch.equal(got, want) and int(got.sum()) == int(w.sum())
+    regs, _ = hk.attributes(3, len(planes))
+    assert regs > 0
 
 
 def _wide_corpus(tmp_path):

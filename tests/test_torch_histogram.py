@@ -6,7 +6,9 @@ streams, and the port's independence from the kmer_tpu package.
   bins fit its shared memory, the cluster stays within the portable 8, a
   cluster's lanes x 127 stay below 2**31 (int32 bins cannot overflow),
   the chunks cover the lanes, the grid holds one block an SM, and the
-  flush (each cluster's non-zero bins) stays at most the lanes;
+  flush (each cluster's non-zero bins) stays at most the lanes; MODE 3's
+  lane hand-out (one lane a thread, a warp on consecutive lanes) on that
+  grid takes every lane once;
 - index_histogram_ref against kmer_tpu's Pallas K5 in interpret mode
   (exact: integer histograms) on streams whose valid lanes all fall in
   one bin, all in the last bin, or on a few hot bins;
@@ -85,6 +87,30 @@ def test_plan_keeps_int32_bins_below_overflow():
     n = 3 * hk.MAX_CLUSTER_LANES + 5
     p = hk.plan(n, 16, 1)
     assert p.clusters >= 4 and (p.chunk + 32) * 128 < 1 << 31
+
+
+@pytest.mark.parametrize("bits", [15, 16])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 31, 2048 * 60, 8192 * 140])
+def test_plane_mode_lanes(n, bits):
+    """MODE 3's hand-out (csrc/histogram.cu plane_lanes) on the plan's
+    grid: block `rank` of cluster g takes lanes g chunk + rank THREADS +
+    t, then steps of THREADS x cluster, below min(g chunk + chunk, n):
+    every lane once, with no head or tail, and a warp's 32 threads on 32
+    consecutive lanes."""
+    p = hk.plan(n, bits, 132)
+    seen = np.zeros(n, np.int64)
+    step = hk.THREADS * p.cluster
+    for g in range(p.clusters):
+        lo, hi = g * p.chunk, min(g * p.chunk + p.chunk, n)
+        for rank in range(p.cluster):
+            first = lo + rank * hk.THREADS + np.arange(hk.THREADS)
+            for m in range(-(-(hi - lo) // step)):
+                i = first + m * step
+                warps = i.reshape(-1, 32)
+                assert (np.diff(warps, axis=1) == 1).all()
+                i = i[i < hi]
+                np.add.at(seen, i, 1)
+    assert (seen == 1).all()
 
 
 def _streams(bits, n, rng):
