@@ -1,0 +1,10 @@
+"""Seconds a job's calling thread was blocked in the program's
+`dispatch` stage (utils/stagetime), per job of the traced window."""
+
+from perfbench.readers import stage_per_job
+
+PROBES = ["stages"]
+
+
+def read(record):
+    return stage_per_job(record, "dispatch")
