@@ -25,7 +25,11 @@ The drain (fetch_state_wire) reads the table in narrow tiers, as
 kmer_tpu's: key deltas in three u8 planes (u24) or one u32 plane, with u8
 counts and a fixed-size escape patch, for keys whose value fits one int64
 (at most 31 bases); the raw key words and u8 counts for wider pairs.  It
-returns exactly what fetch_state returns.
+returns exactly what fetch_state returns.  Under the caller's
+`readback` stage (utils/stagetime) the reads time their parts:
+`readback.encode` (the wire encode's launches and the reads of its sizes,
+which wait for the device), `readback.copy` (every copy to the host) and
+`readback.decode` (the host's rebuild of the rows).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import os
 import numpy as np
 import torch
 
+from ..utils import stagetime
 from .count import sort_words
 from .kernels.sort import SENTINEL
 
@@ -61,6 +66,13 @@ def merge_batch(state_words, state_counts, batch_words, batch_counts,
     (words, counts, distinct): the new state, C rows, and its live row
     count as a device scalar, without a host sync.  Requires C >=
     distinct_before + N; raises when N > C."""
+    with stagetime.span("op::merge_batch"):
+        return _merge_batch(state_words, state_counts, batch_words,
+                            batch_counts, bits)
+
+
+def _merge_batch(state_words, state_counts, batch_words, batch_counts,
+                 bits):
     W = len(state_words)
     C = state_counts.numel()
     bc = batch_counts.reshape(-1).to(torch.int64)
@@ -138,8 +150,12 @@ def fetch_state(state_words, state_counts, distinct: int):
     """The live rows on the host: (keys (d, W) int64, counts (d,)
     int64)."""
     d = int(distinct)
-    keys = np.stack([w[:d].cpu().numpy() for w in state_words], axis=1)
-    return keys.reshape(d, len(state_words)), state_counts[:d].cpu().numpy()
+    with stagetime.stage("readback.copy"):
+        words = [w[:d].cpu().numpy() for w in state_words]
+        counts = state_counts[:d].cpu().numpy()
+    with stagetime.stage("readback.decode"):
+        keys = np.stack(words, axis=1)
+    return keys.reshape(d, len(state_words)), counts
 
 
 # ---------------------------------------------------------------------------
@@ -222,25 +238,30 @@ def wire_encode_c8(state_counts, rows: int):
     return c.clamp(max=255).to(torch.uint8), _wire_patch(esc, [c]), esc.sum()
 
 
-def _apply_patch(dl: np.ndarray, counts: np.ndarray, patch, n_esc: int,
+def _apply_patch(dl: np.ndarray, counts: np.ndarray, p: np.ndarray,
                  d: int) -> None:
-    """Overwrite the escaped rows' deltas and counts from the patch."""
-    p = patch[:n_esc].cpu().numpy()
+    """Overwrite the escaped rows' deltas and counts from the patch's
+    escaped rows `p` (on the host)."""
     p = p[p[:, 0] < d]
     dl[p[:, 0]] = p[:, 1]
     counts[p[:, 0]] = p[:, 2]
 
 
 def _fetch_wide_c8(state_words, state_counts, d: int):
-    cnt8, patch, n_esc = wire_encode_c8(state_counts, d)
-    n_esc = int(n_esc)
+    with stagetime.stage("readback.encode"):
+        cnt8, patch, n_esc = wire_encode_c8(state_counts, d)
+        n_esc = int(n_esc)
     if n_esc > WIRE_PATCH_ROWS:
         return None
-    counts = cnt8.cpu().numpy().astype(np.int64)
-    if n_esc:
-        p = patch[:n_esc].cpu().numpy()
-        counts[p[:, 0]] = p[:, 1]
-    keys = np.stack([w[:d].cpu().numpy() for w in state_words], axis=1)
+    with stagetime.stage("readback.copy"):
+        cnt8 = cnt8.cpu().numpy()
+        p = patch[:n_esc].cpu().numpy() if n_esc else None
+        words = [w[:d].cpu().numpy() for w in state_words]
+    with stagetime.stage("readback.decode"):
+        counts = cnt8.astype(np.int64)
+        if n_esc:
+            counts[p[:, 0]] = p[:, 1]
+        keys = np.stack(words, axis=1)
     return keys, counts
 
 
@@ -258,26 +279,34 @@ def fetch_state_wire(state_words, state_counts, distinct: int, *,
     if W > 2 or (W == 2 and l_len + r_len > 31):
         return _fetch_wide_c8(state_words, state_counts, d)
     shift = 2 * r_len if W == 2 else 0
-    d0, d1, d2, cnt8, patch, n24, n32 = wire_encode(state_words,
+    with stagetime.stage("readback.encode"):
+        d0, d1, d2, cnt8, patch, n24, n32 = wire_encode(
+            state_words, state_counts, d, shift)
+        n24 = int(n24)
+        if n24 <= WIRE_PATCH_ROWS:
+            planes, n_esc = (d0, d1, d2), n24
+        elif int(n32) <= WIRE_PATCH_ROWS:
+            low, cnt8, patch, n_esc = wire_encode32(state_words,
                                                     state_counts, d, shift)
-    n24 = int(n24)
-    if n24 <= WIRE_PATCH_ROWS:
-        dl = (d0.cpu().numpy().astype(np.int64)
-              | d1.cpu().numpy().astype(np.int64) << 8
-              | d2.cpu().numpy().astype(np.int64) << 16)
-        n_esc = n24
-    elif int(n32) <= WIRE_PATCH_ROWS:
-        low, cnt8, patch, n_esc = wire_encode32(state_words, state_counts,
-                                                d, shift)
-        dl = low.cpu().numpy().view(np.uint32).astype(np.int64)
-        n_esc = int(n_esc)
-    else:
-        return None
-    counts = cnt8.cpu().numpy().astype(np.int64)
-    if n_esc:
-        _apply_patch(dl, counts, patch, n_esc, d)
-    values = np.cumsum(dl)
-    if W == 1:
-        return values.reshape(-1, 1), counts
-    return np.stack([values >> shift, values & ((1 << shift) - 1)],
-                    axis=1), counts
+            planes, n_esc = (low,), int(n_esc)
+        else:
+            return None
+    with stagetime.stage("readback.copy"):
+        planes = [t.cpu().numpy() for t in planes]
+        cnt8 = cnt8.cpu().numpy()
+        p = patch[:n_esc].cpu().numpy() if n_esc else None
+    with stagetime.stage("readback.decode"):
+        if len(planes) == 3:
+            d0, d1, d2 = planes
+            dl = (d0.astype(np.int64) | d1.astype(np.int64) << 8
+                  | d2.astype(np.int64) << 16)
+        else:
+            dl = planes[0].view(np.uint32).astype(np.int64)
+        counts = cnt8.astype(np.int64)
+        if n_esc:
+            _apply_patch(dl, counts, p, d)
+        values = np.cumsum(dl)
+        if W == 1:
+            return values.reshape(-1, 1), counts
+        return np.stack([values >> shift, values & ((1 << shift) - 1)],
+                        axis=1), counts

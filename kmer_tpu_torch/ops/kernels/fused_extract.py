@@ -25,6 +25,7 @@ import os
 
 import torch
 
+from ...utils import stagetime
 from ..encode import HI_BASES, SENTINEL_KEY, unpack_codes_i32
 from ..extract import check_window, window_keys
 from .extract import check_cut_layout, report_info, seed_args
@@ -130,8 +131,18 @@ def fused_extract_count(codes: torch.Tensor, lengths: torch.Tensor,
     packed_width = L the (B, ceil(L/16)) int32 view of the 2-bit packed
     rows.  lengths, limits: (B,) int32.  seg: power of two <= 16.
     positions: a spaced seed's k window offsets (ascending from 0; span
-    positions[-1] + 1), or None for contiguous k-mers.
+    positions[-1] + 1), or None for contiguous k-mers.  Inside an `op::K1`
+    range while a profiler records (utils/stagetime.span).
     """
+    with stagetime.span("op::K1"):
+        return _fused_extract_count(
+            codes, lengths, limits, k, canonical=canonical,
+            mask_ambiguous=mask_ambiguous, seg=seg,
+            packed_width=packed_width, positions=positions)
+
+
+def _fused_extract_count(codes, lengths, limits, k, *, canonical,
+                         mask_ambiguous, seg, packed_width, positions):
     if codes.device.type == "cpu":
         return fused_extract_count_ref(
             codes, lengths, limits, k, canonical=canonical,

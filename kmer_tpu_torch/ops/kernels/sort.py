@@ -35,6 +35,8 @@ import os
 
 import torch
 
+from ...utils import stagetime
+
 SOURCE = "kmer_tpu_torch/csrc/sort.cu"
 REPLACES = "kmer_tpu/ops/pallas/sort.py:134"
 MAX_WORDS = 240                            # csrc/sort.cu MAX_PLANES
@@ -198,7 +200,13 @@ def sort_words_ref(words, num_keys=None, bits=None) -> list[torch.Tensor]:
 def sort_words(words, num_keys=None, bits=None) -> list[torch.Tensor]:
     """The W word planes (1-D int64, equal length) sorted stably by their
     first num_keys words (default all), word 0 most significant; in place
-    on a GPU.  bits: the key words' value bits (default 64 each)."""
+    on a GPU.  bits: the key words' value bits (default 64 each).  Inside
+    an `op::K6` range while a profiler records (utils/stagetime.span)."""
+    with stagetime.span("op::K6"):
+        return _sort_words(words, num_keys, bits)
+
+
+def _sort_words(words, num_keys, bits) -> list[torch.Tensor]:
     words, num_keys, bits = _check(words, num_keys, bits)
     dev = words[0].device
     if dev.type == "cpu":

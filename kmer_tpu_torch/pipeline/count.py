@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import os
+import time
 
 import numpy as np
 import torch
@@ -73,7 +74,7 @@ from ..ops.kernels.fused_extract import fused_extract_count
 from ..ops.kernels.histogram import index_histogram
 from ..utils import stagetime
 from ..utils.linkspeed import d2h_gbps, dense_scatter_ok
-from ..utils.stats import StatsLogger, Timer, prefetch_iter
+from ..utils.stats import StatsLogger, prefetch_iter
 from .table import (KmerTable, TableAccumulator, device_run_pairs,
                     plane_run_pairs, reduce_fused, unfuse_words)
 
@@ -333,7 +334,13 @@ class DeviceMerge:
     drain needs no host merge (streaming's sink appends each part to its
     spill files instead).  bits: the key words' value bits, which the
     merge's sort trims its passes to (ops/kernels/sort; default 64
-    each)."""
+    each).
+
+    `tally` counts on the host, with no device read: merges; lanes, the
+    N lanes of every merge summed; rows_sorted, C + N of every merge
+    summed (sentinel rows included: the rows its sort and scans read, so
+    rows_sorted / lanes is the rows sorted a lane taken in); grows;
+    drains; rows_drained, the distinct rows drained."""
 
     def __init__(self, n_words: int, device, to_part, *, l_len: int = 0,
                  r_len: int = 0, bits=None, sink=None):
@@ -349,6 +356,8 @@ class DeviceMerge:
         self.pend_lanes = 0
         self.parts: list = []
         self.sink = sink if sink is not None else self.parts.append
+        self.tally = dict.fromkeys(("merges", "lanes", "rows_sorted",
+                                    "grows", "drains", "rows_drained"), 0)
 
     @property
     def capacity(self) -> int:
@@ -367,9 +376,10 @@ class DeviceMerge:
         self.d_dev = None
 
     def _grow(self, rows: int) -> None:
-        with stagetime.stage("dispatch"):
+        with stagetime.stage("dispatch"), stagetime.stage("dispatch.grow"):
             self.words, self.counts = devmerge.grow_state(self.words,
                                                           self.counts, rows)
+        self.tally["grows"] += 1
 
     def _sync(self) -> None:
         if self.d_dev is not None:
@@ -402,13 +412,16 @@ class DeviceMerge:
                     self.drain()
                     if N > self.capacity:
                         self._grow(pow2)
-        with stagetime.stage("dispatch"):
+        with stagetime.stage("dispatch"), stagetime.stage("dispatch.merge"):
             bw = [torch.cat([p[0][i].reshape(-1) for p in self.pend])
                   for i in range(self.W)]
             bc = torch.cat([p[1].reshape(-1) for p in self.pend])
             self.words, self.counts, self.d_dev = devmerge.merge_batch(
                 self.words, self.counts, bw, bc, bits=self.bits)
         self.bound += N
+        self.tally["merges"] += 1
+        self.tally["lanes"] += N
+        self.tally["rows_sorted"] += self.capacity + N
         self.pend, self.pend_lanes = [], 0
 
     def drain(self) -> None:
@@ -422,14 +435,20 @@ class DeviceMerge:
             if got is None:
                 got = devmerge.fetch_state(self.words, self.counts,
                                            self.distinct)
+        self.tally["drains"] += 1
+        self.tally["rows_drained"] += len(got[1])
         if len(got[1]):
-            self.sink(self.to_part(*got))
+            with stagetime.stage("convert"):
+                self.sink(self.to_part(*got))
         self._reset(self.capacity)
 
     def finish(self) -> list:
-        """Merge what is buffered, drain, and return the parts."""
+        """Merge what is buffered, drain, hand the tally to stagetime's
+        counters (as `devmerge.<name>`), and return the parts."""
         self.flush()
         self.drain()
+        for name, n in self.tally.items():
+            stagetime.count(f"devmerge.{name}", n)
         return self.parts
 
 
@@ -556,24 +575,26 @@ def dispatch_batches(codes: np.ndarray, offsets: np.ndarray,
     """Ship each device batch of a parsed chunk, from batch `start_batch`
     on, to `dev` and yield (the host batch, step(codes, lengths, limits,
     packed_width)).  Batches cross 2-bit packed; the ambiguity code
-    needs a third bit, so skip-invalid mode ships u8 rows.  Each batch's
-    log line times its dispatch plus what the caller does with the
-    yielded value."""
+    needs a third bit, so skip-invalid mode ships u8 rows.  With the log
+    enabled, each batch's line times its dispatch plus what the caller
+    does with the yielded value."""
     packed = cfg.packed_transfer and not cfg.skip_invalid
     n = 0
     for batch in stagetime.stage_iter("batch_prep", device_batches(
             codes, offsets, cfg, packed, span, start_batch)):
-        with Timer() as t:
-            with stagetime.stage("dispatch"):
-                bc = batch.codes.view(np.int32) if packed else batch.codes
-                out = step(_to_device(bc, dev),
-                           _to_device(batch.lengths, dev),
-                           _to_device(batch.start_limits, dev),
-                           batch.packed_width)
-            yield batch, out
+        t0 = time.perf_counter() if log.enabled else 0.0
+        with stagetime.stage("dispatch"):
+            bc = batch.codes.view(np.int32) if packed else batch.codes
+            with stagetime.stage("dispatch.h2d"):
+                on_dev = (_to_device(bc, dev), _to_device(batch.lengths, dev),
+                          _to_device(batch.start_limits, dev))
+            with stagetime.stage("dispatch.step"):
+                out = step(*on_dev, batch.packed_width)
+        yield batch, out
         n += 1
-        log.log("batch", i=n, reads=int((batch.lengths > 0).sum()),
-                secs=round(t.elapsed, 4))
+        if log.enabled:
+            log.log("batch", i=n, reads=int((batch.lengths > 0).sum()),
+                    secs=round(time.perf_counter() - t0, 4))
 
 
 def count_codes(codes: np.ndarray, offsets: np.ndarray, cfg: KmerConfig,
@@ -587,15 +608,17 @@ def count_codes(codes: np.ndarray, offsets: np.ndarray, cfg: KmerConfig,
     batch i, the host merges batch i-1's pairs."""
     dev = resolve_device(device)
     log = stats or StatsLogger(enabled=cfg.stats)
+    extra = {}
     if cfg.effective_mode == "dense":
         table, n_batches = _count_dense(codes, offsets, cfg, dev, log)
     elif (not cfg.compact and cfg.sort_group_keys > 0
           and _devmerge_ok(cfg, dev)):
-        table, n_batches = _count_devmerge(codes, offsets, cfg, dev, log)
+        table, n_batches, extra["devmerge"] = _count_devmerge(
+            codes, offsets, cfg, dev, log)
     else:
         table, n_batches = _count_sort(codes, offsets, cfg, dev, log)
     log.log("done", batches=n_batches, reads=len(offsets) - 1,
-            distinct=table.num_distinct, total=table.total)
+            distinct=table.num_distinct, total=table.total, **extra)
     return table
 
 
@@ -742,7 +765,9 @@ def _count_sort(codes, offsets, cfg: KmerConfig, dev: torch.device,
         merge.close()
     if got is not None:
         fused, cts = got
-        return KmerTable(k, unfuse_words(fused, k), cts), n_batches
+        with stagetime.stage("convert"):
+            words = unfuse_words(fused, k)
+        return KmerTable(k, words, cts), n_batches
     return KmerTable.empty(k), n_batches
 
 
@@ -784,9 +809,10 @@ def devmerge_route(cfg: KmerConfig, dev: torch.device, sink=None):
 
 
 def _count_devmerge(codes, offsets, cfg: KmerConfig, dev: torch.device,
-                    log: StatsLogger) -> tuple[KmerTable, int]:
+                    log: StatsLogger) -> tuple[KmerTable, int, dict]:
     """Sort mode with the table on the device (DeviceMerge): no
-    per-batch readback; the distinct rows cross once a drain."""
+    per-batch readback; the distinct rows cross once a drain.  Also
+    returns the DeviceMerge's tally."""
     k = cfg.n_bases
     step, dm = devmerge_route(cfg, dev)
     n_batches = 0
@@ -796,14 +822,16 @@ def _count_devmerge(codes, offsets, cfg: KmerConfig, dev: torch.device,
         n_batches += 1
     parts = dm.finish()
     if not parts:
-        return KmerTable.empty(k), n_batches
+        return KmerTable.empty(k), n_batches, dm.tally
     if len(parts) == 1:
         fused, cts = parts[0]
     else:
         with stagetime.stage("host_merge"):
             fused, cts = reduce_fused(np.concatenate([f for f, _ in parts]),
                                       np.concatenate([c for _, c in parts]))
-    return KmerTable(k, unfuse_words(fused, k), cts), n_batches
+    with stagetime.stage("convert"):
+        words = unfuse_words(fused, k)
+    return KmerTable(k, words, cts), n_batches, dm.tally
 
 
 def _count_dense(codes, offsets, cfg: KmerConfig, dev: torch.device,

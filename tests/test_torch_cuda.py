@@ -1350,7 +1350,8 @@ def test_two_pass_cli_cuda_equals_cpu(cuda, tmp_path, capsys, cmd):
 @pytest.mark.parametrize("two_pass", [False, True])
 def test_cli_profile_dir_traces_k1(cuda, tmp_path, capsys, two_pass):
     """count --profile-dir on the card: a Chrome trace that names K1's
-    kernel among its device events, and the TSV of the untraced run."""
+    kernel among its device events and the program's layers among its
+    ranges (utils/stagetime), and the TSV of the untraced run."""
     import glob
     import json
     from kmer_tpu_torch.cli import main
@@ -1368,9 +1369,12 @@ def test_cli_profile_dir_traces_k1(cuda, tmp_path, capsys, two_pass):
     assert capsys.readouterr().out == want and want.count("\n") > 1000
     [trace] = glob.glob(str(prof / "*.pt.trace.json"))
     with open(trace) as f:
-        kernels = {e["name"] for e in json.load(f)["traceEvents"]
-                   if e.get("cat") == "kernel"}
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
     assert any("fused_cut_kernel" in name for name in kernels), kernels
+    ranges = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"stage::dispatch", "stage::dispatch.h2d", "stage::dispatch.step",
+            "op::K1"} <= ranges, sorted(ranges)
 
 
 def test_bgzf_counts_as_plain_text_cuda(cuda, tmp_path, monkeypatch):
