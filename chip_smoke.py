@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--only 17|26|27|28]
+    python3 chip_smoke.py [--seed N] [--only 17|26|27|28|30]
 
 Run from the root of a checkout.  Phases, each printing one line (or a
 few) to stdout:
@@ -278,6 +278,15 @@ few) to stdout:
      --multihost -k 101` through cli.main (its TSV) and the legacy sorted
      stream; gapped 40/40 over (2, 1) on 27c's records;
      StreamingCounter paused on (2, 1) and resumed on (4, 1);
+ 30. the device merge's run totals and compaction
+     (kmer_tpu_torch/csrc/merge_reduce.cu) against its plain twin, the
+     state byte for byte and distinct, at the k = 21 merge shape (a
+     2**24-row state of ~10 M distinct 42-bit keys and a C/2 batch of
+     keys partly from the state, a tenth dead, sorted by K6 as
+     merge_batch sorts them) and at W = 2 (a k = 55 merge) and W = 5;
+     each timed in turns beside the twin (CUDA events), one JSON line a
+     shape with its ms, bound ms, plain ms and launches; phase 14 checks
+     that every merge of the k = 21 run launched it;
  29. one JSON line with every kernel of the paths (with its bound and,
      where one PyTorch call computes the same function, that call's
      time; K1 and K7 with a row for each of their two-word and spaced
@@ -286,7 +295,8 @@ few) to stdout:
      the result line {"ok": true, "device": {...}} last.
 
 --only 17 runs phase 1, then phase 17 (the grouped kernels), prints its
-kernel rows and "chip_smoke --only 17: done".
+kernel rows and "chip_smoke --only 17: done"; --only 30 likewise phase
+30.
 --only 26 runs phase 1, then phase 26 and the phases whose tables and
 walls it reads (4, 14, 6, 11), in about a quarter of the whole run, and
 prints "chip_smoke --only 26: done" in place of phase 29: a quick check
@@ -1215,21 +1225,25 @@ def phase_devmerge(dev, path: str, cfg, want_table, host_wall: float,
     table and wall from the same run of this script; returns K6's
     launches, one a merge, and the run's wall."""
     from kmer_tpu_torch import count_fasta
+    from kmer_tpu_torch.ops.kernels import merge_reduce as mr
     from kmer_tpu_torch.ops.kernels import sort as sk
     from kmer_tpu_torch.utils import stagetime
     times: dict[str, float] = {}
     with _merge_probe() as probe:
-        sk.launches = 0
+        sk.launches = mr.launches = 0
         with stagetime.collect(times):
             table = count_fasta(path, cfg.replace(device_merge="on"),
                                 device=dev)
     launches = sk.launches
-    if not (table == want_table and launches == len(probe.states) > 0):
+    if not (table == want_table
+            and launches == mr.launches == len(probe.states) > 0):
         raise AssertionError(f"{label} device-merge table != the host-merge "
-                             f"table, or K6 launches {launches} != merges "
-                             f"{len(probe.states)}")
+                             f"table, or K6 launches {launches} or "
+                             f"merge_reduce launches {mr.launches} != "
+                             f"merges {len(probe.states)}")
     wall = times["total"]
     _say(f"{label}_devmerge equal_to_host_merge=True k6_launches={launches} "
+         f"merge_reduce_launches={mr.launches} "
          f"distinct={table.num_distinct} wall_s={wall} "
          f"host_merge_wall_s={host_wall} {probe.line()}")
     _say(f"{label}_devmerge_stages_s " + json.dumps(times, sort_keys=True))
@@ -1280,6 +1294,89 @@ def time_pair(kernel, plain) -> tuple[float, float]:
     p1, k1, k2, p2 = (time_ms(plain), time_ms(kernel), time_ms(kernel),
                       time_ms(plain))
     return min(k1, k2), min(p1, p2)
+
+
+def phase_merge_reduce_kernel(dev, seed: int) -> dict:
+    """Phase 30: the device merge's run totals and compaction
+    (csrc/merge_reduce.cu) against its plain twin at three merge shapes;
+    returns the kernel's JSON record (without the main-path launch
+    count)."""
+    from kmer_tpu_torch.ops.kernels import merge_reduce as mr
+    from kmer_tpu_torch.ops.kernels import sort as sk
+    gen = torch.Generator(device=dev).manual_seed(seed + 30)
+    sent = sk.SENTINEL
+
+    def rand(n, bits):
+        return torch.randint(0, 1 << bits, (n,), generator=gen, device=dev)
+
+    def merge_rows(C, bits, live):
+        # a sorted unique state of about `live` keys padded with sentinel
+        # rows to C, and C / 2 lanes: half keys of the state, the rest
+        # new, a tenth dead (sentinel, count 0); concatenated and sorted
+        # by K6 as merge_batch sorts them
+        W, N = len(bits), C // 2
+        state = sk.sort_words([rand(live, b) for b in bits])
+        keep = torch.ones(live, dtype=torch.bool, device=dev)
+        keep[1:] = torch.stack([w[1:] != w[:-1] for w in state]).any(0)
+        state = [w[keep] for w in state]
+        d0 = state[0].numel()
+        pick = torch.randint(0, d0, (N,), generator=gen, device=dev)
+        old = torch.rand(N, generator=gen, device=dev) < 0.5
+        dead = torch.rand(N, generator=gen, device=dev) < 0.1
+        batch = [torch.where(dead, sent, torch.where(old, w[pick], rand(N, b)))
+                 for w, b in zip(state, bits)]
+        pad = torch.full((C - d0,), sent, dtype=torch.int64, device=dev)
+        counts = torch.cat([
+            torch.randint(1, 50, (d0,), generator=gen, device=dev),
+            torch.zeros(C - d0, dtype=torch.int64, device=dev),
+            torch.where(dead, 0, torch.randint(1, 4, (N,), generator=gen,
+                                               device=dev))])
+        *words, counts = sk.sort_words(
+            [torch.cat([w, pad, b]) for w, b in zip(state, batch)] + [counts],
+            num_keys=W, bits=list(bits))
+        return words, counts
+
+    rec = {"name": "merge_reduce", "route": "cuda", "source": mr.SOURCE,
+           "replaces": mr.REPLACES, "max_abs_err": 0, "library_ms": None,
+           "cases": {}}
+    for name, C, bits, live in (("k21_merge", 1 << 24, (42,), 10_000_000),
+                                ("k55_merge", 1 << 24, (62, 48), 10_000_000),
+                                ("w5_merge", 1 << 22, (62,) * 5, 2_500_000)):
+        words, counts = merge_rows(C, bits, live)
+        W, R = len(bits), counts.numel()
+        before = mr.launches
+        got = mr.merge_reduce(words, counts, C)
+        torch.cuda.synchronize()
+        want = mr.merge_reduce_ref(words, counts, C)
+        same = (all(torch.equal(g, w) for g, w in zip(got[0], want[0]))
+                and torch.equal(got[1], want[1])
+                and int(got[2]) == int(want[2]))
+        if not same:
+            raise AssertionError(f"merge_reduce != its plain twin ({name})")
+        launched = mr.launches - before
+        kernel = functools.partial(mr.merge_reduce, words, counts, C)
+        plain = functools.partial(mr.merge_reduce_ref, words, counts, C)
+        # in turns (plain, kernel, kernel, plain); the twin takes ~0.1 s a
+        # call, so fewer samples of it
+        p1 = time_ms(plain, reps=5, inner=2)
+        ms = min(time_ms(kernel), time_ms(kernel))
+        plain_ms = min(p1, time_ms(plain, reps=5, inner=2))
+        # each row's words and count read once, the C-row state written
+        # once; a compare a word and a scan step a row
+        b = bound(8 * (W + 1) * (R + C), (W + 2) * R)
+        line = {"merge_reduce": name, "W": W, "C": C, "R": R,
+                "distinct": int(want[2]), "equal_to_plain": True,
+                "ms": ms, "bound_ms": b["bound_ms"],
+                "bound_by": b["bound_by"], "over_bound": ms / b["bound_ms"],
+                "plain_ms": plain_ms, "launches": launched}
+        _say(json.dumps(line))
+        case = {k: line[k] for k in ("W", "C", "R", "ms", "bound_ms",
+                                     "plain_ms")}
+        if name == "k21_merge":
+            rec.update(ms=ms, plain_ms=plain_ms, **b)
+        rec["cases"][name] = case
+        del words, counts, got, want
+    return rec
 
 
 def phase_compact_kernel(dev, seed: int) -> dict:
@@ -4340,10 +4437,11 @@ def build_all() -> None:
     from kmer_tpu_torch.ops.kernels import fused_gapped as fg
     from kmer_tpu_torch.ops.kernels import grouped_count as gk
     from kmer_tpu_torch.ops.kernels import histogram as hk
+    from kmer_tpu_torch.ops.kernels import merge_reduce as mr
     from kmer_tpu_torch.ops.kernels import sort as sk
     from kmer_tpu_torch.pipeline import nativeagg
     loaders = (fe.load, fg.load, ck.load, hk.load, sk.load, ek.load,
-               gk.load, fasta.load_native, nativeagg.load)
+               gk.load, mr.load, fasta.load_native, nativeagg.load)
     with cf.ThreadPoolExecutor(len(loaders)) as ex:
         for fut in [ex.submit(fn) for fn in loaders]:
             fut.result()
@@ -4352,9 +4450,9 @@ def build_all() -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", type=int, choices=[17, 26, 27, 28],
-                    help="phase 17, 26, 27 or 28 alone, with the phases "
-                         "it reads")
+    ap.add_argument("--only", type=int, choices=[17, 26, 27, 28, 30],
+                    help="phase 17, 26, 27, 28 or 30 alone, with the "
+                         "phases it reads")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -4390,6 +4488,11 @@ def main(argv=None) -> int:
             dev, args.seed))}))
         _say("chip_smoke --only 17: done")
         return 0
+    if args.only == 30:
+        _say(json.dumps({"kernels": [phase_merge_reduce_kernel(
+            dev, args.seed)]}))
+        _say("chip_smoke --only 30: done")
+        return 0
     if args.only == 26:
         return mesh_only(dev, args.seed)
     if args.only == 27:
@@ -4397,7 +4500,7 @@ def main(argv=None) -> int:
     if args.only == 28:
         return wide_paths_only(dev, args.seed)
 
-    # phases 2-3, 7-8, 13, 16-17 and 20: each kernel against its plain
+    # phases 2-3, 7-8, 13, 16-17, 20 and 30: each kernel against its plain
     # version
     k1 = phase_kernel(dev, args.seed)
     k3 = phase_gapped_kernel(dev, args.seed)
@@ -4407,6 +4510,7 @@ def main(argv=None) -> int:
     k7 = phase_extract_kernel(dev, args.seed)
     k2a, k2b, k2c = phase_grouped_kernels(dev, args.seed)
     wide = phase_wide_kernels(dev, args.seed)
+    mrk = phase_merge_reduce_kernel(dev, args.seed)
 
     # phases 4-6, 9-12, 14-15 and 18-19: the paths end to end, each
     # kernel's count set to 0 just before its path and read just after
@@ -4418,6 +4522,7 @@ def main(argv=None) -> int:
             dev, path, small, table, wall)
         k6["launches"], devmerge_wall = phase_devmerge(
             dev, path, KmerConfig(k=K, canonical=True), table, wall, "k21")
+        mrk["launches"] = k6["launches"]      # one a merge (phase 14)
         profile_devmerge(dev, path, KmerConfig(k=K, canonical=True))
         phase_parity(dev)
         k3["launches"], gtable, gpath, gwall = phase_gapped_end_to_end(
@@ -4491,7 +4596,7 @@ def main(argv=None) -> int:
                                         sp["sort_group_keys=0"]["k7_spaced"])
 
     _say(json.dumps({"kernels": [k1, k1w, k1s, k2a, k2b, k2c, k3, k4, k5, k6,
-                                 k7, k7w, k7s, *any_width, k5w]}))
+                                 k7, k7w, k7s, *any_width, k5w, mrk]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

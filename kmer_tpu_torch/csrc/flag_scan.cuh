@@ -1,8 +1,9 @@
 // Warp and block primitives over one flag a lane, shared by
 // csrc/compact.cu (K4: "is this lane live", each live lane's rank among
-// the live lanes) and the run lengths of csrc/grouped_count.cu (K2a and
+// the live lanes), the run lengths of csrc/grouped_count.cu (K2a and
 // K2b's warp body: "does a run start here", each start's distance to the
-// next start).
+// next start) and csrc/merge_reduce.cu (the device merge's run totals:
+// "does a run start here", each run's sum).
 //
 // - ballot_rank: a warp ballot of a flag and the number of set flags on
 //   the lanes below this one (__popc of the ballot under %lanemask_lt);
@@ -14,9 +15,16 @@
 //   past this lane, the value fetched from that lane by a shuffle), then
 //   across the warps of the block (block_next: the least of the per-warp
 //   firsts after this warp in shared memory, at most 32 of them).
+// - run pairs (RunSum: runs started, sum since the last start) under the
+//   segmented-sum operator run_combine, (a, s) + (b, t) = (a + b, b > 0 ?
+//   t : s + t), which is associative with (0, 0) its identity: a warp's
+//   inclusive scan (warp_inclusive_run_scan), the block's exclusive scan
+//   (block_exclusive_run_scan) and the total of a warp whose HIGHER lanes
+//   come first (warp_run_total_reversed: a look-back window, lane i the
+//   tile i before the nearest).
 //
-// Every function is called by all 32 lanes of a warp (block_exclusive_scan
-// by every thread of the block).
+// Every function is called by all 32 lanes of a warp (the block scans by
+// every thread of the block).
 //
 // The build helper (kmer_tpu_torch/utils/build.py) rebuilds a kernel when
 // this header is newer than its library.
@@ -124,6 +132,66 @@ __device__ __forceinline__ T block_next(const T* firsts, int warp, int count,
   T v = none;
   for (int q = warp + 1; q < count; ++q) v = firsts[q] < v ? firsts[q] : v;
   return v;
+}
+
+// (runs started, sum of the values since the last start)
+struct RunSum {
+  int runs;
+  int64_t sum;
+};
+
+// x then y: y's sum alone when a run starts in y, else x's and y's
+__device__ __forceinline__ RunSum run_combine(RunSum x, RunSum y) {
+  return {x.runs + y.runs, y.runs > 0 ? y.sum : x.sum + y.sum};
+}
+
+// inclusive scan of v over the warp, lane 0 first
+__device__ __forceinline__ RunSum warp_inclusive_run_scan(RunSum v) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const RunSum u = {__shfl_up_sync(FULL, v.runs, d),
+                      __shfl_up_sync(FULL, v.sum, d)};
+    if (lane >= d) v = run_combine(u, v);
+  }
+  return v;
+}
+
+// v of lanes 31, 30, ..., 0 combined in that order, to every lane
+__device__ __forceinline__ RunSum warp_run_total_reversed(RunSum v) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const RunSum u = {__shfl_down_sync(FULL, v.runs, d),
+                      __shfl_down_sync(FULL, v.sum, d)};
+    if (lane + d < 32) v = run_combine(u, v);
+  }
+  return {__shfl_sync(FULL, v.runs, 0), __shfl_sync(FULL, v.sum, 0)};
+}
+
+// Exclusive prefix of v over the block's threads in thread order, and the
+// block's total in `total`.  warp_tot: WARPS pairs of shared memory, which
+// the caller may rewrite only after another barrier.
+template <int WARPS>
+__device__ __forceinline__ RunSum block_exclusive_run_scan(RunSum v,
+                                                           RunSum* warp_tot,
+                                                           RunSum& total) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const RunSum inc = warp_inclusive_run_scan(v);
+  if (lane == 31) warp_tot[warp] = inc;
+  __syncthreads();
+  RunSum below = {0, 0};
+  total = {0, 0};
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    const RunSum t = warp_tot[w];
+    if (w < warp) below = run_combine(below, t);
+    total = run_combine(total, t);
+  }
+  RunSum in_warp = {__shfl_up_sync(FULL, inc.runs, 1),
+                    __shfl_up_sync(FULL, inc.sum, 1)};
+  if (lane == 0) in_warp = {0, 0};
+  return run_combine(below, in_warp);
 }
 
 }  // namespace flag_scan

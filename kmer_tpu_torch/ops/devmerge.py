@@ -7,9 +7,12 @@ int64 counts, sorted and unique,
 padded with SENTINEL rows (count 0) that sort after every real key.
 Each group of batches merges into it with one stable sort of the key
 words, the counts riding along as payload, as kmer_tpu's lax.sort with
-num_keys = W (kernel K6 on a GPU, through ops/count.sort_words),
-run totals by cumsum and a backward cummin, and a scatter of the run
-starts to the front; the host reads the distinct rows once, at a drain.
+num_keys = W (kernel K6 on a GPU, through ops/count.sort_words), then
+the run totals and the compaction of the run starts to the front
+(ops/kernels/merge_reduce): on a GPU one kernel, a single pass with
+decoupled look-back (csrc/merge_reduce.cu); on the CPU its plain twin,
+kmer_tpu's form, run totals by cumsum and a backward cummin and a
+scatter.  The host reads the distinct rows once, at a drain.
 
 Capacity contract: merge_batch never drops a key as long as C >= distinct
 + N (C the state's rows, N the batch's lanes).  pipeline/count's
@@ -41,6 +44,7 @@ import torch
 
 from ..utils import stagetime
 from .count import sort_words
+from .kernels.merge_reduce import merge_reduce
 from .kernels.sort import SENTINEL
 
 WIRE_PATCH_ROWS = 65536
@@ -84,36 +88,8 @@ def _merge_batch(state_words, state_counts, batch_words, batch_counts,
     ops = ([torch.cat([s, b]) for s, b in zip(state_words, bw)]
            + [torch.cat([state_counts, bc.clamp(min=0)])])
     *kw, counts = sort_words(ops, num_keys=W, bits=bits)
-
-    neq = kw[0][1:] != kw[0][:-1]
-    for w in kw[1:]:
-        neq |= w[1:] != w[:-1]
-    one = torch.ones(1, dtype=torch.bool, device=counts.device)
-    starts = torch.cat([one, neq])
-    ends = torch.cat([neq, one])
-    # run totals without a scatter-add: csum at the run's end minus csum
-    # just before its start.  csum does not decrease, so a row's own run
-    # end carries the smallest csum of all ends at or after the row: a
-    # backward cummin over (csum at ends, else INT64_MAX) spreads it
-    csum = torch.cumsum(counts, 0)
-    at_ends = torch.where(ends, csum, SENTINEL).flip(0)
-    end_csum = torch.cummin(at_ends, 0).values.flip(0)
-    totals = end_csum - (csum - counts)
-
-    # compact the run starts of real keys to the front, in order, with
-    # no host sync: live row i goes to row cumsum(live)[i] - 1, every
-    # other row to the spare row C, which is cut off
-    live = starts & (kw[0] != SENTINEL)
-    pos = torch.cumsum(live, 0)
-    distinct = pos[-1].clone()
-    dest = torch.where(live, pos - 1, C).clamp_(max=C)
-    new_words = [torch.full((C + 1,), SENTINEL, dtype=torch.int64,
-                            device=counts.device).scatter_(0, dest, w)[:C]
-                 for w in kw]
-    new_counts = torch.zeros(C + 1, dtype=torch.int64,
-                             device=counts.device).scatter_(0, dest,
-                                                            totals)[:C]
-    return new_words, new_counts, distinct
+    with stagetime.span("op::merge_reduce"):
+        return merge_reduce(kw, counts, C)
 
 
 def grow_state(state_words, state_counts, new_rows: int):
@@ -191,7 +167,7 @@ def _wire_deltas(state_words, state_counts, rows: int, shift: int):
 def _wire_patch(esc, cols):
     """(P, 1 + len(cols)) int64: (row, *cols) of the escaped rows in row
     order, compacted to the front; row -1 past the escapes.  Scattered
-    through cumsum(esc), as merge_batch compacts, with no host sync."""
+    through cumsum(esc), as merge_reduce_ref compacts, with no host sync."""
     P = WIRE_PATCH_ROWS
     dest = torch.where(esc, torch.cumsum(esc, 0) - 1, P).clamp_(max=P)
     idx = torch.arange(esc.numel(), dtype=torch.int64, device=esc.device)

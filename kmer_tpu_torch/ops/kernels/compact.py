@@ -84,21 +84,29 @@ def load():
     return _lib
 
 
-def _scratch_and_epoch(n: int, dev: torch.device, stream) -> tuple:
-    """The scratch of (dev, stream), grown to hold n lanes' tiles, and the
-    epoch of this call."""
+def scratch_and_epoch(cache: dict, words: int, dev: torch.device, stream,
+                      epoch_bits: int) -> tuple:
+    """The look-back scratch of (dev, stream) in `cache` (a kernel's own
+    dict), grown to `words` int64 words (zeroed), and this call's epoch in
+    [1, 2**epoch_bits); the scratch is zeroed again when the epochs run
+    out.  Shared by K4 and merge_reduce."""
     key = (dev.index, stream.cuda_stream)
-    words = 1 + -(-n // TILE)
-    entry = _scratch.get(key)
+    entry = cache.get(key)
     if entry is None or entry[0].numel() < words:
         entry = [torch.zeros(max(words, 1024), dtype=torch.int64,
                              device=dev), 0]
-        _scratch[key] = entry
+        cache[key] = entry
     entry[1] += 1
-    if entry[1] == 1 << EPOCH_BITS:
+    if entry[1] == 1 << epoch_bits:
         entry[0].zero_()
         entry[1] = 1
     return entry[0], entry[1]
+
+
+def _scratch_and_epoch(n: int, dev: torch.device, stream) -> tuple:
+    """K4's scratch, grown to hold n lanes' tiles, and this call's epoch."""
+    return scratch_and_epoch(_scratch, 1 + -(-n // TILE), dev, stream,
+                             EPOCH_BITS)
 
 
 MAX_PLANES = 4                 # csrc/compact.cu MAX_PLANES

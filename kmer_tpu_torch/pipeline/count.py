@@ -69,6 +69,7 @@ from ..ops.encode import (HI_BASES, PAIR_BASES, bases_bits, gapped_bases,
                           key_planes, pair_r_len, plane_bits, word_bases)
 from ..ops.kernels import compact as compact_kernel
 from ..ops.kernels import fused_gapped
+from ..ops.kernels import merge_reduce
 from ..ops.kernels.extract import extract_gapped_keys, extract_keys
 from ..ops.kernels.fused_extract import fused_extract_count
 from ..ops.kernels.histogram import index_histogram
@@ -340,7 +341,9 @@ class DeviceMerge:
     N lanes of every merge summed; rows_sorted, C + N of every merge
     summed (sentinel rows included: the rows its sort and scans read, so
     rows_sorted / lanes is the rows sorted a lane taken in); grows;
-    drains; rows_drained, the distinct rows drained."""
+    drains; rows_drained, the distinct rows drained; reduced_on_card,
+    the merges whose run totals and compaction ran the kernel
+    (ops/kernels/merge_reduce; all of them on a GPU, none on the CPU)."""
 
     def __init__(self, n_words: int, device, to_part, *, l_len: int = 0,
                  r_len: int = 0, bits=None, sink=None):
@@ -357,7 +360,8 @@ class DeviceMerge:
         self.parts: list = []
         self.sink = sink if sink is not None else self.parts.append
         self.tally = dict.fromkeys(("merges", "lanes", "rows_sorted",
-                                    "grows", "drains", "rows_drained"), 0)
+                                    "grows", "drains", "rows_drained",
+                                    "reduced_on_card"), 0)
 
     @property
     def capacity(self) -> int:
@@ -416,9 +420,11 @@ class DeviceMerge:
             bw = [torch.cat([p[0][i].reshape(-1) for p in self.pend])
                   for i in range(self.W)]
             bc = torch.cat([p[1].reshape(-1) for p in self.pend])
+            launched = merge_reduce.launches
             self.words, self.counts, self.d_dev = devmerge.merge_batch(
                 self.words, self.counts, bw, bc, bits=self.bits)
         self.bound += N
+        self.tally["reduced_on_card"] += merge_reduce.launches - launched
         self.tally["merges"] += 1
         self.tally["lanes"] += N
         self.tally["rows_sorted"] += self.capacity + N

@@ -1,6 +1,7 @@
-"""The CUDA kernels K1, K2a-c, K3, K4, K5, K6 and K7 against their plain
-torch versions (K1 and K7 also for keys of 32 to 63 bases and for spaced
-seeds, K4 and K5 also on (hi, lo) pairs, K5 on W planes), and the whole
+"""The CUDA kernels K1, K2a-c, K3, K4, K5, K6, K7 and the device merge's
+run totals (merge_reduce) against their plain torch versions (K1 and K7
+also for keys of 32 to 63 bases and for spaced seeds, K4 and K5 also on
+(hi, lo) pairs, K5 on W planes), and the whole
 count (sort, the unfused steps, compact, device merge and dense, at
 k <= 31, at 32 <= k <= 63, at any width and with seed masks), the parity
 dump, the HyperLogLog estimate (k = 101 too), streaming, BGZF ingest,
@@ -28,6 +29,7 @@ from kmer_tpu_torch.ops.kernels import fused_extract as fe
 from kmer_tpu_torch.ops.kernels import fused_gapped as fg
 from kmer_tpu_torch.ops.kernels import grouped_count as gk
 from kmer_tpu_torch.ops.kernels import histogram as hk
+from kmer_tpu_torch.ops.kernels import merge_reduce as mr
 from kmer_tpu_torch.ops.kernels import sort as sk
 
 pytestmark = pytest.mark.cuda
@@ -1891,3 +1893,151 @@ def test_mesh_wide_cuda_equals_single_device(cuda, tmp_path, monkeypatch,
     torch.cuda.synchronize()
     assert got == want and want.num_distinct > 0
     assert ek.launches + ek.gapped_launches > 0 and sk.launches > 0
+
+
+# ---------------------------------------------------------------- merge_reduce
+
+def _merge_reduce_both(words, counts, C):
+    """The kernel's and the twin's state for the same sorted rows, on the
+    card; the launches the kernel made."""
+    before = mr.launches
+    got = mr.merge_reduce(words, counts, C)
+    torch.cuda.synchronize()
+    want = mr.merge_reduce_ref(words, counts, C)
+    return got, want, mr.launches - before
+
+
+def _assert_same_state(got, want):
+    assert len(got[0]) == len(want[0])
+    for g, w in zip(got[0], want[0]):
+        assert torch.equal(g, w)
+    assert torch.equal(got[1], want[1])
+    assert got[2].shape == want[2].shape and int(got[2]) == int(want[2])
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 5])
+@pytest.mark.parametrize("name", ["random", "run_longer_than_a_tile",
+                                  "run_over_many_tiles", "tile_of_one_run",
+                                  "all_distinct", "all_sentinel",
+                                  "dead_lanes", "counts_past_2_40", "one_row",
+                                  "not_a_tile_multiple"])
+def test_merge_reduce_kernel_equals_plain(cuda, name, W):
+    """The state byte for byte and distinct, at distinct == C and with
+    room, on the edge cases of the CPU model (test_torch_merge_reduce)."""
+    from test_torch_merge_reduce import _case_rows
+    rng = np.random.default_rng(len(name) * 7 + W)
+    words, counts = _case_rows(rng, name, W)
+    words, counts = [w.to(cuda) for w in words], counts.to(cuda)
+    R = counts.numel()
+    d = int(mr.merge_reduce_ref(words, counts, R)[2])
+    for C in sorted({d, (d + R) // 2, R}):
+        got, want, launched = _merge_reduce_both(words, counts, C)
+        assert launched == 1
+        _assert_same_state(got, want)
+
+
+@pytest.mark.parametrize("W", [1, 2, 5, 17])
+def test_merge_reduce_kernel_merge_shapes(cuda, W):
+    """A real merge's rows: a sorted unique state of C rows, half
+    sentinel, and a batch of C/2 lanes with duplicates and dead lanes,
+    concatenated and sorted by K6 as merge_batch does; W = 17 takes the
+    240-pointer struct."""
+    from kmer_tpu_torch.ops import devmerge
+    g = torch.Generator(device="cuda").manual_seed(W)
+    C = 1 << (18 if W <= 5 else 14)
+    live = C // 2
+    keys = [torch.randint(0, 1 << 20, (live,), device=cuda, generator=g)
+            for _ in range(W)]
+    counts = torch.randint(1, 1 << 12, (live,), device=cuda, generator=g)
+    state_w, state_c, d0 = devmerge.merge_batch(
+        *devmerge.empty_state(C, W, cuda), keys, counts)
+    batch = [torch.randint(0, 1 << 20, (C // 2,), device=cuda, generator=g)
+             for _ in range(W)]
+    bc = torch.randint(-3, 50, (C // 2,), device=cuda, generator=g)
+    bw = [torch.where(bc <= 0, sk.SENTINEL, w) for w in batch]
+    ops = ([torch.cat([s, b]) for s, b in zip(state_w, bw)]
+           + [torch.cat([state_c, bc.clamp(min=0)])])
+    *kw, sc = sk.sort_words(ops, num_keys=W)
+    got, want, launched = _merge_reduce_both(kw, sc, C)
+    assert launched == 1 and int(d0) <= live
+    _assert_same_state(got, want)
+
+
+def test_merge_reduce_kernel_back_to_back(cuda):
+    """Merges reduced one after another with no sync between, growing and
+    shrinking, on the current stream and on a second one: a status word,
+    value or tile counter left by a call would corrupt the next."""
+    from test_torch_merge_reduce import sorted_rows
+    rng = np.random.default_rng(11)
+    cases = []
+    for R, W in [(40 * mr.TILE + 7, 1), (mr.TILE + 1, 2), (3, 1),
+                 (90 * mr.TILE, 1), (5 * mr.TILE, 3), (40 * mr.TILE + 7, 1)]:
+        words, counts = sorted_rows(rng, R, W, R // 4)
+        cases.append(([w.to(cuda) for w in words], counts.to(cuda),
+                      R - R // 8))
+    side = torch.cuda.Stream()
+    outs = []
+    for i, (words, counts, C) in enumerate(cases * 2):
+        with torch.cuda.stream(side if i % 3 == 2 else
+                               torch.cuda.current_stream()):
+            outs.append(mr.merge_reduce(words, counts, C))
+    torch.cuda.synchronize()
+    for (words, counts, C), got in zip(cases * 2, outs):
+        _assert_same_state(got, mr.merge_reduce_ref(words, counts, C))
+
+
+def test_merge_reduce_kernel_longer_call_after_shorter(cuda):
+    """A merge of 100 tiles after one of 8 on a fresh stream, its epoch set
+    to 7, a value the first call leaves in every tile's aggregate and
+    prefix: no word the longer call reads as a status word may be one of
+    those values (a status region that grew over them would take a stale
+    7 for a published aggregate)."""
+    side = torch.cuda.Stream()
+    n0 = 8 * mr.TILE
+    keys0 = torch.arange(n0, dtype=torch.int64, device=cuda)
+    counts0 = torch.ones(n0, dtype=torch.int64, device=cuda)
+    counts0[mr.TILE - 1::mr.TILE] = 7          # each tile's last run: 7
+    from test_torch_merge_reduce import sorted_rows
+    words1, counts1 = sorted_rows(np.random.default_rng(3), 100 * mr.TILE,
+                                  1, 30 * mr.TILE)
+    words1, counts1 = [w.to(cuda) for w in words1], counts1.to(cuda)
+    with torch.cuda.stream(side):
+        first = mr.merge_reduce([keys0], counts0, n0)
+        key = (cuda.index if cuda.index is not None
+               else torch.cuda.current_device(), side.cuda_stream)
+        mr._scratch[key][1] = 6                # the next call's epoch: 7
+        got = mr.merge_reduce(words1, counts1, counts1.numel())
+    side.synchronize()
+    _assert_same_state(first, mr.merge_reduce_ref([keys0], counts0, n0))
+    _assert_same_state(got, mr.merge_reduce_ref(words1, counts1,
+                                                counts1.numel()))
+
+
+def test_merge_reduce_wrapper_checks_inputs(cuda):
+    words = [torch.zeros(10, dtype=torch.int64, device=cuda)]
+    counts = torch.zeros(10, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="0 <= C <= R"):
+        mr.merge_reduce(words, counts, 11)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mr.merge_reduce([torch.zeros(11, dtype=torch.int64,
+                                     device=cuda)[1:]], counts, 5)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mr.merge_reduce(words, counts.to(torch.int32), 5)
+
+
+def test_devmerge_reduced_on_card(cuda, tmp_path):
+    """Every merge of a device-merge count on the card ran the kernel, and
+    the table equals the CPU's."""
+    from kmer_tpu_torch.utils import stagetime
+    path = tmp_path / "g.fasta"
+    path.write_text(genome_reads_fasta(400, 150, genome_len=5000, seed=4,
+                                       error_rate=0.01))
+    kw = dict(k=21, canonical=True, batch_reads=64, max_read_len=160)
+    want = kmer_tpu_torch.count_fasta(str(path), device="cpu", **kw)
+    counts = {}
+    with stagetime.counting(counts):
+        got = kmer_tpu_torch.count_fasta(str(path), device="cuda",
+                                         device_merge="on", **kw)
+    assert got == want
+    assert counts["devmerge.merges"] > 1
+    assert counts["devmerge.reduced_on_card"] == counts["devmerge.merges"]

@@ -135,6 +135,22 @@ def test_profiler_ranges_nest(reads, tmp_path):
                 assert any(a0 <= a and b <= b0 for a0, b0 in outer), child
 
 
+def test_merge_reduce_range_inside_merge_batch(reads, tmp_path):
+    """Each merge's run totals and compaction open an `op::merge_reduce`
+    range inside its `op::merge_batch` range, one a merge, after K6's."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        kmer_tpu_torch.count_fasta(reads, device="cpu", **CFG)
+    ranges = _ranges(prof, tmp_path)
+    merges = [(a, b) for n, a, b in ranges if n == "op::merge_batch"]
+    reduces = [(a, b) for n, a, b in ranges if n == "op::merge_reduce"]
+    sorts = [(a, b) for n, a, b in ranges if n == "op::K6"]
+    assert len(merges) == len(reduces) > 1
+    for a, b in reduces:
+        assert sum(a0 <= a and b <= b0 for a0, b0 in merges) == 1
+        assert any(a0 <= s0 and s1 <= a for a0, b0 in merges
+                   if a0 <= a and b <= b0 for s0, s1 in sorts)
+
+
 def test_devmerge_counters_match_the_merges(reads, monkeypatch):
     """The devmerge.* counters a count hands to stagetime equal the state
     rows C and lanes N that every merge_batch call was given."""
@@ -157,6 +173,8 @@ def test_devmerge_counters_match_the_merges(reads, monkeypatch):
     assert counts["devmerge.grows"] >= 1
     assert counts["devmerge.drains"] >= 1
     assert counts["devmerge.rows_drained"] == table.num_distinct
+    # the plain twin on the CPU: no merge ran the kernel
+    assert counts["devmerge.reduced_on_card"] == 0
 
 
 def test_tracing_leaves_the_table_unchanged(reads, tmp_path):
@@ -194,7 +212,8 @@ def test_stats_done_line_carries_devmerge_counters(reads):
     assert done[0]["devmerge"] == {name[len("devmerge."):]: n
                                    for name, n in counts.items()}
     assert set(done[0]["devmerge"]) == {"merges", "lanes", "rows_sorted",
-                                        "grows", "drains", "rows_drained"}
+                                        "grows", "drains", "rows_drained",
+                                        "reduced_on_card"}
     batches = [x for x in lines if x["event"] == "batch"]
     assert len(batches) == done[0]["batches"] > 1
     assert all(x["reads"] > 0 and x["secs"] >= 0 for x in batches)
